@@ -1,0 +1,216 @@
+"""The intrinsic NeRF MLP: trunk + five heads, as an ``nn.Module``.
+
+Port of ``intrinsicnerf_tpu/models/mlp.py`` (reference ``Semantic_NeRF``):
+
+- trunk: D=8 layers of width W=256, ReLU, skip-concat ``[input_pts, h]``
+  after layer index 4;
+- heads off the trunk feature: sigma (linear), semantic (W->W/2->C),
+  albedo (W->W/2->3, sigmoid), shading (W->W/2->1, sigmoid);
+- view branch: ``feature_linear(h)`` concat dir-PE -> W/2, ReLU ->
+  residual (3, sigmoid);
+- ``rgb = albedo * shading + residual``.
+
+Parameter names are the reference state_dict keys (``pts_linears.{i}``,
+``alpha_linear``, ``semantic_linear.0.0`` ...), so a reference checkpoint
+loads with ``load_state_dict``.  ``nn.Linear`` stores ``[out, in]``; the
+JAX pytree stores ``[in, out]`` (``tools/import_ckpt.py`` converts).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+from torch import nn
+
+from intrinsicnerf_tpu_torch import resolve_device
+from intrinsicnerf_tpu_torch.core.compositing import RawOutputs
+from intrinsicnerf_tpu_torch.core.pe import pe_output_dim, positional_encoding
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    depth: int = 8
+    width: int = 256
+    skips: Tuple[int, ...] = (4,)
+    n_freqs_pos: int = 10
+    n_freqs_dir: int = 4
+    pos_scalar_factor: float = 1.0  # 10.0 for Replica scenes, 1.0 for objects
+    use_viewdirs: bool = True
+    enable_semantic: bool = False
+    num_semantic_classes: int = 0
+    compute_dtype: Any = torch.float32  # trunk matmul dtype (bf16 for speed)
+    use_fused_kernel: bool = False  # fused trunk+heads kernel (D=8/skip 4)
+
+    @property
+    def input_ch(self) -> int:
+        return pe_output_dim(self.n_freqs_pos)
+
+    @property
+    def input_ch_views(self) -> int:
+        return pe_output_dim(self.n_freqs_dir)
+
+
+class IntrinsicMLP(nn.Module):
+    """Weights of one level (coarse or fine).  Built on ``device``
+    (default ``"cuda"``, which raises without a GPU) and initialised
+    from ``generator`` with torch's ``U(+-1/sqrt(fan_in))`` Linear init."""
+
+    def __init__(
+        self,
+        cfg: MLPConfig,
+        device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if any(s >= cfg.depth - 1 for s in cfg.skips):
+            raise ValueError(
+                f"skip indices {cfg.skips} must be < depth-1 ({cfg.depth - 1}): "
+                "the skip concat widens the trunk and must be consumed by a "
+                "later layer"
+            )
+        dev = resolve_device(device)
+        self.cfg = cfg
+        W, D = cfg.width, cfg.depth
+        in_ch, in_ch_views = cfg.input_ch, cfg.input_ch_views
+
+        def lin(fan_in_, fan_out_):  # filled from ``generator`` below
+            return nn.utils.skip_init(nn.Linear, fan_in_, fan_out_)
+
+        fan_in = [in_ch] + [W + in_ch if i in cfg.skips else W for i in range(D - 1)]
+        self.pts_linears = nn.ModuleList([lin(f, W) for f in fan_in])
+        self.alpha_linear = lin(W, 1)
+        self.albedo_linear1 = lin(W, W // 2)
+        self.albedo_linear2 = lin(W // 2, 3)
+        self.shading_linear1 = lin(W, W // 2)
+        self.shading_linear2 = lin(W // 2, 1)
+        self.feature_linear = lin(W, W)
+        self.views_linears = nn.ModuleList([lin(W + in_ch_views, W // 2)])
+        self.residual_linear = lin(W // 2, 3)
+        if cfg.enable_semantic:
+            if cfg.num_semantic_classes <= 0:
+                raise ValueError("enable_semantic needs num_semantic_classes > 0")
+            self.semantic_linear = nn.Sequential(
+                nn.Sequential(lin(W, W // 2), nn.ReLU()),
+                lin(W // 2, cfg.num_semantic_classes),
+            )
+
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    bound = 1.0 / m.in_features ** 0.5
+                    m.weight.uniform_(-bound, bound, generator=g)
+                    m.bias.uniform_(-bound, bound, generator=g)
+        self.to(dev)
+        self._fused: Optional[fm.FusedOperands] = None
+        self._fused_key: Optional[tuple] = None
+
+    def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
+        """The fused kernel's operands for the current weights under
+        ``cfg``, packed on the first call and kept until ``cfg`` changes
+        or a parameter is changed in place (an optimizer step,
+        ``load_state_dict``), replaced or moved.  A write through
+        ``.data`` bypasses the version counter and is not seen."""
+        key = (cfg, *((p.data_ptr(), p._version) for p in self.parameters()))
+        if key != self._fused_key:
+            dev = next(self.parameters()).device
+            self._fused = fm.fused_operands(self.state_dict(), cfg, dev)
+            self._fused_key = key
+        return self._fused
+
+    def forward(self, pts_embedded, dirs_embedded, want_endpoint_feat=False):
+        return apply_mlp(self, self.cfg, pts_embedded, dirs_embedded, want_endpoint_feat)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    w, b = layer.weight, layer.bias
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    return torch.nn.functional.linear(x, w, b.to(x.dtype))
+
+
+def apply_mlp(
+    model: IntrinsicMLP,
+    cfg: MLPConfig,
+    pts_embedded: torch.Tensor,  # [..., input_ch]
+    dirs_embedded: Optional[torch.Tensor],  # [..., input_ch_views]
+    want_endpoint_feat: bool = False,
+) -> RawOutputs:
+    """Evaluate the network on embedded points/dirs; any leading batch dims."""
+    cd = cfg.compute_dtype
+    h = pts_embedded.to(cd)
+    inp = h
+    for i, layer in enumerate(model.pts_linears):
+        h = torch.relu(_dense(layer, h, cd))
+        if i in cfg.skips:
+            h = torch.cat([inp, h], dim=-1)
+
+    h32 = h.float()
+    sigma = _dense(model.alpha_linear, h32)[..., 0]
+    albedo = torch.sigmoid(
+        _dense(model.albedo_linear2, torch.relu(_dense(model.albedo_linear1, h32)))
+    )
+    shading = torch.sigmoid(
+        _dense(model.shading_linear2, torch.relu(_dense(model.shading_linear1, h32)))
+    )[..., 0]
+
+    sem_logits = None
+    if cfg.enable_semantic:
+        sem_logits = _dense(
+            model.semantic_linear[1],
+            torch.relu(_dense(model.semantic_linear[0][0], h32)),
+        )
+
+    if cfg.use_viewdirs and dirs_embedded is not None:
+        feature = _dense(model.feature_linear, h, cd)
+        hv = torch.cat([feature, dirs_embedded.to(cd)], dim=-1)
+        hv32 = torch.relu(_dense(model.views_linears[0], hv, cd)).float()
+        residual = torch.sigmoid(_dense(model.residual_linear, hv32))
+    else:
+        # plain-NeRF mode: no view-dependent residual
+        residual = torch.zeros_like(albedo)
+        hv32 = h32
+
+    rgb = albedo * shading[..., None] + residual
+    return RawOutputs(
+        rgb=rgb,
+        sigma=sigma,
+        albedo=albedo,
+        shading=shading,
+        residual=residual,
+        sem_logits=sem_logits,
+        endpoint_feat=hv32 if want_endpoint_feat else None,
+    )
+
+
+def eval_points(
+    model: IntrinsicMLP,
+    cfg: MLPConfig,
+    pts: torch.Tensor,  # [N, S, 3] world-space sample positions
+    viewdirs: Optional[torch.Tensor],  # [N, 3] unit view directions
+    want_endpoint_feat: bool = False,
+) -> RawOutputs:
+    """PE + MLP over a ray batch.  The reference architecture (D=8, skip
+    4, viewdirs on, PE and classes fitting the packed layout) goes
+    through the fused kernel when ``cfg.use_fused_kernel`` is set."""
+    if (
+        cfg.use_fused_kernel
+        and not want_endpoint_feat
+        and cfg.depth == 8
+        and tuple(cfg.skips) == (4,)
+        and cfg.use_viewdirs
+        and viewdirs is not None
+        and cfg.input_ch <= fm.DIR_OFF
+        and cfg.input_ch_views <= fm.IN_W - fm.DIR_OFF
+        and 8 + max(cfg.num_semantic_classes, 1) <= fm.OUT_W
+    ):
+        return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
+    pe_pts = positional_encoding(pts, cfg.n_freqs_pos, scalar_factor=cfg.pos_scalar_factor)
+    pe_dirs = None
+    if cfg.use_viewdirs and viewdirs is not None:
+        pe_dirs = positional_encoding(viewdirs, cfg.n_freqs_dir)
+        pe_dirs = pe_dirs[..., None, :].expand(*pts.shape[:-1], pe_dirs.shape[-1])
+    return apply_mlp(model, cfg, pe_pts, pe_dirs, want_endpoint_feat)

@@ -1,0 +1,365 @@
+"""Fused trunk + heads MLP forward: one hand-written CUDA kernel for Hopper.
+
+Port of ``intrinsicnerf_tpu/ops/fused_mlp.py`` (the Pallas ``_fwd_kernel``
+launched by ``_run_fwd``).  The kernel (``csrc/fused_mlp_fwd.cu``) takes
+a packed ``[P, 8]`` point block ``[x, y, z, dx, dy, dz, 1, 0]``, expands
+the positional encoding on chip (``feat = m*sin(in8 @ F) + (1-m)*(in8 @
+F)`` in fp32), runs the 8x256 skip trunk and the five heads with bf16
+operands and fp32 accumulation, and writes one packed ``[P, 128]`` bf16
+output: ``[0]=sigma, [1:4]=albedo_logit, [4]=shading_logit,
+[5:8]=residual_logit, [8:8+C]=sem_logits``.  The caller applies the
+sigmoids.  The output crosses device memory in bf16 as in the JAX
+package: the logits carry bf16-matmul noise regardless.
+
+``fused_mlp_forward`` is the wrapper.  It takes ``FusedOperands``, the
+weights packed once (``fused_operands``; ``IntrinsicMLP`` keeps them
+until its weights change), so a launch does no packing, casting or
+host-to-device copy.  On a CPU tensor it runs
+``fused_mlp_forward_plain``, the plain PyTorch version of the same
+arithmetic; on a CUDA tensor it launches the kernel (counting the
+launch in ``fused_mlp_forward.launches``) or raises.  The kernel library
+is compiled at first use by ``ops/build.py``; importing this module
+needs no compiler.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, NamedTuple, Tuple
+
+import torch
+
+from intrinsicnerf_tpu_torch.core.compositing import RawOutputs
+
+IN_W = 128  # packed PE width: pos-PE at 0, dir-PE at DIR_OFF
+DIR_OFF = 64
+OUT_W = 128
+IN8_W = 8  # packed kernel input: [x, y, z, dx, dy, dz, 1, 0]
+KERNEL_WIDTH = 256  # trunk width the CUDA kernel is compiled for
+
+Packed = Dict[str, torch.Tensor]
+
+_PACKED_KEYS = (
+    "w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4",
+    "w5x", "w5h", "b5", "w6", "b6", "w7", "b7",
+    "w_sig", "b_sig", "w_a1", "b_a1", "w_a2", "b_a2",
+    "w_s1", "b_s1", "w_s2", "b_s2", "w_f", "b_f",
+    "wv_f", "wv_d", "b_v", "w_r", "b_r",
+    "w_m1", "b_m1", "w_m2", "b_m2",
+)
+# the kernel's flat buffers (csrc/fused_mlp_fwd.cu reads them in this order)
+_W_ORDER = (
+    "w0", "w1", "w2", "w3", "w4", "w5x", "w5h", "w6", "w7",
+    "w_sig", "w_a1", "w_a2", "w_s1", "w_s2", "w_f", "wv_f", "wv_d", "w_r",
+    "w_m1", "w_m2",
+)
+_B_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7",
+            "b_a1", "b_s1", "b_f", "b_v", "b_m1")
+_B_OUT = ("b_sig", "b_a2", "b_s2", "b_r", "b_m2")  # summed into one out bias
+
+
+def pe_constants(cfg, device=None):
+    """Frequency matrix F ``[8, 128]`` and sinusoid mask ``[1, 128]`` with
+    ``feat = m*sin(in8 @ F) + (1-m)*(in8 @ F)`` equal to
+    ``positional_encoding`` in the packed layout.  Cosines come from a
+    pi/2 phase on the constant-1 input column."""
+    F = torch.zeros(IN8_W, IN_W, dtype=torch.float32)
+    m = torch.zeros(1, IN_W, dtype=torch.float32)
+
+    def fill(col0, dim0, n_freqs, scale):
+        col = col0
+        for d in range(3):  # identity block
+            F[dim0 + d, col + d] = 1.0 / scale
+        col += 3
+        for k in range(n_freqs):
+            for trig in range(2):  # sin then cos
+                for d in range(3):
+                    F[dim0 + d, col] = (2.0**k) / scale
+                    if trig == 1:
+                        F[6, col] = math.pi / 2.0
+                    m[0, col] = 1.0
+                    col += 1
+
+    fill(0, 0, cfg.n_freqs_pos, cfg.pos_scalar_factor)
+    fill(DIR_OFF, 3, cfg.n_freqs_dir, 1.0)
+    return F.to(device), m.to(device)
+
+
+def _pad2(a, rows, cols, row_off=0, col_off=0):
+    out = a.new_zeros((rows, cols), dtype=torch.float32)
+    out[row_off : row_off + a.shape[0], col_off : col_off + a.shape[1]] = a
+    return out
+
+
+def _padb(b, cols, col_off=0):
+    out = b.new_zeros((1, cols), dtype=torch.float32)
+    out[0, col_off : col_off + b.shape[0]] = b
+    return out
+
+
+def pack_weights(sd: Mapping[str, torch.Tensor], cfg) -> Packed:
+    """Model state_dict (reference keys, ``[out, in]`` weights) -> the
+    dense padded ``[in, out]`` blocks the kernel consumes."""
+    W = cfg.width
+    H = W // 2
+    in_ch = cfg.input_ch
+    if cfg.depth != 8 or tuple(cfg.skips) != (4,):
+        raise ValueError("fused kernel implements the reference architecture (D=8, skip 4)")
+    if 8 + max(cfg.num_semantic_classes, 1) > OUT_W:
+        raise ValueError("too many semantic classes for the packed output")
+    if in_ch > DIR_OFF or cfg.input_ch_views > IN_W - DIR_OFF:
+        raise ValueError("PE widths exceed the packed input slots")
+
+    def k(name):  # [in, out]
+        return sd[f"{name}.weight"].t()
+
+    def b(name):
+        return sd[f"{name}.bias"]
+
+    p: Packed = {"w0": _pad2(k("pts_linears.0"), IN_W, W), "b0": _padb(b("pts_linears.0"), W)}
+    for i in range(1, 5):
+        p[f"w{i}"] = _pad2(k(f"pts_linears.{i}"), W, W)
+        p[f"b{i}"] = _padb(b(f"pts_linears.{i}"), W)
+    w5 = k("pts_linears.5")  # rows = [input_pts(63) | h(256)]
+    p["w5x"] = _pad2(w5[:in_ch], IN_W, W)
+    p["w5h"] = _pad2(w5[in_ch:], W, W)
+    p["b5"] = _padb(b("pts_linears.5"), W)
+    for i in (6, 7):
+        p[f"w{i}"] = _pad2(k(f"pts_linears.{i}"), W, W)
+        p[f"b{i}"] = _padb(b(f"pts_linears.{i}"), W)
+
+    # second-stage head weights land in disjoint column slots of the
+    # shared [*, OUT_W] output
+    p["w_sig"] = _pad2(k("alpha_linear"), W, OUT_W, col_off=0)
+    p["b_sig"] = _padb(b("alpha_linear"), OUT_W, col_off=0)
+    p["w_a1"] = _pad2(k("albedo_linear1"), W, H)
+    p["b_a1"] = _padb(b("albedo_linear1"), H)
+    p["w_a2"] = _pad2(k("albedo_linear2"), H, OUT_W, col_off=1)
+    p["b_a2"] = _padb(b("albedo_linear2"), OUT_W, col_off=1)
+    p["w_s1"] = _pad2(k("shading_linear1"), W, H)
+    p["b_s1"] = _padb(b("shading_linear1"), H)
+    p["w_s2"] = _pad2(k("shading_linear2"), H, OUT_W, col_off=4)
+    p["b_s2"] = _padb(b("shading_linear2"), OUT_W, col_off=4)
+    p["w_f"] = _pad2(k("feature_linear"), W, W)
+    p["b_f"] = _padb(b("feature_linear"), W)
+    wv = k("views_linears.0")  # [W + in_ch_views, H]
+    p["wv_f"] = _pad2(wv[:W], W, H)
+    p["wv_d"] = _pad2(wv[W:], IN_W, H, row_off=DIR_OFF)
+    p["b_v"] = _padb(b("views_linears.0"), H)
+    p["w_r"] = _pad2(k("residual_linear"), H, OUT_W, col_off=5)
+    p["b_r"] = _padb(b("residual_linear"), OUT_W, col_off=5)
+    if cfg.enable_semantic:
+        p["w_m1"] = _pad2(k("semantic_linear.0.0"), W, H)
+        p["b_m1"] = _padb(b("semantic_linear.0.0"), H)
+        p["w_m2"] = _pad2(k("semantic_linear.1"), H, OUT_W, col_off=8)
+        p["b_m2"] = _padb(b("semantic_linear.1"), OUT_W, col_off=8)
+    else:
+        ref = p["w0"]
+        p["w_m1"] = ref.new_zeros((W, H))
+        p["b_m1"] = ref.new_zeros((1, H))
+        p["w_m2"] = ref.new_zeros((H, OUT_W))
+        p["b_m2"] = ref.new_zeros((1, OUT_W))
+    return p
+
+
+def unpack_weights(p: Packed, cfg) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`pack_weights`: a state_dict with reference keys."""
+    W = cfg.width
+    H = W // 2
+    C = cfg.num_semantic_classes
+    in_ch, in_ch_views = cfg.input_ch, cfg.input_ch_views
+    sd: Dict[str, torch.Tensor] = {}
+
+    def lay(name, wk, bk, rows, cols, row_off=0, col_off=0):
+        w = p[wk][row_off : row_off + rows, col_off : col_off + cols]
+        sd[f"{name}.weight"] = w.t().contiguous()
+        sd[f"{name}.bias"] = p[bk][0, col_off : col_off + cols].contiguous()
+
+    lay("pts_linears.0", "w0", "b0", in_ch, W)
+    for i in range(1, 5):
+        lay(f"pts_linears.{i}", f"w{i}", f"b{i}", W, W)
+    w5 = torch.cat([p["w5x"][:in_ch], p["w5h"][:W]], dim=0)
+    sd["pts_linears.5.weight"] = w5.t().contiguous()
+    sd["pts_linears.5.bias"] = p["b5"][0, :W].contiguous()
+    for i in (6, 7):
+        lay(f"pts_linears.{i}", f"w{i}", f"b{i}", W, W)
+    lay("alpha_linear", "w_sig", "b_sig", W, 1)
+    lay("albedo_linear1", "w_a1", "b_a1", W, H)
+    lay("albedo_linear2", "w_a2", "b_a2", H, 3, col_off=1)
+    lay("shading_linear1", "w_s1", "b_s1", W, H)
+    lay("shading_linear2", "w_s2", "b_s2", H, 1, col_off=4)
+    lay("feature_linear", "w_f", "b_f", W, W)
+    wv = torch.cat([p["wv_f"][:W], p["wv_d"][DIR_OFF : DIR_OFF + in_ch_views]], dim=0)
+    sd["views_linears.0.weight"] = wv.t().contiguous()
+    sd["views_linears.0.bias"] = p["b_v"][0, :H].contiguous()
+    lay("residual_linear", "w_r", "b_r", H, 3, col_off=5)
+    if cfg.enable_semantic:
+        lay("semantic_linear.0.0", "w_m1", "b_m1", W, H)
+        lay("semantic_linear.1", "w_m2", "b_m2", H, C, col_off=8)
+    return sd
+
+
+def is_packed(params) -> bool:
+    """True when ``params`` is already the kernel's packed dict."""
+    return isinstance(params, Mapping) and "w0" in params and "pts_linears.0.weight" not in params
+
+
+def build_in8(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """``[N, S, 3]`` pts + ``[N, 3]`` dirs -> packed ``[N*S, 8]`` input
+    ``[x, y, z, dx, dy, dz, 1, 0]``.  ``viewdirs`` is required: the
+    constant-1 phase column makes zero dirs encode as cos(0)=1."""
+    if viewdirs is None:
+        raise ValueError(
+            "fused kernel requires viewdirs; use models.mlp.eval_points "
+            "(unfused path) for the viewdirs-off architecture"
+        )
+    n, s, _ = pts.shape
+    out = pts.new_zeros((n, s, IN8_W), dtype=torch.float32)
+    out[..., 0:3] = pts
+    out[..., 3:6] = viewdirs[:, None, :]
+    out[..., 6] = 1.0
+    return out.reshape(n * s, IN8_W)
+
+
+def _mm(a, b):
+    """bf16 operands, fp32 accumulation.  Products of bf16 values are exact
+    in fp32 (and in TF32), so the result does not depend on allow_tf32."""
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def fused_mlp_forward_plain(packed: Packed, pe_consts, in8: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``[P, 8]`` -> ``[P, 128]`` bf16.
+    Mirrors the Pallas ``_forward_tile``; activations are rounded to bf16
+    where ``_mm`` casts them.  The PE angles are 8 elementwise fp32
+    multiply-adds, never a matmul."""
+    F, m = pe_consts
+    z = in8[:, 0:1] * F[0]
+    for k in range(1, IN8_W):
+        z = z + in8[:, k : k + 1] * F[k]
+    feat = m * torch.sin(z) + (1.0 - m) * z
+    w = packed
+    relu = torch.relu
+    h = relu(_mm(feat, w["w0"]) + w["b0"])
+    for i in range(1, 5):
+        h = relu(_mm(h, w[f"w{i}"]) + w[f"b{i}"])
+    h = relu(_mm(h, w["w5h"]) + _mm(feat, w["w5x"]) + w["b5"])
+    h = relu(_mm(h, w["w6"]) + w["b6"])
+    H = relu(_mm(h, w["w7"]) + w["b7"])
+    a1 = relu(_mm(H, w["w_a1"]) + w["b_a1"])
+    s1 = relu(_mm(H, w["w_s1"]) + w["b_s1"])
+    m1 = relu(_mm(H, w["w_m1"]) + w["b_m1"])
+    f = _mm(H, w["w_f"]) + w["b_f"]
+    v = relu(_mm(f, w["wv_f"]) + _mm(feat, w["wv_d"]) + w["b_v"])
+    out = (
+        _mm(H, w["w_sig"]) + w["b_sig"]
+        + _mm(a1, w["w_a2"]) + w["b_a2"]
+        + _mm(s1, w["w_s2"]) + w["b_s2"]
+        + _mm(v, w["w_r"]) + w["b_r"]
+        + _mm(m1, w["w_m2"]) + w["b_m2"]
+    )
+    return out.to(torch.bfloat16)
+
+
+def kernel_buffers(packed: Packed):
+    """The kernel's flat operands: all weights as one bf16 buffer (each
+    block ``[in, out]`` row-major, in ``_W_ORDER``) and all biases as one
+    fp32 buffer (``_B_ORDER`` then the summed output bias)."""
+    wbuf = torch.cat([packed[k].to(torch.bfloat16).reshape(-1) for k in _W_ORDER])
+    b_out = packed[_B_OUT[0]]
+    for k in _B_OUT[1:]:
+        b_out = b_out + packed[k]
+    bbuf = torch.cat([packed[k].reshape(-1) for k in _B_ORDER] + [b_out.reshape(-1)])
+    return wbuf.contiguous(), bbuf.float().contiguous()
+
+
+class FusedOperands(NamedTuple):
+    """Everything the fused forward reads besides the points, made once
+    per set of weights by :func:`fused_operands`."""
+
+    packed: Packed  # fp32 [in, out] blocks: the plain version's operands
+    pe: Tuple[torch.Tensor, torch.Tensor]  # pe_mat [8, 128], sin_mask [1, 128]
+    wbuf: torch.Tensor  # the kernel's flat bf16 weights
+    bbuf: torch.Tensor  # the kernel's flat fp32 biases
+
+
+def fused_operands(params, cfg, device) -> FusedOperands:
+    """Pack ``params`` (a model state_dict or an already-packed dict) on
+    their device and build the PE constants on ``device``."""
+    packed = params if is_packed(params) else pack_weights(params, cfg)
+    wbuf, bbuf = kernel_buffers(packed)
+    return FusedOperands(packed, pe_constants(cfg, device), wbuf, bbuf)
+
+
+def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
+    if in8.dtype != torch.float32 or in8.dim() != 2 or in8.shape[1] != IN8_W:
+        raise ValueError(f"in8 must be float32 [P, {IN8_W}], got {in8.dtype} {tuple(in8.shape)}")
+    if ops.packed["w1"].shape != (KERNEL_WIDTH, KERNEL_WIDTH):
+        raise ValueError(
+            f"the CUDA kernel is built for width {KERNEL_WIDTH}, got "
+            f"{tuple(ops.packed['w1'].shape)}"
+        )
+    for t in (*ops.pe, ops.wbuf, ops.bbuf):
+        if t.device != in8.device:
+            raise ValueError("fused MLP operands must all lie on in8's device")
+
+
+def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
+    """``[P, 8]`` fp32 -> ``[P, 128]`` bf16 packed raw outputs.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (one launch, counted in ``fused_mlp_forward.launches``)."""
+    if in8.device.type == "cpu":
+        return fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+    if in8.device.type != "cuda":
+        raise ValueError(f"fused MLP: unsupported device {in8.device}")
+    _check_cuda_operands(ops, in8)
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("fused_mlp_fwd")
+    in8 = in8.contiguous()
+    pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
+    n = in8.shape[0]
+    out = torch.empty((n, OUT_W), dtype=torch.bfloat16, device=in8.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(in8.device):
+        err = lib.fused_mlp_fwd(
+            in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(),
+            ops.wbuf.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(in8.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
+    fused_mlp_forward.launches += 1
+    return out
+
+
+fused_mlp_forward.launches = 0
+
+
+def fused_mlp_apply(params, cfg, in8: torch.Tensor) -> torch.Tensor:
+    """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.  ``params``
+    is ``FusedOperands``, a model state_dict or an already-packed dict."""
+    if not isinstance(params, FusedOperands):
+        params = fused_operands(params, cfg, in8.device)
+    return fused_mlp_forward(params, in8).float()
+
+
+def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor) -> RawOutputs:
+    """Drop-in for ``models.mlp.eval_points`` on the reference
+    architecture (D=8, skip 4, viewdirs on)."""
+    n, s, _ = pts.shape
+    c = cfg.num_semantic_classes
+    out = fused_mlp_apply(params, cfg, build_in8(pts, viewdirs)).reshape(n, s, OUT_W)
+    albedo = torch.sigmoid(out[..., 1:4])
+    shading = torch.sigmoid(out[..., 4])
+    residual = torch.sigmoid(out[..., 5:8])
+    return RawOutputs(
+        rgb=albedo * shading[..., None] + residual,
+        sigma=out[..., 0],
+        albedo=albedo,
+        shading=shading,
+        residual=residual,
+        sem_logits=out[..., 8 : 8 + c] if cfg.enable_semantic else None,
+        endpoint_feat=None,
+    )

@@ -5,16 +5,27 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout,
-holds each against its plain PyTorch version on the card, renders one
-full 320x240 view of the Replica scene configuration
+It builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per kernel, all at once), holds each against its plain PyTorch
+version on the card at the shapes its path gives it, and drives the two
+paths of the Replica scene configuration
 (``configs/scene/replica_room_0.yaml``: 8x256 trunk with the skip, five
-heads, C = 27 semantic classes, 64 + 128 samples, 32,768-ray chunks)
-from seeded random weights through ``render_views``, checks that the
-view went through the kernels and agrees with the plain version on a
-subset of its rays, and prints what it measured.  The last line is
-``{"ok": true, "device": {...}}``; any failed phase exits non-zero and
-prints no such line.  It needs one card and imports nothing of JAX.
+heads, C = 27 semantic classes, 64 + 128 samples) from seeded random
+weights:
+
+- serving: one full 320x240 view through ``render_views`` (32,768-ray
+  chunks), which must go through kernel 1 and agree with the plain
+  version on a subset of its rays;
+- training: ``train/step.py:make_train_step`` at 512 pairs per step on
+  four synthetic 320x240 views, which must launch kernels 1 and 2 twice
+  each per step, keep every loss term finite, move the parameters,
+  lower the loss on a fixed batch, and agree with the same step run by
+  the plain versions on the host.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after.  It prints what it measured; the last line is ``{"ok":
+true, "device": {...}}``, and any failed phase exits non-zero and prints
+no such line.  It needs one card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "scene", "replica_room_0.yaml")
@@ -42,6 +54,14 @@ KERNEL_TOL = 2e-2
 # sigma moves some importance samples along their ray, so a per-ray max
 # would measure that resampling, not the kernel
 VIEW_TOL = 1e-2
+# kernel 2 vs plain over the real parameter slots, overall and per block:
+# the gradient bounds of tests/test_fused_mlp.py
+BWD_COS, BWD_REL = 0.999, 1e-2
+# the training step on the card vs the same step by the plain versions
+STEP_REL, STEP_COS = 1e-2, 0.99
+N_VIEWS = 4  # synthetic training views
+TIMED_STEPS, WARM_STEPS, FIXED_STEPS = 20, 3, 30
+SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
@@ -80,6 +100,272 @@ def fused_work(n_points: int, macs_per_point: int, n_weights: int, n_bias: int):
     return flops, nbytes
 
 
+def loss_cotangent(out, n_used: int, gen, torch):
+    """The bf16 cotangent of ``0.5 * sum((out - target)^2) / P`` over the
+    output columns the model reads, with a seeded uniform target: coherent
+    across points, as a training loss's is."""
+    target = torch.rand(out.shape, generator=gen, device=out.device)
+    g = (out.float() - target) / out.shape[0]
+    g[:, n_used:] = 0.0
+    return g.to(torch.bfloat16)
+
+
+def grad_agreement(got, ref, masks, torch):
+    """(cosine, max |d| / max |ref|) over the real parameter slots, for
+    all blocks together and for each block with a nonzero gradient."""
+    def cos_rel(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos = float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+        return cos, float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
+    per = {k: cos_rel(got[k] * masks[k], ref[k] * masks[k]) for k in keys}
+    overall = cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
+                      torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
+    return overall, per
+
+
+def profile_window(fn, torch):
+    """(wall ms, device busy ms, {kernel name: device ms}) of one call of
+    ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kern_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern_ev:
+        by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return wall_ms, sum(by_name.values()), by_name
+
+
+def top(by_name, n=8):
+    """The ``n`` largest entries, names cut short (template arguments make them long)."""
+    cut = {}
+    for k, v in by_name.items():
+        cut[k[:60]] = cut.get(k[:60], 0.0) + v
+    return {k: round(v, 3) for k, v in sorted(cut.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
+    """Kernel 2 against its plain version, then the training path: timed
+    steps, a fixed-batch run, the step against the plain versions on the
+    host, and a profiled step.  Returns what the kernels line needs."""
+    from intrinsicnerf_tpu_torch.cluster.assign import map_drgb, table_from_numpy
+    from intrinsicnerf_tpu_torch.core.rays import create_rays
+    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
+    from intrinsicnerf_tpu_torch.data.samplers import RayBatch, sample_ray_pairs
+    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
+    from intrinsicnerf_tpu_torch.train.step import (
+        DataPools, TrainState, create_train_state, make_train_step)
+
+    rcfg, tcfg = fc.render, fc.train
+    n_rays = 2 * tcfg.n_rays  # pixels and their neighbours
+    n_coarse_pts = n_rays * rcfg.n_coarse
+    n_fine_pts = n_rays * (rcfg.n_coarse + rcfg.n_importance)
+
+    # the backward's multiply-adds per point, counted on the network's own
+    # layers: the forward without the five output products, the weight
+    # product of every layer, the input product of every layer whose input
+    # depends on parameters (all but the PE-fed w0, w5x and wv_d)
+    probe = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
+    lin = dict((n, m) for n, m in probe.named_modules() if isinstance(m, torch.nn.Linear))
+    out_macs = sum(lin[n].weight.numel() for n in ("alpha_linear", "albedo_linear2",
+                                                    "shading_linear2", "residual_linear",
+                                                    "semantic_linear.1"))
+    pe_macs = 2 * mcfg.input_ch * mcfg.width + mcfg.input_ch_views * (mcfg.width // 2)
+    bwd_macs = (macs - out_macs) + macs + (macs - pe_macs)
+    say("work", bwd_macs_per_point=bwd_macs, fwd_recompute=macs - out_macs, weight_products=macs,
+        input_products=macs - pe_macs)
+
+    # ---- kernel 2 vs plain at the step's shapes ----
+    ops = probe.fused_operands(mcfg)
+    masks = fm.packed_grad_masks(dict(probe.named_parameters()), mcfg)
+    r0 = view_rays[0, :n_rays]
+    def in8_for(n_samples):
+        z = stratified_z_vals(r0[:, 6:7], r0[:, 7:8], n_samples)
+        return fm.build_in8(r0[:, None, 0:3] + r0[:, None, 3:6] * z[..., None], r0[:, 8:11])
+    in8_fine = in8_for(rcfg.n_coarse + rcfg.n_importance)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = (("coarse_step", in8_for(rcfg.n_coarse)), ("fine_step", in8_fine),
+             ("ragged", in8_fine[:100_003]))
+    bwd_timing, bwd_max_err, fwd_step_ms = {}, 0.0, {}
+    n_used = 8 + mcfg.num_semantic_classes
+    for label, in8 in cases:
+        n = in8.shape[0]
+        fwd_step_ms[label] = cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch)
+        g = loss_cotangent(fm.fused_mlp_forward(ops, in8), n_used, gen, torch)
+        got = fm.fused_mlp_backward(ops, in8, g)
+        again = fm.fused_mlp_backward(ops, in8, g)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(got[k], again[k]) for k in got)
+        ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+        (cos, rel), per = grad_agreement(got, ref, masks, torch)
+        worst_cos = min(per.items(), key=lambda kv: kv[1][0])
+        worst_rel = max(per.items(), key=lambda kv: kv[1][1])
+        bwd_max_err = max(bwd_max_err, max(float(((got[k] - ref[k]) * masks[k]).abs().max())
+                                           for k in got))
+        flops = 2.0 * bwd_macs * n
+        # points and cotangent in; bf16 weights, fp32 biases in; fp32 gradients out
+        nbytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
+        bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+        k_ms = cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch)
+        p_ms = cuda_ms(lambda: fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g), 2, torch)
+        bwd_timing[label] = dict(points=n, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+        say("bwd_kernel_vs_plain", shape=label, points=n, bitwise_repeat=bitwise,
+            cos=f"{cos:.7f}", rel_err=f"{rel:.3g}",
+            worst_block_cos=json.dumps([worst_cos[0], round(worst_cos[1][0], 7)]),
+            worst_block_rel=json.dumps([worst_rel[0], float(f"{worst_rel[1][1]:.3g}")]),
+            tol=json.dumps({"cos": BWD_COS, "rel": BWD_REL}), ms=f"{k_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            achieved_tflops=f"{flops / k_ms / 1e9:.1f}", fwd_kernel_ms=f"{fwd_step_ms[label]:.4f}",
+            fwd_bound_ms=f"{1e3 * 2.0 * macs * n / PEAK_BF16_FLOPS:.4f}", card=json.dumps(card))
+        ok = (bitwise and cos > BWD_COS and rel <= BWD_REL
+              and all(c > BWD_COS and r <= BWD_REL for c, r in per.values())
+              and all(bool(torch.isfinite(x).all()) for x in got.values()))
+        if not ok:
+            raise AssertionError(f"kernel 2 disagrees with its plain version at {label}: "
+                                 f"bitwise={bitwise} overall={(cos, rel)} per block={per}")
+    del probe, ops, cases, in8_fine, got, again, ref
+    torch.cuda.empty_cache()
+
+    # ---- the training path ----
+    rng = np.random.default_rng(7)
+    c2w = np.tile(np.eye(4, dtype=np.float32), (N_VIEWS, 1, 1))
+    for i in range(N_VIEWS):  # distinct poses: turned about y, moved along x and z
+        a = 0.3 * i
+        c2w[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        c2w[i, :3, 3] = [0.4 * i - 0.6, -0.2, -1.0 - 0.1 * i]
+    c2w = torch.from_numpy(c2w).to(dev)
+    pool_rays = create_rays(c2w, H, W, W / 2, W / 2, (W - 1) / 2, (H - 1) / 2, *fc.depth_range)
+    n_cls = mcfg.num_semantic_classes
+    pools = DataPools(
+        rays=pool_rays,
+        rgb=torch.from_numpy(rng.uniform(size=(N_VIEWS, H * W, 3)).astype(np.float32)).to(dev),
+        semantic=torch.from_numpy(rng.integers(0, n_cls + 1, size=(N_VIEWS, H * W))).to(dev),
+        mask_ids=torch.ones(N_VIEWS, dtype=torch.int32, device=dev))
+    per_class = []
+    for _ in range(n_cls):  # 8 centres, 2,048 anchors per class around them
+        centers = rng.uniform(0.05, 1.0, size=(8, 3)).astype(np.float32)
+        links = rng.integers(0, 8, size=2048)
+        anchors = map_drgb(centers[links]) + rng.normal(size=(2048, 3)).astype(np.float32) * 0.02
+        per_class.append((anchors, links, centers))
+    table = table_from_numpy(per_class, 2048, device=dev)
+    w_c = 0.1
+    state = create_train_state(mcfg, tcfg, device=dev, generator=torch.Generator().manual_seed(8))
+    step_fn = make_train_step(mcfg, rcfg, tcfg, H, W)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    before = [p.detach().clone() for p in state.model_coarse.parameters()]
+    for _ in range(WARM_STEPS):
+        step_fn(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+
+    fm.fused_mlp_forward.launches = 0
+    fm.fused_mlp_backward.launches = 0
+    step_ms, host_ms, reports = [], [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        reports.append(step_fn(state, pools, table, w_c, gen))
+        host_ms.append(1e3 * (time.perf_counter() - t0))  # the step's work enqueued
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches}
+    want = 2 * TIMED_STEPS  # coarse + fine per step
+    if launches != {"fwd": want, "bwd": want}:
+        raise AssertionError(f"{TIMED_STEPS} training steps launched {launches}, want {want} each")
+    bad = [(i, k) for i, r in enumerate(reports) for k, v in r._asdict().items()
+           if not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"loss terms not finite: {bad[:5]}")
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(state.model_coarse.parameters(), before))
+    if moved != len(before):
+        raise AssertionError(f"only {moved} of {len(before)} coarse parameters moved")
+    median = float(np.median(step_ms))
+    step_bound_ms = 1e3 * 2.0 * (macs * (n_coarse_pts + n_fine_pts)
+                                 + bwd_macs * (n_coarse_pts + n_fine_pts)) / PEAK_BF16_FLOPS
+    bwd_ms = bwd_timing["coarse_step"]["ms"] + bwd_timing["fine_step"]["ms"]
+    fwd_ms = fwd_step_ms["coarse_step"] + fwd_step_ms["fine_step"]
+    say("train_step", rays=n_rays, points=f"{n_coarse_pts}+{n_fine_pts}",
+        launches=json.dumps(launches), median_ms_per_step=f"{median:.3f}",
+        steps_ms=json.dumps([round(x, 3) for x in step_ms]),
+        median_host_enqueue_ms=f"{float(np.median(host_ms)):.3f}",
+        steps_per_s=f"{1e3 / median:.2f}", rays_per_s=f"{n_rays * 1e3 / median:.0f}",
+        kernel_ms_per_step=json.dumps({"fwd": round(fwd_ms, 3), "bwd": round(bwd_ms, 3)}),
+        bound_ms_per_step=f"{step_bound_ms:.3f}",
+        last=json.dumps({k: float(f"{float(v):.5g}") for k, v in reports[-1]._asdict().items()}),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+
+    # one fixed batch with fixed draws: the generator is reseeded before each step
+    totals = []
+    for _ in range(FIXED_STEPS):
+        totals.append(float(step_fn(state, pools, table, w_c, gen.manual_seed(10)).total))
+    say("train_fixed_batch", steps=FIXED_STEPS, first_total=f"{totals[0]:.6f}",
+        last_total=f"{totals[-1]:.6f}")
+    if not totals[-1] < totals[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {totals}")
+
+    # ---- the step on a 64-pair slice: the card against the plain versions on the host ----
+    big = sample_ray_pairs(gen.manual_seed(11), pools.rays, pools.rgb, H, W, tcfg.n_rays,
+                           sem_pool=pools.semantic, mask_ids=pools.mask_ids)
+    idx = torch.cat([torch.arange(SLICE_PAIRS), tcfg.n_rays + torch.arange(SLICE_PAIRS)]).to(dev)
+    sl = RayBatch(rays=big.rays[idx], rgb=big.rgb[idx], depth=None, semantic=big.semantic[idx],
+                  sem_flag=big.sem_flag, image_idx=big.image_idx)
+    draws = draw_train_noise(2 * SLICE_PAIRS, rcfg, gen.manual_seed(12), dev)
+
+    def run_on(device):
+        mc = copy.deepcopy(state.model_coarse).to(device)
+        mf = copy.deepcopy(state.model_fine).to(device)
+        opt = torch.optim.Adam(list(mc.parameters()) + list(mf.parameters()), lr=tcfg.lrate)
+        st = TrainState(step=state.step, model_coarse=mc, model_fine=mf, optimizer=opt)
+        b = RayBatch(*(x.to(device) if torch.is_tensor(x) else x for x in sl))
+        dr = {k: (v.to(device) if v is not None else None) for k, v in draws.items()}
+        tab = type(table)(*(x.to(device) if torch.is_tensor(x) else x for x in table))
+        fn = make_train_step(mcfg, rcfg, tcfg, H, W, sample_fn=lambda g_, p_, s_: b,
+                             noise_fn=lambda g_, n_: dr)
+        rep = fn(st, None, tab, w_c, None)
+        grads = [torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+                 for m in (mc, mf)]
+        return {k: float(v) for k, v in rep._asdict().items()}, grads
+
+    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    rep_k, grads_k = run_on(dev)
+    torch.cuda.synchronize()
+    slice_launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches)
+    rep_p, grads_p = run_on("cpu")
+    rel = {k: abs(rep_k[k] - rep_p[k]) / max(abs(rep_p[k]), 1e-7) for k in rep_p}
+    cos = [float(a @ b / (a.norm() * b.norm())) for a, b in zip(grads_k, grads_p)]
+    say("step_vs_plain", pairs=SLICE_PAIRS, launches=json.dumps(slice_launches),
+        rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}), tol=STEP_REL,
+        grad_cos=json.dumps({"coarse": round(cos[0], 7), "fine": round(cos[1], 7)}),
+        cos_tol=STEP_COS)
+    if slice_launches != (2, 2) or max(rel.values()) > STEP_REL or min(cos) < STEP_COS:
+        raise AssertionError(f"the step on the card disagrees with the plain step: {rel} {cos}")
+
+    # where a step's device time goes
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: step_fn(state, pools, table, w_c, gen), torch)
+    k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
+    k2 = sum(v for k, v in by_name.items()
+             if any(n in k for n in ("bwd_act_kernel", "bwd_wgrad_kernel", "reduce_rows_kernel")))
+    say("profile", path="train_step", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}", busy_over_median_step=f"{busy_ms / median:.3f}",
+        kernel1_share=f"{k1 / busy_ms:.3f}",
+        kernel2_share=f"{k2 / busy_ms:.3f}", kernel1_ms=f"{k1:.3f}", kernel2_ms=f"{k2:.3f}",
+        top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    return {"bwd_timing": bwd_timing, "bwd_max_err": bwd_max_err, "launches": launches,
+            "fwd_step_ms": fwd_step_ms}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -109,10 +395,16 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
 
-    # 2. the kernel build
-    _, secs, log = build.build("fused_mlp_fwd")
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    say("build", kernel="fused_mlp_fwd", seconds=f"{secs:.1f}", ptxas=json.dumps(" | ".join(regs)))
+    # 2. the kernel builds, one nvcc per kernel, all started together
+    t0 = time.perf_counter()
+    names = ("fused_mlp_fwd", "fused_mlp_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(build.build, names))
+    for name, (_, secs, log) in zip(names, builds):
+        info = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        say("build", kernel=name, seconds=f"{secs:.1f}", ptxas=json.dumps(" | ".join(info)))
+    say("build", total_seconds=f"{time.perf_counter() - t0:.1f}")
 
     # the configuration, as a user loads it
     fc = from_yaml(CONFIG)
@@ -120,6 +412,9 @@ def main() -> int:
     rcfg, chunk = fc.render, fc.chunk
     if not (mcfg.use_fused_kernel and (mcfg.depth, mcfg.width) == (8, 256)):
         raise AssertionError(f"{CONFIG} no longer selects the fused 8x256 model: {mcfg}")
+    if (fc.train.n_rays, rcfg.n_coarse, rcfg.n_importance, rcfg.perturb,
+            rcfg.raw_noise_std) != (512, 64, 128, 1.0, 1.0):
+        raise AssertionError(f"{CONFIG} no longer sets the Replica training step: {fc}")
     model_c = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(1))
     model_f = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(2))
     c2w = torch.eye(4, device=dev)
@@ -184,7 +479,7 @@ def main() -> int:
     # 4. the main path: one full view through render_views
     next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev))  # warm-up
     torch.cuda.synchronize()
-    fm.fused_mlp_forward.launches = 0
+    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
     t0 = time.perf_counter()
     view = next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev))
     torch.cuda.synchronize()
@@ -192,8 +487,9 @@ def main() -> int:
     launches = fm.fused_mlp_forward.launches
     n_chunks = math.ceil(n_rays / chunk)
     want = 2 * n_chunks  # coarse + fine per chunk
-    if launches != want:
-        raise AssertionError(f"main path launched the fused kernel {launches} times, want {want}")
+    if (launches, fm.fused_mlp_backward.launches) != (want, 0):  # serving takes no gradient
+        raise AssertionError(f"the view launched kernel 1 {launches} times (want {want}) and "
+                             f"kernel 2 {fm.fused_mlp_backward.launches} times (want 0)")
     shapes = {"rgb": (H, W, 3), "disp": (H, W), "depth": (H, W), "acc": (H, W),
               "albedo": (H, W, 3), "shading": (H, W), "residual": (H, W, 3),
               "sem_label": (H, W), "sem_entropy": (H, W)}
@@ -240,39 +536,48 @@ def main() -> int:
         raise AssertionError(f"rendered view disagrees with the plain version: {errs}")
 
     # where a view's device time goes: one more view under the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern_ev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kern_ev) / 1e3
-    top = {}
-    for e in kern_ev:  # by name, cut short (template arguments make names long)
-        top[e.key[:60]] = top.get(e.key[:60], 0.0) + e.self_device_time_total / 1e3
-    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])
-    say("profile", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
-        busy_share=f"{busy_ms / wall_ms:.3f}",
-        top_kernels_ms=json.dumps({k: round(v, 3) for k, v in top.items()}),
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev)),
+        torch)
+    say("profile", path="view", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}", top_kernels_ms=json.dumps(top(by_name)),
         card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    del model_c, model_f
+    torch.cuda.empty_cache()
+
+    train = train_phases(torch, np, fc, mcfg, dev, card, macs, rays)
 
     t = timing["coarse_chunk"]
+    b = train["bwd_timing"]["fine_step"]
     kernels = [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_fwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:346",
-        "launches": launches,
+        "launches": train["launches"]["fwd"],  # the timed training steps
+        "launches_per_step": train["launches"]["fwd"] // TIMED_STEPS,
+        "launches_per_view": launches,
         "max_abs_err": max_err,
-        "ms": t["ms"],
+        "ms": t["ms"],  # one coarse chunk of the view (2,097,152 points)
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this MLP
+        "ms_per_step_call": train["fwd_step_ms"],
+    }, {
+        "name": "fused_mlp_bwd",
+        "route": "cuda",
+        "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
+        "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:354",
+        "launches": train["launches"]["bwd"],
+        "launches_per_step": train["launches"]["bwd"] // TIMED_STEPS,
+        "max_abs_err": train["bwd_max_err"],
+        "ms": b["ms"],  # the step's fine call (196,608 points)
+        "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this MLP's gradient
+        "per_shape": train["bwd_timing"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,8 +9,8 @@ Port of ``intrinsicnerf_tpu/core/compositing.py`` (the reference's
 - ``disp = 1 / max(1e-10, depth/acc)`` with acc == 0 rays kept finite;
 - white-background compensation on rgb/albedo/shading/semantics.
 
-Forward only: the closed-form ``alpha_to_weights`` backward comes with
-the training step.
+``alpha_to_weights`` has the JAX package's closed-form gradient (one
+reversed cumsum) instead of autograd through the cumprod.
 """
 
 from __future__ import annotations
@@ -54,9 +54,38 @@ def exclusive_transmittance(alpha: torch.Tensor, eps: float = 1e-10) -> torch.Te
     return torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
 
 
+_EPS = 1e-10
+
+
+class AlphaToWeights(torch.autograd.Function):
+    """``w_i = alpha_i * T_i`` with ``T_i = prod_{j<i}(1 - alpha_j + eps)``
+    and the closed-form gradient of ``core/compositing.py:_a2w_bwd``:
+    ``d w_k / d alpha_i = -w_k / c_i`` for ``i < k`` (``c_i = 1 - alpha_i
+    + eps``) and ``T_i`` on the diagonal, so ``galpha_i = gw_i T_i -
+    (sum_{k>i} gw_k w_k) / c_i``.  ``c`` is clamped at ``eps`` so that
+    alpha = 1 (where ``c`` may round to 0) stays finite; the suffix
+    carries the same factor."""
+
+    @staticmethod
+    def forward(ctx, alpha):
+        t = exclusive_transmittance(alpha, _EPS)
+        w = alpha * t
+        ctx.save_for_backward(alpha, t, w)
+        return w
+
+    @staticmethod
+    def backward(ctx, gw):
+        alpha, t, w = ctx.saved_tensors
+        gww = gw * w
+        # suffix_i = sum_{k>i} gw_k w_k (exclusive reversed cumsum)
+        suffix = torch.flip(torch.cumsum(torch.flip(gww, (-1,)), dim=-1), (-1,)) - gww
+        c = torch.clamp(1.0 - alpha + _EPS, min=_EPS)
+        return gw * t - suffix / c
+
+
 def alpha_to_weights(alpha: torch.Tensor) -> torch.Tensor:
     """``w_i = alpha_i * prod_{j<i}(1 - alpha_j + eps)``."""
-    return alpha * exclusive_transmittance(alpha)
+    return AlphaToWeights.apply(alpha)
 
 
 def composite(

@@ -48,6 +48,18 @@ def perturb_z_vals(z_vals: torch.Tensor, t_rand: torch.Tensor) -> torch.Tensor:
     return lower + (upper - lower) * t_rand
 
 
+def sorted_uniforms(shape, generator: torch.Generator, device=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Sorted U(0, 1) draws ``[..., n]`` without a sort: the running sum
+    of n+1 iid Exp(1) draws, normalised by the total, is distributed as
+    the order statistics of n iid uniforms.  Sorted ``u`` keeps the
+    importance depths of ``sample_pdf`` sorted, as in the JAX package."""
+    *lead, n = shape
+    e = -torch.log1p(-torch.rand(*lead, n + 1, generator=generator, device=device, dtype=dtype))
+    c = torch.cumsum(e, dim=-1)
+    return c[..., :-1] / c[..., -1:]
+
+
 def sample_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,

@@ -107,6 +107,7 @@ class IntrinsicMLP(nn.Module):
         self.to(dev)
         self._fused: Optional[fm.FusedOperands] = None
         self._fused_key: Optional[tuple] = None
+        self._pe: dict = {}
 
     def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
         """The fused kernel's operands for the current weights under
@@ -120,6 +121,15 @@ class IntrinsicMLP(nn.Module):
             self._fused = fm.fused_operands(self.state_dict(), cfg, dev)
             self._fused_key = key
         return self._fused
+
+    def pe_constants(self, cfg: MLPConfig):
+        """The fused kernel's PE constants for ``cfg`` on the parameters'
+        device, made once (a host-to-device copy per step would stall)."""
+        dev = next(self.parameters()).device
+        key = (cfg.n_freqs_pos, cfg.n_freqs_dir, cfg.pos_scalar_factor, dev)
+        if key not in self._pe:
+            self._pe[key] = fm.pe_constants(cfg, dev)
+        return self._pe[key]
 
     def forward(self, pts_embedded, dirs_embedded, want_endpoint_feat=False):
         return apply_mlp(self, self.cfg, pts_embedded, dirs_embedded, want_endpoint_feat)
@@ -195,7 +205,10 @@ def eval_points(
 ) -> RawOutputs:
     """PE + MLP over a ray batch.  The reference architecture (D=8, skip
     4, viewdirs on, PE and classes fitting the packed layout) goes
-    through the fused kernel when ``cfg.use_fused_kernel`` is set."""
+    through the fused kernels when ``cfg.use_fused_kernel`` is set: with
+    grad enabled, through a pack of the live parameters that autograd
+    differentiates (kernel 1 forward, kernel 2 backward); without, through
+    the operands the model keeps packed (kernel 1 only)."""
     if (
         cfg.use_fused_kernel
         and not want_endpoint_feat
@@ -207,6 +220,9 @@ def eval_points(
         and cfg.input_ch_views <= fm.IN_W - fm.DIR_OFF
         and 8 + max(cfg.num_semantic_classes, 1) <= fm.OUT_W
     ):
+        if torch.is_grad_enabled():
+            return fm.fused_eval_points(dict(model.named_parameters()), cfg, pts, viewdirs,
+                                        pe=model.pe_constants(cfg))
         return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
     pe_pts = positional_encoding(pts, cfg.n_freqs_pos, scalar_factor=cfg.pos_scalar_factor)
     pe_dirs = None

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``intrinsicnerf_tpu_torch/_build/
-lib<name>-<hash>.so``, keyed by the source's content.  Pointers and the
-stream are passed as Python ints; every entry returns the
-``cudaError_t`` of its launch.
+lib<name>-<hash>.so``, keyed by the content of the source and of the
+shared headers ``csrc/*.cuh``.  Pointers and the stream are passed as
+Python ints; every entry that launches returns the ``cudaError_t`` of
+its launches.
 
 No ``--use_fast_math``: it turns ``sinf`` into ``__sinf``, whose error
 grows with the argument, and the positional-encoding angles reach
@@ -14,6 +15,7 @@ grows with the argument, and the positional-encoding angles reach
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -31,9 +33,13 @@ NVCC_FLAGS = (
 )
 
 # C signatures: (entry, argtypes, restype) per library
-_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "fused_mlp_fwd": [("fused_mlp_fwd", [_P] * 6 + [_I64, _P], ctypes.c_int)],
+    "fused_mlp_bwd": [
+        ("fused_mlp_bwd", [_P] * 11 + [_I64, _I32, _P], ctypes.c_int),
+        ("fused_mlp_bwd_scratch", [_I64, _I32] + [ctypes.POINTER(_I64)] * 3, None),
+    ],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -49,9 +55,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> Tuple[str, float, str]:

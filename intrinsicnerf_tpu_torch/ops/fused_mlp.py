@@ -1,7 +1,11 @@
-"""Fused trunk + heads MLP forward: one hand-written CUDA kernel for Hopper.
+"""Fused trunk + heads MLP: hand-written CUDA kernels for Hopper.
 
-Port of ``intrinsicnerf_tpu/ops/fused_mlp.py`` (the Pallas ``_fwd_kernel``
-launched by ``_run_fwd``).  The kernel (``csrc/fused_mlp_fwd.cu``) takes
+Port of ``intrinsicnerf_tpu/ops/fused_mlp.py``: the Pallas ``_fwd_kernel``
+(launched by ``_run_fwd``) and ``_bwd_kernel`` (launched by
+``_fused_bwd``), paired there by ``jax.custom_vjp`` and here by the
+``torch.autograd.Function`` :class:`FusedMLP`.
+
+Forward.  Kernel 1 (``csrc/fused_mlp_fwd.cu``) takes
 a packed ``[P, 8]`` point block ``[x, y, z, dx, dy, dz, 1, 0]``, expands
 the positional encoding on chip (``feat = m*sin(in8 @ F) + (1-m)*(in8 @
 F)`` in fp32), runs the 8x256 skip trunk and the five heads with bf16
@@ -11,19 +15,34 @@ output: ``[0]=sigma, [1:4]=albedo_logit, [4]=shading_logit,
 sigmoids.  The output crosses device memory in bf16 as in the JAX
 package: the logits carry bf16-matmul noise regardless.
 
-``fused_mlp_forward`` is the wrapper.  It takes ``FusedOperands``, the
+``fused_mlp_forward`` is its wrapper.  It takes ``FusedOperands``, the
 weights packed once (``fused_operands``; ``IntrinsicMLP`` keeps them
 until its weights change), so a launch does no packing, casting or
-host-to-device copy.  On a CPU tensor it runs
-``fused_mlp_forward_plain``, the plain PyTorch version of the same
-arithmetic; on a CUDA tensor it launches the kernel (counting the
-launch in ``fused_mlp_forward.launches``) or raises.  The kernel library
-is compiled at first use by ``ops/build.py``; importing this module
-needs no compiler.
+host-to-device copy.  This is the serving path, without gradients.
+
+Backward.  Kernel 2 (``csrc/fused_mlp_bwd.cu``) takes the points and the
+bf16 cotangent of the packed output, recomputes the forward and returns
+fp32 gradients for all 38 packed blocks; ``fused_mlp_backward`` is its
+wrapper.  The cotangent is bf16 because the output is, as in JAX
+(``fused_mlp.py:57-65``).  The points and the PE constants get no
+gradient, which is exact: NeRF samples are not parameters.  Training
+packs the live parameters (``pack_weights`` is pads and slices only, so
+autograd carries the packed gradients back to the ``nn.Linear``
+parameters) and differentiates through :class:`FusedMLP`.  The backward
+of the pack keeps only the real parameter slots, which is the JAX
+projection ``packed_grad_masks``.
+
+On a CPU tensor each wrapper runs its plain PyTorch version
+(``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
+tensor it launches its kernel (counting the launch in
+``fused_mlp_forward.launches`` / ``fused_mlp_backward.launches``) or
+raises.  The kernel libraries are compiled at first use by
+``ops/build.py``; importing this module needs no compiler.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Mapping, NamedTuple, Tuple
 
@@ -56,6 +75,8 @@ _W_ORDER = (
 _B_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7",
             "b_a1", "b_s1", "b_f", "b_v", "b_m1")
 _B_OUT = ("b_sig", "b_a2", "b_s2", "b_r", "b_m2")  # summed into one out bias
+SPLIT_ROWS = 4096  # points per chunk of kernel 2's weight products
+MAX_SPLITS = 64
 
 
 def pe_constants(cfg, device=None):
@@ -204,6 +225,16 @@ def is_packed(params) -> bool:
     return isinstance(params, Mapping) and "w0" in params and "pts_linears.0.weight" not in params
 
 
+def packed_grad_masks(params: Mapping[str, torch.Tensor], cfg) -> Packed:
+    """0/1 masks over the packed blocks marking real parameter slots: the
+    pack of all-ones parameters.  The padded slots (e.g. ``w_sig[:, 1:]``,
+    which alias other heads' output columns) get nonzero gradients from
+    the shared output product; the backward of :func:`pack_weights` drops
+    them, so gradients that reach the parameters equal the packed
+    gradients times these masks."""
+    return pack_weights({k: torch.ones_like(v) for k, v in params.items()}, cfg)
+
+
 def build_in8(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
     """``[N, S, 3]`` pts + ``[N, 3]`` dirs -> packed ``[N*S, 8]`` input
     ``[x, y, z, dx, dy, dz, 1, 0]``.  ``viewdirs`` is required: the
@@ -227,37 +258,122 @@ def _mm(a, b):
     return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
 
 
-def fused_mlp_forward_plain(packed: Packed, pe_consts, in8: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``[P, 8]`` -> ``[P, 128]`` bf16.
-    Mirrors the Pallas ``_forward_tile``; activations are rounded to bf16
-    where ``_mm`` casts them.  The PE angles are 8 elementwise fp32
-    multiply-adds, never a matmul."""
+def _mm_tn(a, b):
+    """``a.T @ b`` with bf16 operands and fp32 accumulation (dW)."""
+    return a.to(torch.bfloat16).float().t() @ b.to(torch.bfloat16).float()
+
+
+def _mm_nt(a, b):
+    """``a @ b.T`` with bf16 operands and fp32 accumulation (input grads)."""
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float().t()
+
+
+def _pe_feat(pe_consts, in8: torch.Tensor) -> torch.Tensor:
+    """``[P, 8]`` -> ``[P, 128]`` PE features.  The angles are 8
+    elementwise fp32 multiply-adds, never a matmul."""
     F, m = pe_consts
     z = in8[:, 0:1] * F[0]
     for k in range(1, IN8_W):
         z = z + in8[:, k : k + 1] * F[k]
-    feat = m * torch.sin(z) + (1.0 - m) * z
-    w = packed
+    return m * torch.sin(z) + (1.0 - m) * z
+
+
+def _forward_tile(w: Packed, feat: torch.Tensor, want_out: bool = True):
+    """Mirrors the Pallas ``_forward_tile``: returns (out or None, saved
+    activations).  ``want_out=False`` skips the five output products, as
+    the backward's recompute does."""
     relu = torch.relu
     h = relu(_mm(feat, w["w0"]) + w["b0"])
+    acts = [h]
     for i in range(1, 5):
         h = relu(_mm(h, w[f"w{i}"]) + w[f"b{i}"])
+        acts.append(h)
     h = relu(_mm(h, w["w5h"]) + _mm(feat, w["w5x"]) + w["b5"])
+    acts.append(h)
     h = relu(_mm(h, w["w6"]) + w["b6"])
+    acts.append(h)
     H = relu(_mm(h, w["w7"]) + w["b7"])
+    acts.append(H)
     a1 = relu(_mm(H, w["w_a1"]) + w["b_a1"])
     s1 = relu(_mm(H, w["w_s1"]) + w["b_s1"])
     m1 = relu(_mm(H, w["w_m1"]) + w["b_m1"])
     f = _mm(H, w["w_f"]) + w["b_f"]
     v = relu(_mm(f, w["wv_f"]) + _mm(feat, w["wv_d"]) + w["b_v"])
-    out = (
-        _mm(H, w["w_sig"]) + w["b_sig"]
-        + _mm(a1, w["w_a2"]) + w["b_a2"]
-        + _mm(s1, w["w_s2"]) + w["b_s2"]
-        + _mm(v, w["w_r"]) + w["b_r"]
-        + _mm(m1, w["w_m2"]) + w["b_m2"]
-    )
+    out = None
+    if want_out:
+        out = (
+            _mm(H, w["w_sig"]) + w["b_sig"]
+            + _mm(a1, w["w_a2"]) + w["b_a2"]
+            + _mm(s1, w["w_s2"]) + w["b_s2"]
+            + _mm(v, w["w_r"]) + w["b_r"]
+            + _mm(m1, w["w_m2"]) + w["b_m2"]
+        )
+    return out, {"acts": acts, "a1": a1, "s1": s1, "m1": m1, "f": f, "v": v}
+
+
+def fused_mlp_forward_plain(packed: Packed, pe_consts, in8: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1: ``[P, 8]`` -> ``[P, 128]`` bf16.
+    Mirrors the Pallas ``_forward_tile``; activations are rounded to bf16
+    where ``_mm`` casts them."""
+    out, _ = _forward_tile(packed, _pe_feat(pe_consts, in8))
     return out.to(torch.bfloat16)
+
+
+def fused_mlp_backward_plain(packed: Packed, pe_consts, in8: torch.Tensor,
+                             g: torch.Tensor) -> Packed:
+    """Plain PyTorch version of kernel 2: the fp32 gradients of all packed
+    blocks for the cotangent ``g`` ``[P, 128]`` of the packed output.
+
+    Mirrors the Pallas ``_bwd_kernel`` step by step, not autograd through
+    the forward (whose bf16 casts would round the gradients elsewhere):
+    every product rounds its operands to bf16, gradients included
+    (``ga1``, ``gh``, ...), and accumulates in fp32; each bias gradient is
+    the fp32 sum of the unrounded fp32 gradient."""
+    w = packed
+    feat = _pe_feat(pe_consts, in8)
+    _, st = _forward_tile(w, feat, want_out=False)
+    acts = st["acts"]
+    H = acts[7]
+    go = g.float()
+    grads: Packed = {}
+
+    def acc(wk, bk, a, gb):
+        grads[wk] = _mm_tn(a, gb)
+        grads[bk] = gb.sum(dim=0, keepdim=True)
+
+    dH = _mm_nt(go, w["w_sig"])
+    acc("w_sig", "b_sig", H, go)
+    for w2, b2, w1, b1, a in (("w_a2", "b_a2", "w_a1", "b_a1", "a1"),
+                              ("w_s2", "b_s2", "w_s1", "b_s1", "s1"),
+                              ("w_m2", "b_m2", "w_m1", "b_m1", "m1")):
+        g1 = _mm_nt(go, w[w2]) * (st[a] > 0)
+        acc(w2, b2, st[a], go)
+        dH = dH + _mm_nt(g1, w[w1])
+        acc(w1, b1, H, g1)
+    gv = _mm_nt(go, w["w_r"]) * (st["v"] > 0)
+    acc("w_r", "b_r", st["v"], go)
+    gf = _mm_nt(gv, w["wv_f"])
+    grads["wv_f"] = _mm_tn(st["f"], gv)
+    grads["wv_d"] = _mm_tn(feat, gv)
+    grads["b_v"] = gv.sum(dim=0, keepdim=True)
+    dH = dH + _mm_nt(gf, w["w_f"])
+    acc("w_f", "b_f", H, gf)
+
+    gh = dH * (H > 0)
+    acc("w7", "b7", acts[6], gh)
+    gh = _mm_nt(gh, w["w7"]) * (acts[6] > 0)
+    acc("w6", "b6", acts[5], gh)
+    gh = _mm_nt(gh, w["w6"]) * (acts[5] > 0)
+    grads["w5h"] = _mm_tn(acts[4], gh)
+    grads["w5x"] = _mm_tn(feat, gh)
+    grads["b5"] = gh.sum(dim=0, keepdim=True)
+    gh = _mm_nt(gh, w["w5h"]) * (acts[4] > 0)
+    for i in range(4, 0, -1):
+        acc(f"w{i}", f"b{i}", acts[i - 1], gh)
+        gh = _mm_nt(gh, w[f"w{i}"]) * (acts[i - 1] > 0)
+    grads["w0"] = _mm_tn(feat, gh)
+    grads["b0"] = gh.sum(dim=0, keepdim=True)
+    return {k: grads[k] for k in _PACKED_KEYS}
 
 
 def kernel_buffers(packed: Packed):
@@ -337,20 +453,129 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
 fused_mlp_forward.launches = 0
 
 
-def fused_mlp_apply(params, cfg, in8: torch.Tensor) -> torch.Tensor:
-    """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.  ``params``
-    is ``FusedOperands``, a model state_dict or an already-packed dict."""
-    if not isinstance(params, FusedOperands):
-        params = fused_operands(params, cfg, in8.device)
-    return fused_mlp_forward(params, in8).float()
+def backward_splits(n: int) -> int:
+    """Point chunks of kernel 2's weight products for ``n`` points: about
+    SPLIT_ROWS points each, at most MAX_SPLITS (its fp32 workspace is
+    splits x 3.3 MB)."""
+    p_pad = -(-n // 64) * 64
+    return max(1, min(MAX_SPLITS, -(-p_pad // SPLIT_ROWS)))
 
 
-def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor) -> RawOutputs:
+def _unflatten_grads(dw: torch.Tensor, db: torch.Tensor, packed: Packed) -> Packed:
+    """Kernel 2's flat gradients (the layouts of ``kernel_buffers``) ->
+    one tensor per packed block; each output bias gets the out-bias
+    gradient, as ``_bwd_kernel`` adds ``sum(go)`` to each."""
+    grads: Packed = {}
+    i = 0
+    for k in _W_ORDER:
+        size = packed[k].numel()
+        grads[k] = dw[i : i + size].view(packed[k].shape)
+        i += size
+    i = 0
+    for k in _B_ORDER:
+        size = packed[k].numel()
+        grads[k] = db[i : i + size].view(packed[k].shape)
+        i += size
+    for k in _B_OUT:
+        grads[k] = db[i : i + OUT_W].view(1, OUT_W)
+    return {k: grads[k] for k in _PACKED_KEYS}
+
+
+def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -> Packed:
+    """fp32 gradients of all packed blocks for the bf16 cotangent ``g``
+    ``[P, 128]`` of the packed output at the points ``in8``.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel 2 (one
+    launch, counted in ``fused_mlp_backward.launches``).  Two launches on
+    the same inputs give bitwise-equal gradients."""
+    if in8.device.type == "cpu":
+        return fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    if in8.device.type != "cuda":
+        raise ValueError(f"fused MLP: unsupported device {in8.device}")
+    _check_cuda_operands(ops, in8)
+    n = in8.shape[0]
+    if g.dtype != torch.bfloat16 or tuple(g.shape) != (n, OUT_W) or g.device != in8.device:
+        raise ValueError(f"g must be bfloat16 [{n}, {OUT_W}] on {in8.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("fused_mlp_bwd")
+    dev = in8.device
+    new = torch.zeros if n == 0 else torch.empty
+    dw = new(ops.wbuf.numel(), dtype=torch.float32, device=dev)  # the weight layout
+    db = new(ops.bbuf.numel(), dtype=torch.float32, device=dev)  # the bias layout
+    if n == 0:
+        return _unflatten_grads(dw, db, ops.packed)
+    in8, g = in8.contiguous(), g.contiguous()
+    pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
+    splits = backward_splits(n)
+    sizes = [ctypes.c_longlong() for _ in range(3)]
+    lib.fused_mlp_bwd_scratch(n, splits, *(ctypes.byref(x) for x in sizes))
+    arena = torch.empty(sizes[0].value, dtype=torch.bfloat16, device=dev)
+    bpart = torch.empty(sizes[1].value, dtype=torch.float32, device=dev)
+    ws = torch.empty(sizes[2].value, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fused_mlp_bwd(
+            in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(), ops.wbuf.data_ptr(),
+            ops.bbuf.data_ptr(), g.data_ptr(), arena.data_ptr(), bpart.data_ptr(),
+            ws.data_ptr(), dw.data_ptr(), db.data_ptr(), n, splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
+    fused_mlp_backward.launches += 1
+    return _unflatten_grads(dw, db, ops.packed)
+
+
+fused_mlp_backward.launches = 0
+
+
+class FusedMLP(torch.autograd.Function):
+    """The fused MLP with its gradient: ``(in8, pe_mat, sin_mask, *blocks)``
+    -> ``[P, 128]`` bf16, the blocks in ``_PACKED_KEYS`` order.  Forward
+    runs kernel 1 and backward kernel 2 (their plain versions on CPU
+    tensors); the backward returns gradients for the packed blocks only."""
+
+    @staticmethod
+    def forward(ctx, in8, pe_mat, sin_mask, *blocks):
+        packed = dict(zip(_PACKED_KEYS, blocks))
+        bufs = kernel_buffers(packed) if in8.device.type == "cuda" else (None, None)
+        ops = FusedOperands(packed, (pe_mat, sin_mask), *bufs)
+        ctx.save_for_backward(in8, pe_mat, sin_mask, *blocks)
+        ctx.bufs = bufs
+        return fused_mlp_forward(ops, in8)
+
+    @staticmethod
+    def backward(ctx, g):
+        in8, pe_mat, sin_mask, *blocks = ctx.saved_tensors
+        ops = FusedOperands(dict(zip(_PACKED_KEYS, blocks)), (pe_mat, sin_mask), *ctx.bufs)
+        grads = fused_mlp_backward(ops, in8, g.to(torch.bfloat16))
+        return (None, None, None, *(grads[k] for k in _PACKED_KEYS))
+
+
+def fused_mlp_apply(params, cfg, in8: torch.Tensor, pe=None) -> torch.Tensor:
+    """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.
+
+    ``params`` is ``FusedOperands`` (packed once, no gradient: the serving
+    path), or a model state_dict / ``named_parameters`` dict or an
+    already-packed dict, which is packed here and differentiated through
+    :class:`FusedMLP`.  ``pe`` overrides the PE constants built on
+    ``in8``'s device."""
+    if isinstance(params, FusedOperands):
+        return fused_mlp_forward(params, in8).float()
+    packed = params if is_packed(params) else pack_weights(params, cfg)
+    F, m = pe if pe is not None else pe_constants(cfg, in8.device)
+    return FusedMLP.apply(in8, F, m, *(packed[k] for k in _PACKED_KEYS)).float()
+
+
+def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor,
+                      pe=None) -> RawOutputs:
     """Drop-in for ``models.mlp.eval_points`` on the reference
-    architecture (D=8, skip 4, viewdirs on)."""
+    architecture (D=8, skip 4, viewdirs on); ``params`` and ``pe`` as in
+    :func:`fused_mlp_apply`."""
     n, s, _ = pts.shape
     c = cfg.num_semantic_classes
-    out = fused_mlp_apply(params, cfg, build_in8(pts, viewdirs)).reshape(n, s, OUT_W)
+    out = fused_mlp_apply(params, cfg, build_in8(pts, viewdirs), pe).reshape(n, s, OUT_W)
     albedo = torch.sigmoid(out[..., 1:4])
     shading = torch.sigmoid(out[..., 4])
     residual = torch.sigmoid(out[..., 5:8])

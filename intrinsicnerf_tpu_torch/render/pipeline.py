@@ -7,13 +7,14 @@ fine MLP -> composite.
 
 The JAX version splits a PRNG key for the train-time draws.  Here they
 are injected tensors (``t_rand``, ``noise_c``, ``u``, ``noise_f``) so any
-source of random numbers can feed them; the eval path needs none.
+source of random numbers can feed them; ``draw_train_noise`` makes them
+from a ``torch.Generator``, and the eval path needs none.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -22,6 +23,7 @@ from intrinsicnerf_tpu_torch.core.sampling import (
     merge_z_vals,
     perturb_z_vals,
     sample_pdf,
+    sorted_uniforms,
     stratified_z_vals,
 )
 from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig, eval_points
@@ -42,6 +44,31 @@ class RenderResult(NamedTuple):
     coarse: RenderMaps
     fine: Optional[RenderMaps]
     z_std: Optional[torch.Tensor]  # std of the importance depths [N]
+
+
+def draw_train_noise(n_rays: int, rcfg: RenderConfig, generator: torch.Generator,
+                     device=None) -> Dict[str, Optional[torch.Tensor]]:
+    """The train-time draws of ``render_rays`` for ``n_rays`` rays from
+    ``generator`` (on ``device``): the stratified jitter ``t_rand``, the
+    sigma noise ``noise_c`` / ``noise_f`` and the sorted importance
+    uniforms ``u``; None where ``rcfg`` needs none."""
+    nc, ni = rcfg.n_coarse, rcfg.n_importance
+    fine = ni > 0
+    jitter = rcfg.perturb > 0.0
+    noisy = rcfg.raw_noise_std > 0.0
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=generator, device=device)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=generator, device=device)
+
+    return {
+        "t_rand": uniform(n_rays, nc) if jitter else None,
+        "noise_c": normal(n_rays, nc) if noisy else None,
+        "u": sorted_uniforms((n_rays, ni), generator, device) if fine and jitter else None,
+        "noise_f": normal(n_rays, nc + ni) if fine and noisy else None,
+    }
 
 
 def _need(x: Optional[torch.Tensor], name: str) -> torch.Tensor:

@@ -1,10 +1,46 @@
-"""Training-step configuration (port of ``intrinsicnerf_tpu/train/step.py``).
+"""The scene-level training step: sample -> render -> losses -> Adam.
 
-The step function itself comes with the training slice of the port."""
+Port of ``intrinsicnerf_tpu/train/step.py:make_train_step``:
+
+- total loss = img (coarse + fine levels)
+  + wgt_sem * CE(sem logits, label - 1, ignore -1) * sem_flag
+  + w_chroma * chroma + w_res(step) * residual + w_n * reflect sparsity
+  + w_s * shading smooth + w_f * far reflect + w_i(step) * intensity
+  + w_c * mse(albedo, cluster target), on both levels;
+- the cluster target is computed without gradient from the fine albedo
+  and the argmax of the fine semantic logits;
+- Adam (b1 0.9, b2 0.999, eps 1e-8, as optax's) over both levels with
+  the exponentially decayed LR read at the pre-update step.
+
+The JAX step is a pure function over packed state with a 0/1 gradient
+mask on the padded packed slots.  Here the state is the two
+``IntrinsicMLP``s (reference state_dict keys) and one
+``torch.optim.Adam``; the fused path packs the live parameters each
+call, and the backward of that pack drops the padded slots, so Adam on
+the ``nn.Linear`` parameters is the JAX Adam on the masked packed state
+(whose masked slots keep zero moments and never move).  All random draws
+come from the ``torch.Generator`` handed to the step.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from intrinsicnerf_tpu_torch import resolve_device
+from intrinsicnerf_tpu_torch.cluster.assign import ClusterTable, dest_color
+from intrinsicnerf_tpu_torch.core.losses import (
+    compute_intrinsic_losses,
+    img2mse,
+    mse2psnr,
+    semantic_cross_entropy,
+)
+from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs
+from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, draw_train_noise, render_rays
+from intrinsicnerf_tpu_torch.train.schedules import loss_weight_schedule, make_lr_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +66,171 @@ class TrainConfig:
     no_intrinsic_loss: bool = False
     mask_mode: str = "label"  # "label" (scene) | "mask" (object)
     steps_per_call: int = 1
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Mutable training state: the step updates it in place."""
+
+    step: int
+    model_coarse: IntrinsicMLP
+    model_fine: Optional[IntrinsicMLP]
+    optimizer: torch.optim.Adam
+
+
+class DataPools(NamedTuple):
+    """Device-resident training data: per-image ray and gt pools."""
+
+    rays: torch.Tensor  # [I, H*W, 11]
+    rgb: torch.Tensor  # [I, H*W, 3]
+    depth: Optional[torch.Tensor] = None  # [I, H*W]
+    semantic: Optional[torch.Tensor] = None  # [I, H*W] labels (0=void) or mask
+    mask_ids: Optional[torch.Tensor] = None  # [I]
+
+
+class LossReport(NamedTuple):
+    total: torch.Tensor
+    img_coarse: torch.Tensor
+    img_fine: torch.Tensor
+    psnr_coarse: torch.Tensor
+    psnr_fine: torch.Tensor
+    semantic: torch.Tensor
+    chroma: torch.Tensor
+    residual: torch.Tensor
+    reflect_sparsity: torch.Tensor
+    shading_smooth: torch.Tensor
+    far_reflect: torch.Tensor
+    intensity: torch.Tensor
+    reflect_cluster: torch.Tensor
+
+
+def create_train_state(
+    mcfg: MLPConfig,
+    tcfg: TrainConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    with_fine: bool = True,
+) -> TrainState:
+    """Coarse and fine models initialised from ``generator`` (a CPU
+    generator; default seed 0) on ``device`` (default ``"cuda"``, which
+    raises without a GPU), and one Adam over both."""
+    dev = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    model_c = IntrinsicMLP(mcfg, device=dev, generator=g)
+    model_f = IntrinsicMLP(mcfg, device=dev, generator=g) if with_fine else None
+    params = list(model_c.parameters()) + (list(model_f.parameters()) if with_fine else [])
+    opt = torch.optim.Adam(params, lr=tcfg.lrate, betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(step=0, model_coarse=model_c, model_fine=model_f, optimizer=opt)
+
+
+def make_train_step(
+    mcfg: MLPConfig,
+    rcfg: RenderConfig,
+    tcfg: TrainConfig,
+    h: int,
+    w: int,
+    sample_fn=None,
+    noise_fn=None,
+):
+    """The step ``step_fn(state, pools, table, w_c, generator) ->
+    LossReport``.  It updates ``state`` in place, leaves this step's
+    gradients in the parameters' ``.grad``, and returns the loss terms
+    as detached 0-dim tensors on the device (no host sync).
+
+    ``sample_fn(generator, pools, step) -> RayBatch`` overrides the
+    paired pool sampler; ``noise_fn(generator, n_rays) -> dict`` overrides
+    ``draw_train_noise`` (both hooks let callers inject fixed draws)."""
+    lr_schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay)
+
+    def loss_terms(maps, batch, w_res, w_i, cluster_target, w_c):
+        img = img2mse(maps.rgb, batch.rgb)
+        zero = img.new_zeros(())
+        sem = zero
+        if mcfg.enable_semantic and maps.sem_logits is not None:
+            sem = semantic_cross_entropy(maps.sem_logits, batch.semantic) * batch.sem_flag
+        pair_label = (batch.semantic if batch.semantic is not None
+                      else torch.ones(batch.rgb.shape[0], dtype=batch.rgb.dtype,
+                                      device=batch.rgb.device))
+        intr = compute_intrinsic_losses(maps.albedo, maps.shading, maps.residual, batch.rgb,
+                                        pair_label, mask_mode=tcfg.mask_mode)
+        cluster = img2mse(maps.albedo, cluster_target) if cluster_target is not None else zero
+        if tcfg.no_intrinsic_loss:
+            total = img + sem * tcfg.wgt_sem
+        else:
+            total = (
+                img
+                + sem * tcfg.wgt_sem
+                + intr.chroma * tcfg.w_chroma
+                + intr.residual * w_res
+                + intr.reflect_sparsity * tcfg.w_n
+                + intr.shading_smooth * tcfg.w_s
+                + intr.far_reflect * tcfg.w_f
+                + intr.intensity * w_i
+            )
+        total = total + cluster * w_c
+        return {"img": img, "sem": sem, "intr": intr, "cluster": cluster, "total": total}
+
+    def step_fn(state: TrainState, pools: DataPools, table: Optional[ClusterTable],
+                w_c, generator: torch.Generator) -> LossReport:
+        step = state.step
+        if sample_fn is not None:
+            batch = sample_fn(generator, pools, step)
+        else:
+            batch = sample_ray_pairs(generator, pools.rays, pools.rgb, h, w, tcfg.n_rays,
+                                     depth_pool=pools.depth, sem_pool=pools.semantic,
+                                     mask_ids=pools.mask_ids)
+        n = batch.rays.shape[0]
+        draws = (noise_fn(generator, n) if noise_fn is not None
+                 else draw_train_noise(n, rcfg, generator, batch.rays.device))
+        w_res, w_i = loss_weight_schedule(step, tcfg.w_res1, tcfg.w_res2, tcfg.w_i1,
+                                          tcfg.w_i2, tcfg.residual_switch,
+                                          tcfg.intensity_switch)
+
+        out = render_rays(state.model_coarse, state.model_fine, mcfg, batch.rays, rcfg,
+                          train=True, **draws)
+        fine = out.fine if out.fine is not None else out.coarse
+        cluster_target = None
+        if not tcfg.no_cluster and table is not None:
+            with torch.no_grad():
+                if mcfg.enable_semantic and fine.sem_logits is not None:
+                    cls = torch.argmax(fine.sem_logits, dim=-1)
+                else:
+                    cls = torch.zeros(n, dtype=torch.long, device=batch.rays.device)
+                cluster_target = dest_color(table, fine.albedo.detach(), cls)
+
+        t_c = loss_terms(out.coarse, batch, w_res, w_i, cluster_target, w_c)
+        t_f = (loss_terms(out.fine, batch, w_res, w_i, cluster_target, w_c)
+               if out.fine is not None else None)
+        total = t_c["total"] + (t_f["total"] if t_f is not None else 0.0)
+
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        lr = lr_schedule(step)  # the pre-update count, as optax reads it
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step = step + 1
+
+        def both(get):
+            v = get(t_c)
+            return (v + get(t_f) if t_f is not None else v).detach()
+
+        zero = t_c["img"].new_zeros(())
+        return LossReport(
+            total=total.detach(),
+            img_coarse=t_c["img"].detach(),
+            img_fine=t_f["img"].detach() if t_f is not None else zero,
+            psnr_coarse=mse2psnr(t_c["img"]).detach(),
+            psnr_fine=mse2psnr(t_f["img"]).detach() if t_f is not None else zero,
+            semantic=both(lambda t: t["sem"]),
+            chroma=both(lambda t: t["intr"].chroma),
+            residual=both(lambda t: t["intr"].residual),
+            reflect_sparsity=both(lambda t: t["intr"].reflect_sparsity),
+            shading_smooth=both(lambda t: t["intr"].shading_smooth),
+            far_reflect=both(lambda t: t["intr"].far_reflect),
+            intensity=both(lambda t: t["intr"].intensity),
+            reflect_cluster=both(lambda t: t["cluster"]),
+        )
+
+    return step_fn

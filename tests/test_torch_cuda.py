@@ -1,24 +1,33 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-These tests need an NVIDIA GPU with ``nvcc`` (the kernel has no CPU
+These tests need an NVIDIA GPU with ``nvcc`` (the kernels have no CPU
 mode); without one they skip.  On a GPU machine, from the repo root
 (``--noconftest``: the shared conftest imports JAX, which the port's
 machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerance: per output slice max |d| / max(|plain|, 1) < 2e-2, the bound
-of ``tests/test_fused_mlp.py``; both sides round the same operands to
-bf16, so the observed error is bf16 output rounding (~1e-3).
+Tolerances, those of ``tests/test_fused_mlp.py``:
+
+- kernel 1: per output slice max |d| / max(|plain|, 1) < 2e-2; both sides
+  round the same operands to bf16, so the observed error is bf16 output
+  rounding (~1e-3);
+- kernel 2: over the real parameter slots, overall and per block, cosine
+  > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
+  seeded squared-error loss on the output (coherent across points, as a
+  training loss's is); two launches give bitwise-equal gradients.
 """
 
 import pytest
 import torch
 
+from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table
 from intrinsicnerf_tpu_torch.core.rays import create_rays
 from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
 from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays_chunked
+from intrinsicnerf_tpu_torch.train.step import (
+    DataPools, TrainConfig, create_train_state, make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +88,70 @@ def test_render_goes_through_kernel(model):
         x, y = getattr(out.coarse, name).float().cpu(), getattr(ref.coarse, name)
         assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, name
         assert torch.isfinite(getattr(out.fine, name)).all()
+
+
+def _in8(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pts = torch.randn(n, 1, 3, device="cuda", generator=g) * 4
+    d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda", generator=g), dim=-1)
+    return fm.build_in8(pts, d), g
+
+
+def _cos_rel(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm())), float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("n", [65_536, 196_608, 100_003])
+def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
+    """Kernel 2 at the training step's coarse and fine sizes and a ragged
+    size, against its plain version; and bitwise equal across launches."""
+    cfg, m = model
+    ops = m.fused_operands(cfg)
+    in8, gen = _in8(n, n)
+    out = fm.fused_mlp_forward(ops, in8)
+    target = torch.rand(out.shape, device="cuda", generator=gen)
+    g = (out.float() - target) / n
+    g[:, 8 + C:] = 0.0
+    g = g.to(torch.bfloat16)
+    before = fm.fused_mlp_backward.launches
+    got = fm.fused_mlp_backward(ops, in8, g)
+    again = fm.fused_mlp_backward(ops, in8, g)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_backward.launches == before + 2
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
+    cos, rel = _cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
+                        torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
+    assert cos > 0.999 and rel <= 1e-2, (cos, rel)
+    for k in keys:
+        cos, rel = _cos_rel(got[k] * masks[k], ref[k] * masks[k])
+        assert cos > 0.999 and rel <= 1e-2, (k, cos, rel)
+
+
+def test_training_step_on_card(model):
+    """One Replica-width training step on the card: two launches of each
+    kernel, every loss term finite, every parameter given a gradient."""
+    cfg, _ = model
+    h, w = 24, 32
+    c2w = torch.eye(4, device="cuda").repeat(2, 1, 1)
+    c2w[:, 2, 3] = torch.tensor([-1.0, -1.3])
+    rays = create_rays(c2w, h, w, 16.0, 16.0, 15.5, 11.5, 0.1, 10.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pools = DataPools(rays=rays, rgb=torch.rand(2, h * w, 3, device="cuda", generator=gen),
+                      semantic=torch.randint(0, C + 1, (2, h * w), device="cuda", generator=gen),
+                      mask_ids=torch.ones(2, dtype=torch.int32, device="cuda"))
+    tcfg = TrainConfig(n_rays=128)
+    state = create_train_state(cfg, tcfg, device="cuda")
+    step = make_train_step(cfg, RenderConfig(perturb=1.0, raw_noise_std=1.0), tcfg, h, w)
+    before = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches)
+    rep = step(state, pools, empty_cluster_table(C, 64, device="cuda"), 0.1, gen)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert all(torch.isfinite(v) for v in rep), rep
+    for mdl in (state.model_coarse, state.model_fine):
+        for name, p in mdl.named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name

@@ -16,6 +16,8 @@ from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
 from intrinsicnerf_tpu_torch.ops import build, fused_mlp
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig
 from intrinsicnerf_tpu_torch.tools.import_ckpt import params_from_jax, params_to_jax
+from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table, table_from_numpy
+from intrinsicnerf_tpu_torch.train.step import TrainConfig, create_train_state
 from intrinsicnerf_tpu_torch.train.trainer import render_views
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,6 +76,24 @@ def test_render_views_defaults_to_cuda_and_raises(no_gpu):
         render_views(m, m, cfg, RenderConfig(n_coarse=4, n_importance=4), rays, 2, 2, 4)
 
 
+def test_train_state_defaults_to_cuda_and_raises(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(_tiny(), TrainConfig())
+    state = create_train_state(_tiny(), TrainConfig(), device="cpu")
+    assert next(state.model_fine.parameters()).device.type == "cpu"
+    assert len(state.optimizer.param_groups[0]["params"]) == 2 * len(
+        list(state.model_coarse.parameters()))
+
+
+def test_cluster_tables_default_to_cuda_and_raise(no_gpu):
+    per_class = [None, (np.zeros((2, 3)), np.zeros(2), np.full((1, 3), 0.5))]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        empty_cluster_table(3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table_from_numpy(per_class)
+    assert table_from_numpy(per_class, 4, device="cpu").has_cluster.tolist() == [False, True]
+
+
 def test_resolve_device_cpu_is_explicit(no_gpu):
     assert intrinsicnerf_tpu_torch.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
@@ -107,8 +127,10 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
 
 
 def test_build_paths_stay_in_the_package():
-    path = build.library_path("fused_mlp_fwd")
-    assert path.startswith(build.BUILD_DIR + os.sep)
+    for name in build.SIGNATURES:
+        path = build.library_path(name)
+        assert path.startswith(build.BUILD_DIR + os.sep)
+        assert os.path.exists(os.path.join(build.CSRC, f"{name}.cu"))
     assert os.path.dirname(build.BUILD_DIR) == os.path.dirname(os.path.dirname(fused_mlp.__file__))
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

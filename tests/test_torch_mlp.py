@@ -162,7 +162,7 @@ def test_eval_points_dispatches_to_plain_on_cpu(fused_pair):
     b = tm.eval_points(model, dataclasses.replace(tcfg, use_fused_kernel=False),
                        torch.from_numpy(pts), torch.from_numpy(d))
     assert tf.fused_mlp_forward.launches == before
-    np.testing.assert_allclose(a.rgb.numpy(), b.rgb.detach().numpy(), atol=2e-2)
+    np.testing.assert_allclose(a.rgb.detach().numpy(), b.rgb.detach().numpy(), atol=2e-2)
 
 
 def test_fused_operands_kept_until_weights_change(fused_pair):

@@ -20,7 +20,17 @@ weights:
   four synthetic 320x240 views, which must launch kernels 1 and 2 twice
   each per step, keep every loss term finite, move the parameters,
   lower the loss on a fixed batch, and agree with the same step run by
-  the plain versions on the host.
+  the plain versions on the host;
+- the forward probe (kernel 3, ``tools/fwd_probe.py``): every case of
+  its sweep (each variant, tile, layer count and output type) and a
+  ragged point count, each held against its plain version first, then
+  the sweep itself;
+- the scene trainer (``train/trainer.py:Trainer``, as the scene CLI runs
+  it) on a synthetic room written by ``tools_make_synthetic_replica.py``:
+  an evaluation, 400 steps with two cluster rebuilds, a checkpoint and
+  an evaluation, then a resume in a second trainer that must restore the
+  step, the parameters, the Adam state and the palette exactly and
+  train on.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  It prints what it measured; the last line is ``{"ok":
@@ -60,6 +70,16 @@ BWD_COS, BWD_REL = 0.999, 1e-2
 # the training step on the card vs the same step by the plain versions
 STEP_REL, STEP_COS = 1e-2, 0.99
 N_VIEWS = 4  # synthetic training views
+# kernel 3 vs plain: max |d| / max(|plain|, 1), the bound of kernels 1 and 2
+PROBE_TOL = 2e-2
+PROBE_N, PROBE_RAGGED = 196_608, 100_003
+# the scene run: the Replica config with only the data paths and cadences
+# changed; 20 frames split every 5th (4 train and 4 test views)
+SCENE_FRAMES, SCENE_SPLIT, SCENE_STEPS, SCENE_MORE = 20, 5, 400, 50
+SCENE_CADENCE = {"step_log_tfb": 50, "step_vis_train": 200, "step_save_ckpt": 200,
+                 "step_val": 400}
+SAVE_VIEW_FILES = ("rgb", "albedo", "shading", "residual", "disp", "depth", "vis_depth",
+                   "label", "vis_label", "entropy", "vis_entropy")
 TIMED_STEPS, WARM_STEPS, FIXED_STEPS = 20, 3, 30
 SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
@@ -125,9 +145,10 @@ def grad_agreement(got, ref, masks, torch):
     return overall, per
 
 
-def profile_window(fn, torch):
+def profile_window(fn, torch, host=None):
     """(wall ms, device busy ms, {kernel name: device ms}) of one call of
-    ``fn`` under torch.profiler."""
+    ``fn`` under torch.profiler; with ``host`` a dict, it also receives
+    {host op: self CPU ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,10 +157,12 @@ def profile_window(fn, torch):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kern_ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     by_name = {}
-    for e in kern_ev:
-        by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        elif host is not None and e.device_type == DeviceType.CPU:
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
     return wall_ms, sum(by_name.values()), by_name
 
 
@@ -366,6 +389,238 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
             "fwd_step_ms": fwd_step_ms}
 
 
+def probe_phases(torch, np, dev, card):
+    """Kernel 3 against its plain version, then the probe's own path (the
+    sweep of ``tools/fwd_probe.py``) with its launches counted."""
+    from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
+    from intrinsicnerf_tpu_torch.tools import fwd_probe as probe_cli
+
+    # every case of the sweep (variants, tiles, layer counts, fp32 output),
+    # then a ragged point count
+    cases = ([(n_layers, v, tile, PROBE_N, out) for n_layers, v, tile, out in probe_cli.SWEEP]
+             + [(8, "full", 64, PROBE_RAGGED, torch.bfloat16)])
+    max_err, main_case = 0.0, None
+    for n_layers, variant, tile, n, out in cases:
+        in8, ops = fp.probe_inputs(n_layers, n=n, bias_scale=0.1, device=dev)
+        got = fp.fwd_probe(in8, ops, variant, tile, out)
+        torch.cuda.synchronize()
+        ref = fp.fwd_probe_plain(in8, ops, variant, out)
+        d = (got.float() - ref.float()).abs().max().item()
+        rel = d / max(ref.float().abs().max().item(), 1.0)
+        max_err = max(max_err, d)
+        k_ms = cuda_ms(lambda: fp.fwd_probe(in8, ops, variant, tile, out), 10, torch)
+        p_ms = cuda_ms(lambda: fp.fwd_probe_plain(in8, ops, variant, out), 3, torch)
+        flops, _ = fp.probe_work(n, n_layers, out)
+        bound_ms, bound_by = probe_cli.bound(n, n_layers, out)
+        say("probe_vs_plain", layers=n_layers, variant=variant, tile=tile, points=n,
+            out="f32" if out == torch.float32 else "bf16", rel_err=f"{rel:.3g}", tol=PROBE_TOL,
+            ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, achieved_tflops=f"{flops / k_ms / 1e9:.1f}", card=json.dumps(card))
+        if not (rel < PROBE_TOL and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"kernel 3 disagrees with its plain version at "
+                                 f"{(n_layers, variant, tile, n, out)}: {rel}")
+        if (n_layers, variant, tile, n, out) == (8, "full", 64, PROBE_N, torch.bfloat16):
+            main_case = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del in8, ops, got, ref
+
+    # the probe's own path: its CLI's sweep, launches counted
+    fp.fwd_probe.launches = 0
+    sweep = [probe_cli.run_case(n_layers, v, tile, out, PROBE_N, dev, 20)
+             for n_layers, v, tile, out in probe_cli.SWEEP]
+    launches = fp.fwd_probe.launches
+    for r in sweep:
+        say("probe_sweep", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in r.items()},
+            card=json.dumps(card))
+    want = len(probe_cli.SWEEP) * (4 + 20)  # warm-up and timed calls per case
+    say("probe_sweep", launches=launches, want=want,
+        cublas_layer_ms=f"{probe_cli.cublas_layer_ms(PROBE_N, dev, 20):.4f}")
+    if launches != want:
+        raise AssertionError(f"the probe sweep launched kernel 3 {launches} times, want {want}")
+    torch.cuda.empty_cache()
+    return {"max_err": max_err, "launches": launches, **main_case}
+
+
+def read_scalars(path):
+    """{name: {step: value}} from a trainer's ``scalars.csv``."""
+    import csv
+
+    out = {}
+    with open(path) as f:
+        for step, name, val in csv.reader(f):
+            out.setdefault(name, {})[int(step)] = float(val)
+    return out
+
+
+def scene_phases(torch, np, dev, card):
+    """The scene trainer on a synthetic room at the Replica config: an
+    evaluation, ``SCENE_STEPS`` steps with two rebuilds, a checkpoint and
+    an evaluation; then a resume in a second trainer."""
+    import shutil
+
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.data.replica import default_replica_split, load_replica
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools.synthetic_replica import write_synthetic_replica
+    from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
+    from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
+    from intrinsicnerf_tpu_torch.train.trainer import Trainer
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_scene")
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir, save_dir = os.path.join(work, "data"), os.path.join(work, "run")
+    t0 = time.perf_counter()
+    report = write_synthetic_replica(data_dir, SCENE_FRAMES, W, H)
+    data_s = time.perf_counter() - t0
+    overrides = {"experiment.dataset_dir": data_dir, "experiment.save_dir": save_dir,
+                 "train.N_iters": SCENE_STEPS,
+                 **{f"logging.{k}": v for k, v in SCENE_CADENCE.items()}}
+    cfg = from_yaml(CONFIG, overrides)
+    train_ids, test_ids = default_replica_split(SCENE_FRAMES, SCENE_SPLIT)
+    data = load_replica(data_dir, train_ids, test_ids, img_h=cfg.experiment.height,
+                        img_w=cfg.experiment.width)
+    bundle = prepare_replica_bundle(cfg, data, device=dev)
+    n_train, n_test = len(train_ids), len(test_ids)
+    say("scene_data", tool=json.dumps(report), seconds=f"{data_s:.1f}", train_views=n_train,
+        test_views=n_test, classes=bundle.num_valid_classes, view=f"{H}x{W}")
+
+    steps = []  # (step, enqueue ms, step ms, did periodic work)
+
+    def hook(done, t_start, t_enqueued, did_work):
+        torch.cuda.synchronize()
+        steps.append((done, 1e3 * (t_enqueued - t_start),
+                      1e3 * (time.perf_counter() - t_start), did_work))
+        if done % SCENE_CADENCE["step_vis_train"] == 0:
+            rebuilds.append(dict(trainer.last_rebuild))
+
+    rebuilds = []
+    trainer = Trainer(cfg, bundle, seed=0, device=dev)
+    trainer.step_hook = hook
+    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    t0 = time.perf_counter()
+    m0 = trainer.evaluate(0)
+    eval_s = time.perf_counter() - t0
+    report_last = trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches}
+    state_after = [p.detach().clone() for m in (trainer.state.model_coarse,
+                                                trainer.state.model_fine) for p in m.parameters()]
+    opt_after = copy.deepcopy(trainer.state.optimizer.state_dict())
+    table_after = trainer.table
+    anneal_after = (trainer.w_c, trainer.b_f)
+    gen_after = trainer.generator.get_state()
+    ck_dir = os.path.join(work, "ckpt_timing")
+    ck = Checkpointer(ck_dir)
+    t0 = time.perf_counter()
+    ck.save(trainer.state, SCENE_STEPS, trainer.generator)
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    ck.wait()
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    ck.close()
+    trainer.close()
+
+    # ---- checks on the run ----
+    sc = read_scalars(os.path.join(save_dir, "tfb_logs", "scalars.csv"))
+    view_rays = bundle.h_scaled * bundle.w_scaled
+    chunks = math.ceil(view_rays / min(cfg.chunk, view_rays))
+    views = n_test + 2 * n_train + n_test  # eval(0), two rebuilds, eval at the end
+    n_logs = SCENE_STEPS // SCENE_CADENCE["step_log_tfb"]
+    probes = n_logs if trainer.logger.writer is not None else 0  # sigma probe: 2 launches
+    want = {"fwd": 2 * SCENE_STEPS + 2 * chunks * views + 2 * probes, "bwd": 2 * SCENE_STEPS}
+    if launches != want:
+        raise AssertionError(f"the scene run launched {launches}, want {want}")
+    img = sc["Train/Loss/img_fine"]
+    log_steps = sorted(img)
+    first, last = np.mean([img[s] for s in log_steps[:2]]), np.mean([img[s] for s in log_steps[-2:]])
+    cluster = sc["Train/Loss/reflect_cluster"]
+    w_c_eff = sc["Train/w_c_eff"]
+    first_rebuild = SCENE_CADENCE["step_vis_train"]
+    before = [s for s in log_steps if s <= first_rebuild]
+    after = [s for s in log_steps if s > first_rebuild]
+    m_end = {k[5:]: v[SCENE_STEPS] for k, v in sc.items()
+             if k.startswith("Test/") and SCENE_STEPS in v}
+    test_dir = os.path.join(save_dir, "test_render", f"step_{SCENE_STEPS:06d}")
+    missing = [f"{name}_{i:03d}.png" for name in SAVE_VIEW_FILES for i in range(n_test)
+               if not os.path.exists(os.path.join(test_dir, f"{name}_{i:03d}.png"))]
+    rebuild_dirs = [os.path.join(save_dir, "train_render", f"step_{s:06d}")
+                    for s in (first_rebuild, SCENE_STEPS)]
+    missing += [d for d in rebuild_dirs
+                if not all(os.path.exists(os.path.join(d, f)) for f in
+                           ("cluster/clusters.json", "c000.png", "edit000.png", "rgb_000.png"))]
+    plain = [x for x in steps if not x[3]]
+    median_ms = float(np.median([x[2] for x in plain]))
+    say("scene_fit", steps=SCENE_STEPS, launches=json.dumps(launches), want=json.dumps(want),
+        img_fine_first=f"{first:.5f}", img_fine_last=f"{last:.5f}",
+        cluster_mse=json.dumps({s: round(cluster[s], 6) for s in log_steps}),
+        w_c_eff=json.dumps({s: w_c_eff[s] for s in log_steps}),
+        eval_0=json.dumps({k: round(v, 4) for k, v in m0.items()
+                           if k in ("psnr", "miou", "total_acc")}),
+        eval_end=json.dumps({k: round(v, 4) for k, v in m_end.items()
+                             if k in ("psnr", "miou", "total_acc")}),
+        missing_files=json.dumps(missing))
+    finite = all(math.isfinite(m[k]) for m in (m0, m_end) for k in ("psnr", "miou", "total_acc"))
+    # the cluster term as the loss weighs it: off until the first rebuild
+    term = {s: w_c_eff[s] * cluster[s] for s in log_steps}
+    ok = (last < first and all(term[s] == 0.0 for s in before)
+          and all(term[s] > 0.0 for s in after)
+          and len(rebuilds) == 2 and finite and m_end["psnr"] > m0["psnr"] and not missing
+          and all(math.isfinite(float(v)) for v in report_last))
+    if not ok:
+        raise AssertionError("the scene run failed a check (see the scene_fit line)")
+    say("scene_time", median_ms_per_plain_step=f"{median_ms:.3f}",
+        median_host_enqueue_ms=f"{float(np.median([x[1] for x in plain])):.3f}",
+        plain_steps=len(plain), steps_per_s=f"{1e3 / median_ms:.2f}",
+        rebuilds=json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
+                              for k, v in r.items()} for r in rebuilds]),
+        eval_s=f"{eval_s:.3f}", eval_views=n_test,
+        checkpoint_host_copy_ms=f"{copy_ms:.2f}", checkpoint_save_ms=f"{save_ms:.2f}",
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+
+    # ---- resume in a second trainer ----
+    trainer2 = Trainer(cfg, bundle, seed=0, device=dev)
+    step = trainer2.maybe_resume()
+    params2 = [p.detach() for m in (trainer2.state.model_coarse, trainer2.state.model_fine)
+               for p in m.parameters()]
+    opt2 = trainer2.state.optimizer.state_dict()
+
+    def same(a, b):
+        if torch.is_tensor(a):
+            return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    exact = {
+        "step": step == SCENE_STEPS,
+        "params": same(state_after, params2),
+        "adam": same(opt_after["state"], opt2["state"]),
+        "palette": same(list(table_after[:4]), list(trainer2.table[:4])),
+        "anneal": (trainer2.w_c, trainer2.b_f) == anneal_after,
+        "generator": same(gen_after, trainer2.generator.get_state()),
+    }
+    fm.fused_mlp_backward.launches = 0
+    rep = trainer2.fit(n_iters=SCENE_STEPS + SCENE_MORE, progress=False)
+    torch.cuda.synchronize()
+    more = fm.fused_mlp_backward.launches
+    # where a step of the loop goes, on the device and on the host
+    host = {}
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: trainer2.step_fn(trainer2.state, trainer2.bundle.pools, trainer2.table,
+                                 trainer2.w_c, trainer2.generator), torch, host)
+    say("profile", path="scene_step", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}", top_kernels_ms=json.dumps(top(by_name, 5)),
+        host_cpu_ms=f"{sum(host.values()):.2f}", top_host_ops_ms=json.dumps(top(host, 10)),
+        card=json.dumps(card))
+    trainer2.close()
+    say("scene_resume", exact=json.dumps(exact), more_steps=SCENE_MORE, bwd_launches=more,
+        global_step=trainer2.global_step, last_total=f"{float(rep.total):.5f}")
+    if not (all(exact.values()) and more == 2 * SCENE_MORE and math.isfinite(float(rep.total))
+            and trainer2.global_step == SCENE_STEPS + SCENE_MORE):
+        raise AssertionError(f"the resume failed: {exact}, {more} launches")
+    return {"launches": launches, "median_ms": median_ms}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -397,7 +652,7 @@ def main() -> int:
 
     # 2. the kernel builds, one nvcc per kernel, all started together
     t0 = time.perf_counter()
-    names = ("fused_mlp_fwd", "fused_mlp_bwd")
+    names = ("fused_mlp_fwd", "fused_mlp_bwd", "fwd_probe")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
     for name, (_, secs, log) in zip(names, builds):
@@ -546,6 +801,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train = train_phases(torch, np, fc, mcfg, dev, card, macs, rays)
+    probe = probe_phases(torch, np, dev, card)
+    scene = scene_phases(torch, np, dev, card)
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
@@ -554,7 +811,8 @@ def main() -> int:
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_fwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:346",
-        "launches": train["launches"]["fwd"],  # the timed training steps
+        "launches": scene["launches"]["fwd"],  # the scene run: steps, renders, probes
+        "launches_train_step_phase": train["launches"]["fwd"],
         "launches_per_step": train["launches"]["fwd"] // TIMED_STEPS,
         "launches_per_view": launches,
         "max_abs_err": max_err,
@@ -569,7 +827,8 @@ def main() -> int:
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:354",
-        "launches": train["launches"]["bwd"],
+        "launches": scene["launches"]["bwd"],  # the scene run: 2 per step
+        "launches_train_step_phase": train["launches"]["bwd"],
         "launches_per_step": train["launches"]["bwd"] // TIMED_STEPS,
         "max_abs_err": train["bwd_max_err"],
         "ms": b["ms"],  # the step's fine call (196,608 points)
@@ -578,6 +837,18 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this MLP's gradient
         "per_shape": train["bwd_timing"],
+    }, {
+        "name": "fwd_probe",
+        "route": "cuda",
+        "source": "intrinsicnerf_tpu_torch/ops/csrc/fwd_probe.cu",
+        "replaces": "tools_fwd_probe.py:47",
+        "launches": probe["launches"],  # the probe CLI's sweep
+        "max_abs_err": probe["max_err"],
+        "ms": probe["ms"],  # 8 layers, full, 196,608 points, bf16 out, 64-point tiles
+        "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"],
+        "bound_by": probe["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the probe
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

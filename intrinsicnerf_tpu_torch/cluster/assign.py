@@ -90,6 +90,16 @@ def dest_class(table: ClusterTable, rgb: torch.Tensor, label: torch.Tensor) -> t
     return torch.where(table.has_cluster[label], link, torch.full_like(link, -1))
 
 
+def dest_color_chunked(table: ClusterTable, rgb: torch.Tensor, label: torch.Tensor,
+                       chunk: int = 8192) -> torch.Tensor:
+    """:func:`dest_color` over a whole image, ``chunk`` points at a time, so
+    the per-point anchor gather (``[chunk, A, 3]``) stays bounded.  Each
+    point's result depends on that point alone, so this equals one call."""
+    label = label.reshape(-1)
+    return torch.cat([dest_color(table, rgb[s : s + chunk], label[s : s + chunk])
+                      for s in range(0, rgb.shape[0], chunk)])
+
+
 def table_from_numpy(per_class: list, anchors_per_class: int = 2048,
                      intensity_factor: float = 0.5, device="cuda") -> ClusterTable:
     """A padded table from per-class host data on ``device``.

@@ -40,6 +40,7 @@ SIGNATURES = {
         ("fused_mlp_bwd", [_P] * 11 + [_I64, _I32, _P], ctypes.c_int),
         ("fused_mlp_bwd_scratch", [_I64, _I32] + [ctypes.POINTER(_I64)] * 3, None),
     ],
+    "fwd_probe": [("fwd_probe", [_P] * 6 + [_I64] + [_I32] * 4 + [_P], ctypes.c_int)],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 // Device code shared by the fused-MLP forward (fused_mlp_fwd.cu) and
-// backward (fused_mlp_bwd.cu) kernels: the packed weight and bias layouts,
+// backward (fused_mlp_bwd.cu) kernels and the forward's attribution probe
+// (fwd_probe.cu): the packed weight and bias layouts,
 // the on-chip positional encoding, and the wmma bf16 product and epilogue
 // helpers.  Every product takes bf16 operands with fp32 accumulation.
 #pragma once
@@ -65,31 +66,33 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-template <int NF>
-__device__ __forceinline__ void zero(FragC (&acc)[4][NF]) {
+// RF row fragments of 16 points: 4 for the 64-point tiles of kernels 1
+// and 2; the probe (fwd_probe.cu) also takes 2 and 8.
+template <int NF, int RF>
+__device__ __forceinline__ void zero(FragC (&acc)[RF][NF]) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < RF; ++r)
 #pragma unroll
     for (int c = 0; c < NF; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
 }
 
-// acc[64 x 16*NF] += A[64 x K] (shared, stride lda) @ Wt[K x *] (global,
-// stride ldw) restricted to columns [col0, col0 + 16*NF).
-template <int NF>
-__device__ __forceinline__ void mma_acc(FragC (&acc)[4][NF], const bf16* A, int lda,
+// acc[16*RF x 16*NF] += A[16*RF x K] (shared, stride lda) @ Wt[K x *]
+// (global, stride ldw) restricted to columns [col0, col0 + 16*NF).
+template <int NF, int RF>
+__device__ __forceinline__ void mma_acc(FragC (&acc)[RF][NF], const bf16* A, int lda,
                                         int K, const bf16* __restrict__ Wt, int ldw,
                                         int col0) {
 #pragma unroll 2
   for (int k = 0; k < K; k += 16) {
-    FragA a[4];
+    FragA a[RF];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) wmma::load_matrix_sync(a[r], A + r * 16 * lda + k, lda);
+    for (int r = 0; r < RF; ++r) wmma::load_matrix_sync(a[r], A + r * 16 * lda + k, lda);
 #pragma unroll
     for (int c = 0; c < NF; ++c) {
       FragB b;
       wmma::load_matrix_sync(b, Wt + (long)k * ldw + col0 + c * 16, ldw);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
+      for (int r = 0; r < RF; ++r) wmma::mma_sync(acc[r][c], a[r], b, acc[r][c]);
     }
   }
 }

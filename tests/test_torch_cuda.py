@@ -16,6 +16,10 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
   seeded squared-error loss on the output (coherent across points, as a
   training loss's is); two launches give bitwise-equal gradients.
+- kernel 3 (the forward probe): max |d| / max(|plain|, 1) < 2e-2, the
+  bound ``chip_smoke.py`` holds it to; both sides round the same operands
+  to bf16, and a fp32 sum-order flip of an intermediate bf16 rounding
+  moves an output by ~1e-3 at most.
 """
 
 import pytest
@@ -25,6 +29,7 @@ from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table
 from intrinsicnerf_tpu_torch.core.rays import create_rays
 from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
 from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays_chunked
 from intrinsicnerf_tpu_torch.train.step import (
     DataPools, TrainConfig, create_train_state, make_train_step)
@@ -155,3 +160,22 @@ def test_training_step_on_card(model):
     for mdl in (state.model_coarse, state.model_fine):
         for name, p in mdl.named_parameters():
             assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("variant,n_layers,tile,out,n", [
+    *[(v, 8, 64, torch.bfloat16, 20_003) for v in fp.VARIANTS],
+    ("full", 1, 32, torch.bfloat16, 4_096), ("full", 16, 128, torch.bfloat16, 4_097),
+    ("full", 8, 64, torch.float32, 65), ("nobias", 2, 128, torch.float32, 1),
+])
+def test_probe_kernel_matches_plain(card, variant, n_layers, tile, out, n):
+    """Kernel 3 against its plain version, with nonzero biases, at ragged
+    sizes, every variant, each tile and both output types."""
+    in8, ops = fp.probe_inputs(n_layers, n=n, bias_scale=0.1, device=card)
+    before = fp.fwd_probe.launches
+    got = fp.fwd_probe(in8, ops, variant, tile, out)
+    torch.cuda.synchronize()
+    assert fp.fwd_probe.launches == before + 1
+    ref = fp.fwd_probe_plain(in8, ops, variant, out)
+    assert got.dtype == out and got.shape == (n, fp.OUT_W)
+    err = (got.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(), 1.0)
+    assert err < 2e-2, err

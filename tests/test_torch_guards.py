@@ -134,3 +134,50 @@ def test_build_paths_stay_in_the_package():
     assert os.path.dirname(build.BUILD_DIR) == os.path.dirname(os.path.dirname(fused_mlp.__file__))
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_trainer_and_scene_state_default_to_cuda_and_raise(no_gpu, tmp_path):
+    """The scene bundle, the trainer, the palette's table and the probe's
+    operands are made on the GPU unless the caller asks for the CPU."""
+    from intrinsicnerf_tpu_torch.cluster.manager import ClusterManager
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.data.replica import ReplicaDataset
+    from intrinsicnerf_tpu_torch.ops import fwd_probe
+    from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
+    from intrinsicnerf_tpu_torch.train.trainer import Trainer
+
+    h, w = 4, 6
+    frames = {"image": np.zeros((1, h, w, 3), np.float32), "depth": np.ones((1, h, w), np.float32),
+              "semantic": np.ones((1, h, w), np.int64), "semantic_remap": np.ones((1, h, w), np.int64),
+              "T_wc": np.eye(4, dtype=np.float32)[None]}
+    data = ReplicaDataset(train_samples=dict(frames), test_samples=dict(frames), train_ids=[0],
+                          test_ids=[2], semantic_classes=np.array([0, 1]), num_semantic_class=2,
+                          mask_ids=np.ones(1, np.int64))
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(
+        f"experiment: {{save_dir: {tmp_path / 'run'}, width: {w}, height: {h}}}\n"
+        "model: {netdepth: 3, netwidth: 16}\n"
+        "render: {N_rays: 4, N_samples: 4, N_importance: 4, multires: 2, multires_views: 1}\n")
+    cfg = from_yaml(str(cfg_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare_replica_bundle(cfg, data)
+    bundle = prepare_replica_bundle(cfg, data, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, bundle)
+    with Trainer(cfg, bundle, device="cpu") as trainer:
+        assert trainer.table.anchors.device.type == "cpu"
+        assert trainer.generator.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterManager(class_num=1).to_table()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fwd_probe.probe_inputs(1, n=8)
+    in8, ops = fwd_probe.probe_inputs(1, n=8, device="cpu")
+    assert in8.device.type == ops.wbuf.device.type == "cpu"
+
+
+def test_probe_wrapper_refuses_other_devices():
+    from intrinsicnerf_tpu_torch.ops import fwd_probe
+
+    _, ops = fwd_probe.probe_inputs(1, n=8, device="cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fwd_probe.fwd_probe(torch.zeros(8, 8, device="meta"), ops)

@@ -185,6 +185,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
     from intrinsicnerf_tpu_torch.train.step import (
         DataPools, TrainState, create_train_state, make_train_step)
 
@@ -194,18 +195,11 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     n_fine_pts = n_rays * (rcfg.n_coarse + rcfg.n_importance)
 
     # the backward's multiply-adds per point, counted on the network's own
-    # layers: the forward without the five output products, the weight
-    # product of every layer, the input product of every layer whose input
-    # depends on parameters (all but the PE-fed w0, w5x and wv_d)
+    # layers (tools/bwd_passes.py:backward_macs)
     probe = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
-    lin = dict((n, m) for n, m in probe.named_modules() if isinstance(m, torch.nn.Linear))
-    out_macs = sum(lin[n].weight.numel() for n in ("alpha_linear", "albedo_linear2",
-                                                    "shading_linear2", "residual_linear",
-                                                    "semantic_linear.1"))
-    pe_macs = 2 * mcfg.input_ch * mcfg.width + mcfg.input_ch_views * (mcfg.width // 2)
-    bwd_macs = (macs - out_macs) + macs + (macs - pe_macs)
-    say("work", bwd_macs_per_point=bwd_macs, fwd_recompute=macs - out_macs, weight_products=macs,
-        input_products=macs - pe_macs)
+    work = bwd_passes.backward_macs(probe)
+    bwd_macs = sum(work.values())
+    say("work", bwd_macs_per_point=bwd_macs, **work)
 
     # ---- kernel 2 vs plain at the step's shapes ----
     ops = probe.fused_operands(mcfg)
@@ -241,15 +235,25 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
         k_ms = cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch)
         p_ms = cuda_ms(lambda: fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g), 2, torch)
+        # each pass's device time (profiled) beside its own bound
+        passes = bwd_passes.pass_times(lambda: fm.fused_mlp_backward(ops, in8, g), 5)
+        pass_bounds = bwd_passes.pass_bounds(n, work, fm.backward_splits(n))
+        pass_ms = {p: round(passes[p], 4) for p in bwd_passes.PASSES}
+        pass_bound = {p: [round(b[0], 4), b[1]] for p, b in pass_bounds.items()}
+        # the arena's own floor: written once and read once at the memory's rate
+        arena_ms = 1e3 * 2 * n * bwd_passes.ARENA_BYTES / PEAK_BYTES
         bwd_timing[label] = dict(points=n, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by)
+                                 bound_by=bound_by, arena_floor_ms=arena_ms, pass_ms=pass_ms,
+                                 pass_bound_ms=pass_bound)
         say("bwd_kernel_vs_plain", shape=label, points=n, bitwise_repeat=bitwise,
             cos=f"{cos:.7f}", rel_err=f"{rel:.3g}",
             worst_block_cos=json.dumps([worst_cos[0], round(worst_cos[1][0], 7)]),
             worst_block_rel=json.dumps([worst_rel[0], float(f"{worst_rel[1][1]:.3g}")]),
             tol=json.dumps({"cos": BWD_COS, "rel": BWD_REL}), ms=f"{k_ms:.4f}",
             plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            achieved_tflops=f"{flops / k_ms / 1e9:.1f}", fwd_kernel_ms=f"{fwd_step_ms[label]:.4f}",
+            arena_floor_ms=f"{arena_ms:.4f}", pass_ms=json.dumps(pass_ms),
+            pass_bound_ms=json.dumps(pass_bound), achieved_tflops=f"{flops / k_ms / 1e9:.1f}",
+            fwd_kernel_ms=f"{fwd_step_ms[label]:.4f}",
             fwd_bound_ms=f"{1e3 * 2.0 * macs * n / PEAK_BF16_FLOPS:.4f}", card=json.dumps(card))
         ok = (bitwise and cos > BWD_COS and rel <= BWD_REL
               and all(c > BWD_COS and r <= BWD_REL for c, r in per.values())
@@ -374,15 +378,24 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         raise AssertionError(f"the step on the card disagrees with the plain step: {rel} {cos}")
 
     # where a step's device time goes
+    bwd_before = fm.fused_mlp_backward.launches
     wall_ms, busy_ms, by_name = profile_window(
         lambda: step_fn(state, pools, table, w_c, gen), torch)
+    bwd_profiled = fm.fused_mlp_backward.launches - bwd_before
     k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
-    k2 = sum(v for k, v in by_name.items()
-             if any(n in k for n in ("bwd_act_kernel", "bwd_wgrad_kernel", "reduce_rows_kernel")))
+    # kernel 2's passes by name: a rename must not report 0 ms in silence
+    k2_passes = {p: sum(v for k, v in by_name.items() if sub in k)
+                 for p, sub in bwd_passes.PASSES.items()}
+    k2 = sum(k2_passes.values())
+    if bwd_profiled and min(k2_passes.values()) <= 0.0:
+        raise AssertionError(f"the profiled step launched kernel 2 {bwd_profiled} times but its "
+                             f"passes {k2_passes} "
+                             f"were not all found among {sorted(by_name)}")
     say("profile", path="train_step", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
         busy_share=f"{busy_ms / wall_ms:.3f}", busy_over_median_step=f"{busy_ms / median:.3f}",
         kernel1_share=f"{k1 / busy_ms:.3f}",
         kernel2_share=f"{k2 / busy_ms:.3f}", kernel1_ms=f"{k1:.3f}", kernel2_ms=f"{k2:.3f}",
+        kernel2_pass_ms=json.dumps({p: round(v, 3) for p, v in k2_passes.items()}),
         top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
     return {"bwd_timing": bwd_timing, "bwd_max_err": bwd_max_err, "launches": launches,
@@ -836,6 +849,9 @@ def main() -> int:
         "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this MLP's gradient
+        "arena_floor_ms": b["arena_floor_ms"],  # the arena written and read once
+        "pass_ms": b["pass_ms"],  # the fine call's passes: activations, weight GEMM, reductions
+        "pass_bound_ms": b["pass_bound_ms"],
         "per_shape": train["bwd_timing"],
     }, {
         "name": "fwd_probe",

@@ -1,0 +1,160 @@
+// Hopper (sm_90a) building blocks for the fused-MLP backward
+// (fused_mlp_bwd.cu): 16-byte cp.async into 128-byte-swizzled shared
+// tiles, mbarriers and bulk copies into shared memory, wgmma
+// shared-memory descriptors, and bf16 wgmma with fp32 accumulators.
+//
+// Shared tiles.  Every operand tile is a run of "atoms": 64 bf16 columns
+// (128 bytes) by R rows, row r at byte r * 128, its eight 16-byte chunks
+// permuted as chunk ^ (r % 8): the 128-byte swizzle that wgmma's
+// descriptor (layout type 1) and TMA's SWIZZLE_128B both use.  An atom
+// starts on a 1,024-byte boundary, so the swizzle phase is the row.
+//  - K-major operand (the contraction runs along a row): rows are M or N,
+//    each atom holds 64 of K; a k16 step advances the start by 32 bytes
+//    inside the atom, the next 8-row group lies SBO = 1,024 bytes on.
+//  - MN-major operand (the contraction runs down the rows): rows are K,
+//    each atom holds 64 of M or N; a k16 step advances 16 rows (2,048
+//    bytes), the next 8-row group lies SBO = 1,024 bytes on, and the next
+//    64 of M or N lies LBO bytes on (the atom's size).
+#pragma once
+
+#include <cstdint>
+
+namespace hmma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in an atom
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory (cp.async, st.shared) made
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory (8 bytes each, at shared address `bar`)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive, and expect `bytes` more from bulk copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete.  A phase that never
+// completes (a lost arrival or byte count) traps after some seconds
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory by the copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulator registers at this point of the program: placed
+// after wgmma_wait, it keeps the compiler from reading them earlier.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator layout of m64nNk16 (fp32, N/2 registers per thread): thread
+// t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 + 8 * h and
+// columns 8 * j + 2 * (t % 4) + e in register 4 * j + 2 * h + e.
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands in shared memory;
+// TA / TB: 1 when A / B is MN-major (transposed), 0 when K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both operands in shared memory;
+// TA / TB: 1 when A / B is MN-major (transposed), 0 when K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+}  // namespace hmma

@@ -75,8 +75,11 @@ _W_ORDER = (
 _B_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7",
             "b_a1", "b_s1", "b_f", "b_v", "b_m1")
 _B_OUT = ("b_sig", "b_a2", "b_s2", "b_r", "b_m2")  # summed into one out bias
-SPLIT_ROWS = 4096  # points per chunk of kernel 2's weight products
-MAX_SPLITS = 64
+# point chunks of kernel 2's weight-gradient GEMM: about SPLIT_ROWS points
+# each, at most MAX_SPLITS, so that its 51 output tiles x 5 chunks = 255
+# blocks run as one wave at two blocks per SM on the H100's 132 SMs
+SPLIT_ROWS = 4096
+MAX_SPLITS = 5
 
 
 def pe_constants(cfg, device=None):
@@ -456,7 +459,8 @@ fused_mlp_forward.launches = 0
 def backward_splits(n: int) -> int:
     """Point chunks of kernel 2's weight products for ``n`` points: about
     SPLIT_ROWS points each, at most MAX_SPLITS (its fp32 workspace is
-    splits x 3.3 MB)."""
+    splits x 3.3 MB).  The chunks fix the order of the fp32 sums, so they
+    depend on ``n`` alone."""
     p_pad = -(-n // 64) * 64
     return max(1, min(MAX_SPLITS, -(-p_pad // SPLIT_ROWS)))
 

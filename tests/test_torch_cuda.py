@@ -107,10 +107,12 @@ def _cos_rel(a, b):
     return float(a @ b / (a.norm() * b.norm())), float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("n", [65_536, 196_608, 100_003])
+@pytest.mark.parametrize("n", [1, 64, 4_097, 65_536, 196_608, 100_003])
 def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
-    """Kernel 2 at the training step's coarse and fine sizes and a ragged
-    size, against its plain version; and bitwise equal across launches."""
+    """Kernel 2 below one 64-point tile, at exactly one, at a ragged count
+    that leaves a part-filled chunk of the weight products, at the
+    training step's coarse and fine sizes and at a ragged step size,
+    against its plain version; and bitwise equal across launches."""
     cfg, m = model
     ops = m.fused_operands(cfg)
     in8, gen = _in8(n, n)

@@ -13,9 +13,13 @@ paths of the Replica scene configuration
 heads, C = 27 semantic classes, 64 + 128 samples) from seeded random
 weights:
 
+- kernel 1 (the fused-MLP forward) and its weight image against their
+  plain versions from one point to the view's fine chunk, bitwise across
+  two launches, then kernel 1 rebuilt with one part cut out at a time
+  (``tools/fwd_ablate.py``) and timed;
 - serving: one full 320x240 view through ``render_views`` (32,768-ray
-  chunks), which must go through kernel 1 and agree with the plain
-  version on a subset of its rays;
+  chunks, the last one short), which must go through kernel 1 and agree
+  with the plain version on a subset of its rays;
 - training: ``train/step.py:make_train_step`` at 512 pairs per step on
   four synthetic 320x240 views, which must launch kernels 1 and 2 twice
   each per step, keep every loss term finite, move the parameters,
@@ -297,6 +301,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
 
     fm.fused_mlp_forward.launches = 0
     fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
     step_ms, host_ms, reports = [], [], []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -304,9 +309,10 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         host_ms.append(1e3 * (time.perf_counter() - t0))  # the step's work enqueued
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches}
-    want = 2 * TIMED_STEPS  # coarse + fine per step
-    if launches != {"fwd": want, "bwd": want}:
+    launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches,
+                "fwd_image": fm.fwd_weight_image.launches}
+    want = 2 * TIMED_STEPS  # coarse + fine per step, each forward with its weight image
+    if launches != {"fwd": want, "bwd": want, "fwd_image": want}:
         raise AssertionError(f"{TIMED_STEPS} training steps launched {launches}, want {want} each")
     bad = [(i, k) for i, r in enumerate(reports) for k, v in r._asdict().items()
            if not math.isfinite(float(v))]
@@ -364,9 +370,11 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         return {k: float(v) for k, v in rep._asdict().items()}, grads
 
     fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
     rep_k, grads_k = run_on(dev)
     torch.cuda.synchronize()
-    slice_launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches)
+    slice_launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches,
+                      fm.fwd_weight_image.launches)
     rep_p, grads_p = run_on("cpu")
     rel = {k: abs(rep_k[k] - rep_p[k]) / max(abs(rep_p[k]), 1e-7) for k in rep_p}
     cos = [float(a @ b / (a.norm() * b.norm())) for a, b in zip(grads_k, grads_p)]
@@ -374,7 +382,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}), tol=STEP_REL,
         grad_cos=json.dumps({"coarse": round(cos[0], 7), "fine": round(cos[1], 7)}),
         cos_tol=STEP_COS)
-    if slice_launches != (2, 2) or max(rel.values()) > STEP_REL or min(cos) < STEP_COS:
+    if slice_launches != (2, 2, 2) or max(rel.values()) > STEP_REL or min(cos) < STEP_COS:
         raise AssertionError(f"the step on the card disagrees with the plain step: {rel} {cos}")
 
     # where a step's device time goes
@@ -509,12 +517,14 @@ def scene_phases(torch, np, dev, card):
     trainer = Trainer(cfg, bundle, seed=0, device=dev)
     trainer.step_hook = hook
     fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
     t0 = time.perf_counter()
     m0 = trainer.evaluate(0)
     eval_s = time.perf_counter() - t0
     report_last = trainer.fit(progress=False)
     torch.cuda.synchronize()
     launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches}
+    image_launches = fm.fwd_weight_image.launches
     state_after = [p.detach().clone() for m in (trainer.state.model_coarse,
                                                 trainer.state.model_fine) for p in m.parameters()]
     opt_after = copy.deepcopy(trainer.state.optimizer.state_dict())
@@ -541,6 +551,14 @@ def scene_phases(torch, np, dev, card):
     want = {"fwd": 2 * SCENE_STEPS + 2 * chunks * views + 2 * probes, "bwd": 2 * SCENE_STEPS}
     if launches != want:
         raise AssertionError(f"the scene run launched {launches}, want {want}")
+    # kernel 1's weight image: one per forward of a step; a render builds
+    # one per model at each set of weights and keeps it for its chunks
+    # (eval at 0, then the sigma probes, or the rebuilds without them)
+    img_want = 2 * SCENE_STEPS + 2 * (1 + (probes or 2))
+    img_most = 2 * SCENE_STEPS + 2 * (1 + probes + 3)  # every render at fresh weights
+    if not 2 * SCENE_STEPS + 2 <= image_launches <= img_most:
+        raise AssertionError(f"the scene run built kernel 1's weight image {image_launches} "
+                             f"times, want {img_want} (at most {img_most})")
     img = sc["Train/Loss/img_fine"]
     log_steps = sorted(img)
     first, last = np.mean([img[s] for s in log_steps[:2]]), np.mean([img[s] for s in log_steps[-2:]])
@@ -562,6 +580,7 @@ def scene_phases(torch, np, dev, card):
     plain = [x for x in steps if not x[3]]
     median_ms = float(np.median([x[2] for x in plain]))
     say("scene_fit", steps=SCENE_STEPS, launches=json.dumps(launches), want=json.dumps(want),
+        image_launches=image_launches, image_want=img_want,
         img_fine_first=f"{first:.5f}", img_fine_last=f"{last:.5f}",
         cluster_mse=json.dumps({s: round(cluster[s], 6) for s in log_steps}),
         w_c_eff=json.dumps({s: w_c_eff[s] for s in log_steps}),
@@ -631,7 +650,7 @@ def scene_phases(torch, np, dev, card):
     if not (all(exact.values()) and more == 2 * SCENE_MORE and math.isfinite(float(rep.total))
             and trainer2.global_step == SCENE_STEPS + SCENE_MORE):
         raise AssertionError(f"the resume failed: {exact}, {more} launches")
-    return {"launches": launches, "median_ms": median_ms}
+    return {"launches": launches, "image_launches": image_launches, "median_ms": median_ms}
 
 
 def main() -> int:
@@ -648,6 +667,7 @@ def main() -> int:
     from intrinsicnerf_tpu_torch.ops import build
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.render.pipeline import render_rays_chunked
+    from intrinsicnerf_tpu_torch.tools import fwd_ablate
     from intrinsicnerf_tpu_torch.train.trainer import render_views
 
     # fp32 matmuls in full fp32; the plain fused version rounds its
@@ -663,11 +683,15 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
 
-    # 2. the kernel builds, one nvcc per kernel, all started together
+    # 2. the kernel builds, one nvcc per kernel, all started together, and
+    # beside them kernel 1's ablation variants
     t0 = time.perf_counter()
     names = ("fused_mlp_fwd", "fused_mlp_bwd", "fwd_probe")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        variants = pool.submit(fwd_ablate.build_variants, list(fwd_ablate.PATCHES),
+                               [fwd_ablate.SOURCE])
         builds = list(pool.map(build.build, names))
+        ablate_libs = variants.result()
     for name, (_, secs, log) in zip(names, builds):
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -694,6 +718,22 @@ def main() -> int:
 
     # 3. kernel vs plain at the main path's shapes
     ops = model_c.fused_operands(mcfg)
+    # kernel 1's weight image: the card's against the plain version's bytes
+    img_plain = fm.fwd_weight_image_plain(ops.wbuf)
+    img_card = fm.fwd_weight_image(ops.wbuf)
+    torch.cuda.synchronize()
+    img_same = torch.equal(img_card.view(torch.int16), img_plain.view(torch.int16)) and \
+        torch.equal(ops.wimg.view(torch.int16), img_plain.view(torch.int16))
+    img_ms = cuda_ms(lambda: fm.fwd_weight_image(ops.wbuf), 20, torch)
+    img_plain_ms = cuda_ms(lambda: fm.fwd_weight_image_plain(ops.wbuf), 5, torch)
+    img_bound_ms = 1e3 * 2 * 2 * ops.wbuf.numel() / PEAK_BYTES  # bf16 read once, written once
+    image = dict(ms=img_ms, plain_ms=img_plain_ms, bound_ms=img_bound_ms, bound_by="bytes")
+    say("image_vs_plain", elems=ops.wbuf.numel(), bitwise=img_same, ms=f"{img_ms:.4f}",
+        plain_ms=f"{img_plain_ms:.4f}", bound_ms=f"{img_bound_ms:.4f}", bound_by="bytes",
+        card=json.dumps(card))
+    if not img_same:
+        raise AssertionError("kernel 1's weight image on the card differs from the plain one")
+    del img_plain, img_card
     # the network's multiply-adds per point, and the kernel's in its
     # padded packed layout (the difference is work the kernel wastes)
     macs = sum(m.weight.numel() for m in model_c.modules() if isinstance(m, torch.nn.Linear))
@@ -707,7 +747,12 @@ def main() -> int:
     n_fine = chunk * (rcfg.n_coarse + rcfg.n_importance)
     reps = -(-n_fine // in8_coarse.shape[0])
     in8_fine = in8_coarse.repeat(reps, 1)[:n_fine]  # the fine chunk's size, 32768 x 192
-    in8_ragged = in8_coarse[: 100_003]  # not a multiple of the 64-point tile
+    # the training step's shapes (1,024 rays at 64 and 192 samples), a
+    # ragged count, and sizes below, at and just past a tile
+    cases = (("n1", in8_coarse[:1]), ("n64", in8_coarse[:64]), ("n4097", in8_coarse[:4097]),
+             ("coarse_step", in8_coarse[:65_536]), ("ragged", in8_coarse[:100_003]),
+             ("fine_step", in8_coarse[:196_608]), ("coarse_chunk", in8_coarse),
+             ("fine_chunk", in8_fine))
     slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
               "semantic": (8, 8 + N_CLASSES), "pad": (8 + N_CLASSES, fm.OUT_W)}
 
@@ -717,10 +762,12 @@ def main() -> int:
 
     timing = {}
     max_err = 0.0
-    for label, in8 in (("coarse_chunk", in8_coarse), ("fine_chunk", in8_fine),
-                       ("ragged", in8_ragged)):
+    for label, in8 in cases:
         got = fm.fused_mlp_forward(ops, in8)
+        again = fm.fused_mlp_forward(ops, in8)
         torch.cuda.synchronize()
+        bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
+        del again
         ref = plain(in8)
         errs = {}
         for sl, (a, b) in slices.items():
@@ -728,7 +775,8 @@ def main() -> int:
             scale = max(ref[:, a:b].float().abs().max().item(), 1.0)
             errs[sl] = d / scale
             max_err = max(max_err, d)
-        ok = all(e < KERNEL_TOL for e in errs.values()) and torch.isfinite(got.float()).all().item()
+        ok = (bitwise and all(e < KERNEL_TOL for e in errs.values())
+              and torch.isfinite(got.float()).all().item())
         n = in8.shape[0]
         flops, nbytes = fused_work(n, macs, padded_macs, ops.bbuf.numel())
         bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
@@ -736,35 +784,53 @@ def main() -> int:
         k_ms = cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch)
         p_ms = cuda_ms(lambda: plain(in8), 2, torch)
         timing[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say("kernel_vs_plain", shape=label, points=n,
+        say("kernel_vs_plain", shape=label, points=n, bitwise_repeat=bitwise,
             rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
             tol=KERNEL_TOL, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, achieved_tflops=f"{flops / k_ms / 1e9:.1f}", card=json.dumps(card))
         if not ok:
-            raise AssertionError(f"fused kernel disagrees with its plain version at {label}: {errs}")
-    del in8_fine
+            raise AssertionError(f"fused kernel disagrees with its plain version at {label}: "
+                                 f"{errs}, bitwise repeat {bitwise}")
+        del got, ref
+    del in8_fine, cases
 
-    # 4. the main path: one full view through render_views
+    # kernel 1 with one part cut out at a time, at the fine step and chunk
+    ablation = fwd_ablate.time_variants(
+        ablate_libs, ops, fwd_ablate.shape_inputs(model_c, fc, dev), 5)
+    for row in ablation:
+        check = {k: row[k] for k in ("rel_err", "bitwise_repeat") if k in row}
+        say("fwd_ablate", variant=row["variant"], points=json.dumps(fwd_ablate.SHAPES),
+            ms=json.dumps({k: round(v, 4) for k, v in row["ms"].items()}),
+            **check, card=json.dumps(card))
+    torch.cuda.empty_cache()
+
+    # 4. the main path: one full view through render_views, of weights
+    # loaded just before it (each model builds its weight image once)
     next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev))  # warm-up
+    for m in (model_c, model_f):
+        m.load_state_dict(m.state_dict())
     torch.cuda.synchronize()
     fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
     t0 = time.perf_counter()
     view = next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev))
     torch.cuda.synchronize()
     view_ms = 1e3 * (time.perf_counter() - t0)
     launches = fm.fused_mlp_forward.launches
+    view_images = fm.fwd_weight_image.launches
     n_chunks = math.ceil(n_rays / chunk)
     want = 2 * n_chunks  # coarse + fine per chunk
-    if (launches, fm.fused_mlp_backward.launches) != (want, 0):  # serving takes no gradient
-        raise AssertionError(f"the view launched kernel 1 {launches} times (want {want}) and "
-                             f"kernel 2 {fm.fused_mlp_backward.launches} times (want 0)")
+    # serving takes no gradient, and builds one weight image per model
+    if (launches, fm.fused_mlp_backward.launches, view_images) != (want, 0, 2):
+        raise AssertionError(f"the view launched kernel 1 {launches} times (want {want}), "
+                             f"kernel 2 {fm.fused_mlp_backward.launches} times (want 0) and "
+                             f"the weight image {view_images} times (want 2)")
     shapes = {"rgb": (H, W, 3), "disp": (H, W), "depth": (H, W), "acc": (H, W),
               "albedo": (H, W, 3), "shading": (H, W), "residual": (H, W, 3),
               "sem_label": (H, W), "sem_entropy": (H, W)}
     for k, shape in shapes.items():
         if view[k].shape != shape or not np.isfinite(view[k]).all():
             raise AssertionError(f"view map {k}: shape {view[k].shape} (want {shape}) or not finite")
-    kernel_ms_view = n_chunks * (timing["coarse_chunk"]["ms"] + timing["fine_chunk"]["ms"])
     # the view's own MLP work: its rays at 64 coarse + 192 fine points, no padding
     view_points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)
     view_bound_ms = 1e3 * fused_work(view_points, macs, padded_macs, 0)[0] / PEAK_BF16_FLOPS
@@ -776,9 +842,9 @@ def main() -> int:
         more_ms.append(round(1e3 * (time.perf_counter() - t0), 2))
     median_ms = float(np.median([view_ms] + more_ms))
     say("main_path", view=f"{H}x{W}", rays=n_rays, chunk=chunk, launches=launches,
-        ms_per_view=f"{view_ms:.2f}", more_views_ms=json.dumps(more_ms),
-        median_ms_per_view=f"{median_ms:.2f}", rays_per_s=f"{n_rays / median_ms * 1e3:.0f}",
-        kernel_ms_per_view=f"{kernel_ms_view:.2f}", bound_ms_per_view=f"{view_bound_ms:.2f}",
+        image_launches=view_images, ms_per_view=f"{view_ms:.2f}",
+        more_views_ms=json.dumps(more_ms), median_ms_per_view=f"{median_ms:.2f}",
+        rays_per_s=f"{n_rays / median_ms * 1e3:.0f}", bound_ms_per_view=f"{view_bound_ms:.2f}",
         card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
 
     # the view against the plain version on a seeded subset of its rays
@@ -807,8 +873,12 @@ def main() -> int:
     wall_ms, busy_ms, by_name = profile_window(
         lambda: next(render_views(model_c, model_f, mcfg, rcfg, rays, H, W, chunk, device=dev)),
         torch)
+    k1_view = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
+    if k1_view <= 0.0:
+        raise AssertionError(f"kernel 1 not found among the profiled kernels {sorted(by_name)}")
     say("profile", path="view", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
-        busy_share=f"{busy_ms / wall_ms:.3f}", top_kernels_ms=json.dumps(top(by_name)),
+        busy_share=f"{busy_ms / wall_ms:.3f}", kernel_ms_per_view=f"{k1_view:.2f}",
+        kernel1_share=f"{k1_view / busy_ms:.3f}", top_kernels_ms=json.dumps(top(by_name)),
         card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
     del model_c, model_f
     torch.cuda.empty_cache()
@@ -819,6 +889,8 @@ def main() -> int:
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
+    per_shape = {f"{k}_{s}": timing[s][k] for s in ("coarse_step", "fine_step", "fine_chunk")
+                 for k in ("ms", "bound_ms")}
     kernels = [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -834,7 +906,27 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this MLP
+        "ms_step_coarse": per_shape["ms_coarse_step"],
+        "ms_step_fine": per_shape["ms_fine_step"],
+        "ms_fine_chunk": per_shape["ms_fine_chunk"],
+        "bound_ms_step_coarse": per_shape["bound_ms_coarse_step"],
+        "bound_ms_step_fine": per_shape["bound_ms_fine_step"],
+        "bound_ms_fine_chunk": per_shape["bound_ms_fine_chunk"],
         "ms_per_step_call": train["fwd_step_ms"],
+        "ablation_ms": {row["variant"]: row["ms"] for row in ablation},
+    }, {
+        "name": "fused_mlp_fwd_image",
+        "route": "cuda",
+        "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_fwd.cu",
+        "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:451",  # _run_fwd's resident weights
+        "launches": scene["image_launches"],  # the scene run: 2 per step, 2 per set of weights rendered
+        "launches_per_view": view_images,
+        "max_abs_err": 0.0,  # bitwise
+        "ms": image["ms"],
+        "plain_ms": image["plain_ms"],
+        "bound_ms": image["bound_ms"],
+        "bound_by": image["bound_by"],
+        "library_ms": None,  # no single PyTorch call lays out the slabs
     }, {
         "name": "fused_mlp_bwd",
         "route": "cuda",

@@ -111,7 +111,8 @@ class IntrinsicMLP(nn.Module):
 
     def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
         """The fused kernel's operands for the current weights under
-        ``cfg``, packed on the first call and kept until ``cfg`` changes
+        ``cfg`` (on the card with kernel 1's weight image), packed on the
+        first call and kept until ``cfg`` changes
         or a parameter is changed in place (an optimizer step,
         ``load_state_dict``), replaced or moved.  A write through
         ``.data`` bypasses the version counter and is not seen."""

@@ -18,7 +18,12 @@ package: the logits carry bf16-matmul noise regardless.
 ``fused_mlp_forward`` is its wrapper.  It takes ``FusedOperands``, the
 weights packed once (``fused_operands``; ``IntrinsicMLP`` keeps them
 until its weights change), so a launch does no packing, casting or
-host-to-device copy.  This is the serving path, without gradients.
+host-to-device copy.  This is the serving path, without gradients.  The
+kernel streams its weights from an image, every 64-row K-slab of the
+blocks in the order its products consume them, laid out as the slab sits
+in its shared-memory ring; ``fwd_weight_image`` builds it on the card
+(with a small kernel of the same source) once per set of weights, and
+``fwd_weight_image_plain`` builds the same bytes in PyTorch.
 
 Backward.  Kernel 2 (``csrc/fused_mlp_bwd.cu``) takes the points and the
 bf16 cotangent of the packed output, recomputes the forward and returns
@@ -44,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,6 +80,15 @@ _W_ORDER = (
 _B_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7",
             "b_a1", "b_s1", "b_f", "b_v", "b_m1")
 _B_OUT = ("b_sig", "b_a2", "b_s2", "b_r", "b_m2")  # summed into one out bias
+W_TOTAL = 835_584  # bf16 weights in the flat buffer at the kernel's width
+# kernel 1's weight image: the blocks in the order its products stream them
+# (csrc/fused_mlp_fwd.cu, SEG_TABLE), each as in/64 K-slabs of 64 rows
+FWD_IMAGE_ORDER = (
+    "w0", "w1", "w2", "w3", "w4", "w5h", "w5x", "w6", "w7",
+    "w_sig", "w_f", "wv_f", "wv_d", "w_r", "w_a1", "w_a2", "w_s1", "w_s2",
+    "w_m1", "w_m2",
+)
+FWD_IMAGE_SLABS = 66
 # point chunks of kernel 2's weight-gradient GEMM: about SPLIT_ROWS points
 # each, at most MAX_SPLITS, so that its 51 output tiles x 5 chunks = 255
 # blocks run as one wave at two blocks per SM on the H100's 132 SMs
@@ -391,22 +405,94 @@ def kernel_buffers(packed: Packed):
     return wbuf.contiguous(), bbuf.float().contiguous()
 
 
+def _kernel_block_shapes() -> Dict[str, Tuple[int, int]]:
+    """``[in, out]`` of each packed weight block at the kernel's width."""
+    w, h = KERNEL_WIDTH, KERNEL_WIDTH // 2
+    return {"w0": (IN_W, w), "w1": (w, w), "w2": (w, w), "w3": (w, w), "w4": (w, w),
+            "w5x": (IN_W, w), "w5h": (w, w), "w6": (w, w), "w7": (w, w),
+            "w_sig": (w, OUT_W), "w_a1": (w, h), "w_a2": (h, OUT_W), "w_s1": (w, h),
+            "w_s2": (h, OUT_W), "w_f": (w, w), "wv_f": (w, h), "wv_d": (IN_W, h),
+            "w_r": (h, OUT_W), "w_m1": (w, h), "w_m2": (h, OUT_W)}
+
+
+def fwd_weight_image_plain(wbuf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 1's weight image: for each block of
+    ``FWD_IMAGE_ORDER``, each K-slab (64 rows of W ``[in, out]``) as out/64
+    atoms of 64 rows by 64 columns, row r of an atom holding its eight
+    16-byte chunks at positions chunk ^ (r % 8) (the 128-byte swizzle)."""
+    shapes = _kernel_block_shapes()
+    blocks, i = {}, 0
+    for k in _W_ORDER:
+        rows, cols = shapes[k]
+        blocks[k] = wbuf[i : i + rows * cols].view(rows, cols)
+        i += rows * cols
+    r = torch.arange(64, device=wbuf.device)[:, None]
+    chunk_at = torch.arange(8, device=wbuf.device)[None, :] ^ (r & 7)  # [row, position]
+    parts = []
+    for k in FWD_IMAGE_ORDER:
+        rows, cols = shapes[k]
+        x = blocks[k].reshape(rows // 64, 64, cols // 64, 8, 8).permute(0, 2, 1, 3, 4)
+        parts.append(x[:, :, r, chunk_at].reshape(-1))  # [slab, atom, row, position, 8]
+    return torch.cat(parts)
+
+
+def fwd_weight_image(wbuf: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's weight image of the flat bf16 weights ``wbuf``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``fwd_wimg_kernel`` (one launch, counted in
+    ``fwd_weight_image.launches``)."""
+    if wbuf.dtype != torch.bfloat16 or wbuf.shape != (W_TOTAL,):
+        raise ValueError(f"the kernel's weights must be bfloat16 [{W_TOTAL}], got "
+                         f"{wbuf.dtype} {tuple(wbuf.shape)}")
+    if wbuf.device.type == "cpu":
+        return fwd_weight_image_plain(wbuf)
+    if wbuf.device.type != "cuda":
+        raise ValueError(f"fused MLP: unsupported device {wbuf.device}")
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("fused_mlp_fwd")
+    wbuf = wbuf.contiguous()
+    img = torch.empty_like(wbuf)
+    with torch.cuda.device(wbuf.device):
+        err = lib.fused_mlp_fwd_image(wbuf.data_ptr(), img.data_ptr(),
+                                      torch.cuda.current_stream(wbuf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_fwd_image launch failed: cudaError {err}")
+    fwd_weight_image.launches += 1
+    return img
+
+
+fwd_weight_image.launches = 0
+
+
 class FusedOperands(NamedTuple):
     """Everything the fused forward reads besides the points, made once
     per set of weights by :func:`fused_operands`."""
 
     packed: Packed  # fp32 [in, out] blocks: the plain version's operands
     pe: Tuple[torch.Tensor, torch.Tensor]  # pe_mat [8, 128], sin_mask [1, 128]
-    wbuf: torch.Tensor  # the kernel's flat bf16 weights
-    bbuf: torch.Tensor  # the kernel's flat fp32 biases
+    wbuf: torch.Tensor  # the kernels' flat bf16 weights
+    bbuf: torch.Tensor  # the kernels' flat fp32 biases
+    wimg: Optional[torch.Tensor] = None  # kernel 1's weight image (on the card)
+
+
+def _image_for(wbuf: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Kernel 1's weight image where the kernel can take ``wbuf``: on the
+    card at the kernel's width (elsewhere the forward takes the plain
+    version, or raises)."""
+    if wbuf is None or wbuf.device.type != "cuda" or wbuf.numel() != W_TOTAL:
+        return None
+    return fwd_weight_image(wbuf)
 
 
 def fused_operands(params, cfg, device) -> FusedOperands:
     """Pack ``params`` (a model state_dict or an already-packed dict) on
-    their device and build the PE constants on ``device``."""
+    their device, build the PE constants on ``device`` and, on the card,
+    kernel 1's weight image."""
     packed = params if is_packed(params) else pack_weights(params, cfg)
     wbuf, bbuf = kernel_buffers(packed)
-    return FusedOperands(packed, pe_constants(cfg, device), wbuf, bbuf)
+    return FusedOperands(packed, pe_constants(cfg, device), wbuf, bbuf, _image_for(wbuf))
 
 
 def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
@@ -432,6 +518,8 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
     if in8.device.type != "cuda":
         raise ValueError(f"fused MLP: unsupported device {in8.device}")
     _check_cuda_operands(ops, in8)
+    if ops.wimg is None or ops.wimg.device != in8.device:
+        raise ValueError("kernel 1 needs its weight image on in8's device (fused_operands)")
     from intrinsicnerf_tpu_torch.ops.build import load_library
 
     lib = load_library("fused_mlp_fwd")
@@ -444,7 +532,7 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(in8.device):
         err = lib.fused_mlp_fwd(
             in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(),
-            ops.wbuf.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n,
+            ops.wimg.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream(in8.device).cuda_stream,
         )
     if err != 0:
@@ -544,7 +632,7 @@ class FusedMLP(torch.autograd.Function):
     def forward(ctx, in8, pe_mat, sin_mask, *blocks):
         packed = dict(zip(_PACKED_KEYS, blocks))
         bufs = kernel_buffers(packed) if in8.device.type == "cuda" else (None, None)
-        ops = FusedOperands(packed, (pe_mat, sin_mask), *bufs)
+        ops = FusedOperands(packed, (pe_mat, sin_mask), *bufs, _image_for(bufs[0]))
         ctx.save_for_backward(in8, pe_mat, sin_mask, *blocks)
         ctx.bufs = bufs
         return fused_mlp_forward(ops, in8)

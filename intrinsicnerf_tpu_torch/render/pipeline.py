@@ -129,33 +129,29 @@ def render_rays(
     return RenderResult(coarse=maps_c, fine=maps_f, z_std=z_std)
 
 
-def _cat(parts, m: int):
+def _cat(parts):
     if parts[0] is None:
         return None
     if isinstance(parts[0], tuple):  # a NamedTuple of maps
-        return type(parts[0])(*(_cat(list(f), m) for f in zip(*parts)))
-    return torch.cat(parts)[:m]
+        return type(parts[0])(*(_cat(list(f)) for f in zip(*parts)))
+    return torch.cat(parts)
 
 
 def render_rays_chunked(
     model_coarse: IntrinsicMLP,
     model_fine: Optional[IntrinsicMLP],
     mlp_cfg: MLPConfig,
-    rays: torch.Tensor,  # [M, 11]; any M (padded up to a chunk multiple)
+    rays: torch.Tensor,  # [M, 11]; any M
     rcfg: RenderConfig,
     chunk: int = 4096,
 ) -> RenderResult:
-    """Eval-mode full-image render over fixed-size chunks to bound device
-    memory.  Awkward ray counts are padded with copies of the last ray
-    (finite math on the pad lanes), so every chunk has the same size,
-    and the padding is sliced back off."""
-    m = rays.shape[0]
-    chunk = min(chunk, m)
-    pad = (-m) % chunk
-    if pad:
-        rays = torch.cat([rays, rays[-1:].expand(pad, rays.shape[-1])])
+    """Eval-mode full-image render over chunks of ``chunk`` rays to bound
+    device memory; the last chunk takes the rays that are left.  Eval rays
+    are independent and the fused kernel masks a ragged tile, so no chunk
+    is padded (the JAX package pads the last one to keep its shapes
+    static)."""
     outs = [
         render_rays(model_coarse, model_fine, mlp_cfg, r, rcfg, train=False)
-        for r in torch.split(rays, chunk)
+        for r in torch.split(rays, min(chunk, rays.shape[0]))
     ]
-    return _cat(outs, m)
+    return _cat(outs)

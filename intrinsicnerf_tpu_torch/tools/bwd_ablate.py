@@ -61,10 +61,10 @@ PATCHES["loads_only"] = PATCHES["no_mma"] + PATCHES["no_epilogues"]
 SOURCE = os.path.join(build.CSRC, "fused_mlp_bwd.cu")
 
 
-def patched_source(variant: str, source: str = SOURCE) -> str:
+def patched_source(variant: str, source: str = SOURCE, patches=None) -> str:
     with open(source) as f:
         src = f.read()
-    for old, new in PATCHES[variant]:
+    for old, new in (PATCHES if patches is None else patches)[variant]:
         if src.count(old) != 1:
             raise RuntimeError(f"{variant}: the patch anchor {old[:40]!r} is not in the "
                                "source once")
@@ -72,18 +72,19 @@ def patched_source(variant: str, source: str = SOURCE) -> str:
     return src
 
 
-def build_variant(variant: str, source: str = SOURCE, tag: str = "") -> str:
-    """Compile the variant of ``source`` into ``_build/ablate/``; returns
-    its library path."""
+def build_variant(variant: str, source: str = SOURCE, tag: str = "", patches=None,
+                  stem: str = "fused_mlp_bwd") -> str:
+    """Compile the variant of ``source`` (``patches`` by default this
+    tool's) into ``_build/ablate/``; returns its library path."""
     out = os.path.join(build.BUILD_DIR, "ablate")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(out, f"fused_mlp_bwd_{tag}{variant}.cu")
+    src = os.path.join(out, f"{stem}_{tag}{variant}.cu")
     with open(src, "w") as f:
-        f.write(patched_source(variant, source))
+        f.write(patched_source(variant, source, patches))
     for h in os.listdir(build.CSRC):
         if h.endswith(".cuh"):
             shutil.copy(os.path.join(build.CSRC, h), out)
-    lib = os.path.join(out, f"lib_{tag}{variant}.so")
+    lib = os.path.join(out, f"lib{stem}_{tag}{variant}.so")
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -91,9 +92,9 @@ def build_variant(variant: str, source: str = SOURCE, tag: str = "") -> str:
     return lib
 
 
-def load_variant(path: str) -> ctypes.CDLL:
+def load_variant(path: str, name: str = "fused_mlp_bwd") -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    for entry, argtypes, restype in build.SIGNATURES["fused_mlp_bwd"]:
+    for entry, argtypes, restype in build.SIGNATURES[name]:
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, restype
     return lib

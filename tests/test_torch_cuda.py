@@ -11,7 +11,8 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
 
 - kernel 1: per output slice max |d| / max(|plain|, 1) < 2e-2; both sides
   round the same operands to bf16, so the observed error is bf16 output
-  rounding (~1e-3);
+  rounding (~1e-3); two launches give bitwise-equal outputs, and its
+  weight image on the card equals the plain version's byte for byte;
 - kernel 2: over the real parameter slots, overall and per block, cosine
   > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
   seeded squared-error loss on the output (coherent across points, as a
@@ -55,8 +56,11 @@ def model(card):
     return cfg, IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 20_003])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 4_097, 20_003, 65_536, 100_003, 196_608])
 def test_kernel_matches_plain(model, n):
+    """Kernel 1 below, at and past one 64-point tile, at ragged counts and
+    at the training step's coarse and fine sizes, against its plain
+    version; and bitwise equal across launches."""
     cfg, m = model
     g = torch.Generator(device="cuda").manual_seed(n)
     pts = torch.randn(n, 1, 3, device="cuda", generator=g) * 4
@@ -65,13 +69,29 @@ def test_kernel_matches_plain(model, n):
     in8 = fm.build_in8(pts, d)
     before = fm.fused_mlp_forward.launches
     got = fm.fused_mlp_forward(ops, in8)
+    again = fm.fused_mlp_forward(ops, in8)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches == before + 1
+    assert fm.fused_mlp_forward.launches == before + 2
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
     ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
     assert got.shape == (n, fm.OUT_W) and got.dtype == torch.bfloat16
     for a, b in SLICES:
         x, y = got[:, a:b].float(), ref[:, a:b].float()
         assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
+
+
+def test_weight_image_matches_plain(model):
+    """Kernel 1's weight image built on the card, byte for byte against the
+    plain version's, and the one the model keeps with its operands."""
+    cfg, m = model
+    ops = m.fused_operands(cfg)
+    before = fm.fwd_weight_image.launches
+    img = fm.fwd_weight_image(ops.wbuf)
+    torch.cuda.synchronize()
+    assert fm.fwd_weight_image.launches == before + 1
+    want = fm.fwd_weight_image_plain(ops.wbuf).view(torch.int16)
+    assert torch.equal(img.view(torch.int16), want)
+    assert torch.equal(ops.wimg.view(torch.int16), want)
 
 
 def test_render_goes_through_kernel(model):

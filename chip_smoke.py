@@ -555,10 +555,9 @@ def scene_phases(torch, np, dev, card):
     # one per model at each set of weights and keeps it for its chunks
     # (eval at 0, then the sigma probes, or the rebuilds without them)
     img_want = 2 * SCENE_STEPS + 2 * (1 + (probes or 2))
-    img_most = 2 * SCENE_STEPS + 2 * (1 + probes + 3)  # every render at fresh weights
-    if not 2 * SCENE_STEPS + 2 <= image_launches <= img_most:
+    if image_launches != img_want:
         raise AssertionError(f"the scene run built kernel 1's weight image {image_launches} "
-                             f"times, want {img_want} (at most {img_most})")
+                             f"times, want {img_want}")
     img = sc["Train/Loss/img_fine"]
     log_steps = sorted(img)
     first, last = np.mean([img[s] for s in log_steps[:2]]), np.mean([img[s] for s in log_steps[-2:]])
@@ -847,6 +846,27 @@ def main() -> int:
         rays_per_s=f"{n_rays / median_ms * 1e3:.0f}", bound_ms_per_view=f"{view_bound_ms:.2f}",
         card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
 
+    # the last chunk unpadded (the port) against padded to a whole chunk
+    # with copies of the last ray (the JAX package's static shapes): the
+    # same render of the view's rays, padded by the caller
+    pad = (-n_rays) % chunk
+    padded = torch.cat([rays[0], rays[0, -1:].expand(pad, rays.shape[-1])])
+
+    def render_ms(r):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                render_rays_chunked(model_c, model_f, mcfg, r, rcfg, chunk)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    say("last_chunk", rays=n_rays, padded_rays=n_rays + pad,
+        median_ms_unpadded=f"{render_ms(rays[0]):.2f}", median_ms_padded=f"{render_ms(padded):.2f}",
+        card=json.dumps(card))
+    del padded
+
     # the view against the plain version on a seeded subset of its rays
     idx = torch.randperm(n_rays, generator=torch.Generator().manual_seed(3))[:SUBSET]
     sub = rays[0, idx.to(dev)]
@@ -889,8 +909,6 @@ def main() -> int:
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
-    per_shape = {f"{k}_{s}": timing[s][k] for s in ("coarse_step", "fine_step", "fine_chunk")
-                 for k in ("ms", "bound_ms")}
     kernels = [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -906,12 +924,12 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this MLP
-        "ms_step_coarse": per_shape["ms_coarse_step"],
-        "ms_step_fine": per_shape["ms_fine_step"],
-        "ms_fine_chunk": per_shape["ms_fine_chunk"],
-        "bound_ms_step_coarse": per_shape["bound_ms_coarse_step"],
-        "bound_ms_step_fine": per_shape["bound_ms_fine_step"],
-        "bound_ms_fine_chunk": per_shape["bound_ms_fine_chunk"],
+        "ms_step_coarse": timing["coarse_step"]["ms"],
+        "ms_step_fine": timing["fine_step"]["ms"],
+        "ms_fine_chunk": timing["fine_chunk"]["ms"],
+        "bound_ms_step_coarse": timing["coarse_step"]["bound_ms"],
+        "bound_ms_step_fine": timing["fine_step"]["bound_ms"],
+        "bound_ms_fine_chunk": timing["fine_chunk"]["bound_ms"],
         "ms_per_step_call": train["fwd_step_ms"],
         "ablation_ms": {row["variant"]: row["ms"] for row in ablation},
     }, {

@@ -17,9 +17,14 @@
 // byte of device memory, far above the card's ~295 FLOP/B balance point.
 // The padded packed layout (PE rows 63 -> 128, head outputs -> 128
 // columns) makes the kernel do 835,584 multiply-adds per point, 20% more.
-// What paces a tile on the card is the weight stream instead: all 1.67 MB
-// of bf16 weights pass from L2 into shared memory once per 64-point tile,
-// against 107 MFLOP of products (about 64 FLOP per byte of L2 traffic).
+// On chip, two things stand between a tile and that bound: the weights
+// (all 1.67 MB of bf16 pass from L2 into shared memory once per 64-point
+// tile, about 64 FLOP of products per byte) and the tile's serial chain
+// (each layer's products need the whole previous layer, so products,
+// epilogues and barriers alternate).  The producer warp below takes the
+// weight stream off the consumers' path; on an H100 the stream costs the
+// kernel under 5% of its time (tools/fwd_ablate.py, PERF.md), and the
+// chain of epilogues and barriers holds the rest above the bound.
 //
 // Design.
 //  0. `fwd_wimg_kernel`: the weight image, every K-slab of the 20 weight

@@ -152,6 +152,6 @@ def render_rays_chunked(
     static)."""
     outs = [
         render_rays(model_coarse, model_fine, mlp_cfg, r, rcfg, train=False)
-        for r in torch.split(rays, min(chunk, rays.shape[0]))
+        for r in torch.split(rays, chunk)
     ]
     return _cat(outs)

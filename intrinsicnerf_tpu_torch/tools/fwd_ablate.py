@@ -19,10 +19,11 @@ the kernel in each with CUDA events at the training step's fine shape
 
 A variant computes garbage; only its time means anything.  The ``base``
 build of each source is also held against the plain version at the fine
-step (max |d| / max(|plain|, 1) over the output, and a bitwise repeat).  The patched
-sources and libraries go to ``_build/ablate/`` (``tools/bwd_ablate.py``
-builds them).  One JSON line per variant and source with the kernel's ms
-at each shape and the card's name and power limit:
+step (max |d| / max(|plain|, 1) over the output, and a bitwise repeat).
+The patched sources and libraries go to ``_build/ablate/``
+(``tools/bwd_ablate.py`` builds them).  One JSON line per variant and
+source with the kernel's ms at each shape and the card's name and power
+limit:
 
     python -m intrinsicnerf_tpu_torch.tools.fwd_ablate [--iters 5]
 
@@ -52,7 +53,8 @@ _LOADS = """      hmma::mbar_expect_tx(full + st * 8, bytes);
       hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);"""
 _EPI = "  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;\n"
 _STORE = "  unsigned char* A = S + wg * ATOM;\n"
-_SYNC = "  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy\n  consumer_sync();\n"
+_SYNC = ("  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy\n"
+         "  consumer_sync();\n")
 
 PATCHES = {
     "base": [],

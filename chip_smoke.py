@@ -25,10 +25,12 @@ weights:
   each per step, keep every loss term finite, move the parameters,
   lower the loss on a fixed batch, and agree with the same step run by
   the plain versions on the host;
-- the forward probe (kernel 3, ``tools/fwd_probe.py``): every case of
-  its sweep (each variant, tile, layer count and output type) and a
-  ragged point count, each held against its plain version first, then
-  the sweep itself;
+- the forward probe (kernel 3, ``tools/fwd_probe.py``): its build's
+  registers and spills (none allowed), its weight image bitwise, every
+  case of its sweep (each variant, tile, layer count and output type),
+  the layer counts at the 128-point tile and a ragged point count, each
+  held against its plain version with a bitwise repeat, the cost of one
+  more layer per tile, then the sweep itself;
 - the scene trainer (``train/trainer.py:Trainer``, as the scene CLI runs
   it) on a synthetic room written by ``tools_make_synthetic_replica.py``:
   an evaluation, 400 steps with two cluster rebuilds, a checkpoint and
@@ -410,21 +412,57 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
             "fwd_step_ms": fwd_step_ms}
 
 
-def probe_phases(torch, np, dev, card):
-    """Kernel 3 against its plain version, then the probe's own path (the
+def probe_phases(torch, np, dev, card, build_log):
+    """Kernel 3's build (registers, spills), its weight image and every
+    case against their plain versions, then the probe's own path (the
     sweep of ``tools/fwd_probe.py``) with its launches counted."""
+    from intrinsicnerf_tpu_torch.ops import build
     from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
     from intrinsicnerf_tpu_torch.tools import fwd_probe as probe_cli
 
+    # every instantiation's registers and spills, from the build's -Xptxas -v
+    usage = probe_cli.instantiations(build.ptxas_usage(build_log))
+    registers = {k: u["registers"] for k, u in sorted(usage.items())}
+    spills = {k: u["spill_stores"] + u["spill_loads"] for k, u in sorted(usage.items())}
+    c7519 = "C7519" in build_log
+    say("probe_build", instantiations=len(usage), registers=json.dumps(registers),
+        spill_bytes=json.dumps(spills), c7519=c7519)
+    if len(usage) != len(fp.VARIANTS) * len(fp.TILES) or any(spills.values()) or c7519:
+        raise AssertionError(f"kernel 3's build: {len(usage)} instantiations, spills {spills}, "
+                             f"C7519 {c7519}")
+
+    # the weight image on the card against the plain version's bytes
+    for n_layers in (1, 8, fp.MAX_LAYERS):
+        _, ops = fp.probe_inputs(n_layers, n=1, device=dev)
+        want = fp.probe_weight_image_plain(ops.wbuf, n_layers).view(torch.int16)
+        img_same = (torch.equal(fp.fwd_probe_image(ops.wbuf, n_layers).view(torch.int16), want)
+                    and torch.equal(ops.wimg.view(torch.int16), want))
+        if not img_same:
+            raise AssertionError(f"kernel 3's weight image at {n_layers} layers differs from "
+                                 "the plain one")
+    img_ms = cuda_ms(lambda: fp.fwd_probe_image(ops.wbuf, n_layers), 20, torch)
+    img_plain_ms = cuda_ms(lambda: fp.probe_weight_image_plain(ops.wbuf, n_layers), 5, torch)
+    img_bound_ms = 1e3 * 2 * 2 * ops.wbuf.numel() / PEAK_BYTES  # bf16 read once, written once
+    image = dict(ms=img_ms, plain_ms=img_plain_ms, bound_ms=img_bound_ms, bound_by="bytes")
+    say("probe_image_vs_plain", layers=json.dumps([1, 8, fp.MAX_LAYERS]), bitwise=True,
+        elems=ops.wbuf.numel(), ms=f"{img_ms:.4f}", plain_ms=f"{img_plain_ms:.4f}",
+        bound_ms=f"{img_bound_ms:.4f}", bound_by="bytes", card=json.dumps(card))
+
     # every case of the sweep (variants, tiles, layer counts, fp32 output),
-    # then a ragged point count
+    # the layer counts at the 128-point tile, then ragged point counts
+    layer_counts = (1, 2, 4, 8, fp.MAX_LAYERS)
     cases = ([(n_layers, v, tile, PROBE_N, out) for n_layers, v, tile, out in probe_cli.SWEEP]
-             + [(8, "full", 64, PROBE_RAGGED, torch.bfloat16)])
-    max_err, main_case = 0.0, None
+             + [(n_layers, "full", 128, PROBE_N, torch.bfloat16)
+                for n_layers in layer_counts if n_layers != 8]
+             + [(8, "full", tile, PROBE_RAGGED, torch.bfloat16) for tile in fp.TILES])
+    max_err, timing = 0.0, {}
     for n_layers, variant, tile, n, out in cases:
         in8, ops = fp.probe_inputs(n_layers, n=n, bias_scale=0.1, device=dev)
         got = fp.fwd_probe(in8, ops, variant, tile, out)
+        again = fp.fwd_probe(in8, ops, variant, tile, out)
         torch.cuda.synchronize()
+        bitwise = torch.equal(got.view(torch.int16 if out == torch.bfloat16 else torch.int32),
+                              again.view(torch.int16 if out == torch.bfloat16 else torch.int32))
         ref = fp.fwd_probe_plain(in8, ops, variant, out)
         d = (got.float() - ref.float()).abs().max().item()
         rel = d / max(ref.float().abs().max().item(), 1.0)
@@ -434,31 +472,48 @@ def probe_phases(torch, np, dev, card):
         flops, _ = fp.probe_work(n, n_layers, out)
         bound_ms, bound_by = probe_cli.bound(n, n_layers, out)
         say("probe_vs_plain", layers=n_layers, variant=variant, tile=tile, points=n,
-            out="f32" if out == torch.float32 else "bf16", rel_err=f"{rel:.3g}", tol=PROBE_TOL,
-            ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-            bound_by=bound_by, achieved_tflops=f"{flops / k_ms / 1e9:.1f}", card=json.dumps(card))
-        if not (rel < PROBE_TOL and bool(torch.isfinite(got.float()).all())):
+            out="f32" if out == torch.float32 else "bf16", bitwise_repeat=bitwise,
+            rel_err=f"{rel:.3g}", tol=PROBE_TOL, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            achieved_tflops=f"{flops / k_ms / 1e9:.1f}", card=json.dumps(card))
+        if not (bitwise and rel < PROBE_TOL and bool(torch.isfinite(got.float()).all())):
             raise AssertionError(f"kernel 3 disagrees with its plain version at "
-                                 f"{(n_layers, variant, tile, n, out)}: {rel}")
-        if (n_layers, variant, tile, n, out) == (8, "full", 64, PROBE_N, torch.bfloat16):
-            main_case = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        del in8, ops, got, ref
+                                 f"{(n_layers, variant, tile, n, out)}: {rel}, bitwise {bitwise}")
+        timing[(n_layers, variant, tile, n, out)] = dict(ms=k_ms, plain_ms=p_ms,
+                                                         bound_ms=bound_ms, bound_by=bound_by)
+        del in8, ops, got, again, ref
+
+    # the cost of one more layer at each tile, against one library layer
+    per_layer = {tile: probe_cli.layer_slope(
+        {n_layers: timing[(n_layers, "full", tile, PROBE_N, torch.bfloat16)]["ms"]
+         for n_layers in layer_counts}) for tile in fp.TILES}
+    layer_ms = probe_cli.cublas_layer_ms(PROBE_N, dev, 20)
+    say("probe_per_layer", points=PROBE_N, ms_per_layer=json.dumps(per_layer),
+        torch_matmul_layer_ms=f"{layer_ms:.4f}",
+        layer_bound_ms=f"{1e3 * 2.0 * PROBE_N * fp.W * fp.W / PEAK_BF16_FLOPS:.4f}",
+        card=json.dumps(card))
 
     # the probe's own path: its CLI's sweep, launches counted
-    fp.fwd_probe.launches = 0
+    fp.fwd_probe.launches = fp.fwd_probe_image.launches = 0
     sweep = [probe_cli.run_case(n_layers, v, tile, out, PROBE_N, dev, 20)
              for n_layers, v, tile, out in probe_cli.SWEEP]
-    launches = fp.fwd_probe.launches
+    launches, image_launches = fp.fwd_probe.launches, fp.fwd_probe_image.launches
     for r in sweep:
         say("probe_sweep", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in r.items()},
             card=json.dumps(card))
     want = len(probe_cli.SWEEP) * (4 + 20)  # warm-up and timed calls per case
-    say("probe_sweep", launches=launches, want=want,
-        cublas_layer_ms=f"{probe_cli.cublas_layer_ms(PROBE_N, dev, 20):.4f}")
-    if launches != want:
-        raise AssertionError(f"the probe sweep launched kernel 3 {launches} times, want {want}")
+    want_images = len(probe_cli.SWEEP)  # one set of weights per case
+    say("probe_sweep", launches=launches, want=want, image_launches=image_launches,
+        image_want=want_images)
+    if (launches, image_launches) != (want, want_images):
+        raise AssertionError(f"the probe sweep launched kernel 3 {launches} times (want {want}) "
+                             f"and its image {image_launches} times (want {want_images})")
     torch.cuda.empty_cache()
-    return {"max_err": max_err, "launches": launches, **main_case}
+    main = timing[(8, "full", 64, PROBE_N, torch.bfloat16)]
+    return {"max_err": max_err, "launches": launches, "image_launches": image_launches,
+            "ms_tile128": timing[(8, "full", 128, PROBE_N, torch.bfloat16)]["ms"],
+            "ms_per_layer": per_layer, "library_ms_per_layer": layer_ms,
+            "registers": registers, "spill_bytes": spills, "image": image, **main}
 
 
 def read_scalars(path):
@@ -904,7 +959,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train = train_phases(torch, np, fc, mcfg, dev, card, macs, rays)
-    probe = probe_phases(torch, np, dev, card)
+    probe = probe_phases(torch, np, dev, card, builds[names.index("fwd_probe")][2])
     scene = scene_phases(torch, np, dev, card)
 
     t = timing["coarse_chunk"]
@@ -975,6 +1030,23 @@ def main() -> int:
         "bound_ms": probe["bound_ms"],
         "bound_by": probe["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the probe
+        "ms_tile128": probe["ms_tile128"],
+        "ms_per_layer": probe["ms_per_layer"],  # least squares over 1..16 layers, per tile
+        "library_ms_per_layer": probe["library_ms_per_layer"],  # one bf16 torch.matmul layer
+        "registers": probe["registers"],
+        "spill_bytes": probe["spill_bytes"],
+    }, {
+        "name": "fwd_probe_image",
+        "route": "cuda",
+        "source": "intrinsicnerf_tpu_torch/ops/csrc/fwd_probe.cu",
+        "replaces": "tools_fwd_probe.py:105",  # the probe's weights resident in VMEM
+        "launches": probe["image_launches"],  # the probe CLI's sweep: one per case
+        "max_abs_err": 0.0,  # bitwise
+        "ms": probe["image"]["ms"],  # 16 layers
+        "plain_ms": probe["image"]["plain_ms"],
+        "bound_ms": probe["image"]["bound_ms"],
+        "bound_by": probe["image"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call lays out the slabs
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,7 +44,10 @@ SIGNATURES = {
         ("fused_mlp_bwd", [_P] * 11 + [_I64, _I32, _P], ctypes.c_int),
         ("fused_mlp_bwd_scratch", [_I64, _I32] + [ctypes.POINTER(_I64)] * 3, None),
     ],
-    "fwd_probe": [("fwd_probe", [_P] * 6 + [_I64] + [_I32] * 4 + [_P], ctypes.c_int)],
+    "fwd_probe": [
+        ("fwd_probe", [_P] * 6 + [_I64] + [_I32] * 4 + [_P], ctypes.c_int),
+        ("fwd_probe_image", [_P, _P, _I32, _P], ctypes.c_int),
+    ],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -68,10 +72,14 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> Tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
-    (library path, seconds spent, compiler log with ``-Xptxas -v``)."""
+    (library path, seconds spent, compiler log with ``-Xptxas -v``); the
+    log is kept beside the library as ``<library>.log``, so a cached build
+    returns the log of the build that made it."""
     path = library_path(name)
-    if os.path.exists(path):
-        return path, 0.0, ""
+    log_path = path + ".log"
+    if os.path.exists(path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            return path, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -84,11 +92,36 @@ def build(name: str) -> Tuple[str, float, str]:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}{proc.stdout}")
+        log = proc.stderr + proc.stdout
+        with open(tmp + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp + ".log", log_path)  # the log first: a library implies its log
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, time.perf_counter() - t0, proc.stderr + proc.stdout
+        for leftover in (tmp, tmp + ".log"):
+            if os.path.exists(leftover):
+                os.remove(leftover)
+    return path, time.perf_counter() - t0, log
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled entry: {registers, spill_stores, spill_loads}} of every
+    kernel entry in a build log of ``-Xptxas -v``."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                usage[entry]["spill_stores"] = int(m.group(1))
+                usage[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[entry]["registers"] = int(m.group(1))
+    return usage
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -398,7 +398,7 @@ __device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2], const 
 }
 
 // PE features of the tile into the K-major buffer `feat` (two atoms), as
-// compute_feat (fused_mlp_common.cuh) computes them
+// kernel 1's compute_feat (fused_mlp_fwd.cu) computes them
 __device__ __forceinline__ void compute_feat_kmaj(unsigned char* feat,
                                                   const float* __restrict__ in8,
                                                   const float* __restrict__ pe_mat,

@@ -415,25 +415,28 @@ def _kernel_block_shapes() -> Dict[str, Tuple[int, int]]:
             "w_r": (h, OUT_W), "w_m1": (w, h), "w_m2": (h, OUT_W)}
 
 
+def swizzled_slabs(block: torch.Tensor) -> torch.Tensor:
+    """``block [K, N]`` (both multiples of 64) as a weight image lays it
+    out, flat: each K-slab (64 rows) as N/64 atoms of 64 rows by 64
+    columns, row r of an atom holding its eight 16-byte chunks at
+    positions chunk ^ (r % 8) (the 128-byte swizzle)."""
+    rows, cols = block.shape
+    r = torch.arange(64, device=block.device)[:, None]
+    chunk_at = torch.arange(8, device=block.device)[None, :] ^ (r & 7)  # [row, position]
+    x = block.reshape(rows // 64, 64, cols // 64, 8, 8).permute(0, 2, 1, 3, 4)
+    return x[:, :, r, chunk_at].reshape(-1)  # [slab, atom, row, position, 8]
+
+
 def fwd_weight_image_plain(wbuf: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of kernel 1's weight image: for each block of
-    ``FWD_IMAGE_ORDER``, each K-slab (64 rows of W ``[in, out]``) as out/64
-    atoms of 64 rows by 64 columns, row r of an atom holding its eight
-    16-byte chunks at positions chunk ^ (r % 8) (the 128-byte swizzle)."""
+    """Plain PyTorch version of kernel 1's weight image: the swizzled
+    K-slabs of each block of ``FWD_IMAGE_ORDER`` (W ``[in, out]``)."""
     shapes = _kernel_block_shapes()
     blocks, i = {}, 0
     for k in _W_ORDER:
         rows, cols = shapes[k]
         blocks[k] = wbuf[i : i + rows * cols].view(rows, cols)
         i += rows * cols
-    r = torch.arange(64, device=wbuf.device)[:, None]
-    chunk_at = torch.arange(8, device=wbuf.device)[None, :] ^ (r & 7)  # [row, position]
-    parts = []
-    for k in FWD_IMAGE_ORDER:
-        rows, cols = shapes[k]
-        x = blocks[k].reshape(rows // 64, 64, cols // 64, 8, 8).permute(0, 2, 1, 3, 4)
-        parts.append(x[:, :, r, chunk_at].reshape(-1))  # [slab, atom, row, position, 8]
-    return torch.cat(parts)
+    return torch.cat([swizzled_slabs(blocks[k]) for k in FWD_IMAGE_ORDER])
 
 
 def fwd_weight_image(wbuf: torch.Tensor) -> torch.Tensor:

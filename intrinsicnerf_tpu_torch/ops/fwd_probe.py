@@ -12,20 +12,25 @@ one to localise where its time goes.  Per point::
     out  = h[:, :128] in bf16 or fp32
 
 with ``W_0 [128, 256]`` and ``W_i [256, 256]``.  Kernel 3
-(``csrc/fwd_probe.cu``) computes it on the card with kernel 1's tiles and
-device helpers; :func:`fwd_probe_plain` is its plain PyTorch version.
-``fwd_probe`` runs the plain version for CPU tensors only; a CUDA tensor
-launches the kernel (counted in ``fwd_probe.launches``) or raises.
+(``csrc/fwd_probe.cu``) computes it on the card as kernel 1 is built: a
+producer warp streams a weight image (every 64-row K-slab of the stacked
+weights, swizzled as it sits in shared memory; ``fwd_probe_image``, built
+once per set of weights by ``probe_operands``) into wgmma products.
+:func:`fwd_probe_plain` is its plain PyTorch version, and
+:func:`probe_weight_image_plain` the image's.  The wrappers run the plain
+versions for CPU tensors only; a CUDA tensor launches the kernel (counted
+in ``fwd_probe.launches`` and ``fwd_probe_image.launches``) or raises.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from intrinsicnerf_tpu_torch import resolve_device
+from intrinsicnerf_tpu_torch.ops.fused_mlp import swizzled_slabs
 
 N_PTS = 196_608
 W = 256
@@ -33,13 +38,16 @@ IN_W = 128
 OUT_W = 128
 PE_ROWS = 7  # the probe sums in8 columns 0..6, as the Pallas probe does
 VARIANTS = ("full", "nosin", "nope", "norelu", "nobias")
-TILES = (32, 64, 128)  # points per block on the card
+# points per block on the card: 64, kernel 1's tile (the warpgroups split
+# the columns); 128, each warpgroup on its own 64 rows
+TILES = (64, 128)
 MAX_LAYERS = 16
 
 
 class ProbeOperands(NamedTuple):
     """The probe's constants: the plain version's operands (weights
-    already rounded to bf16, held in fp32) and the kernel's flat buffers."""
+    already rounded to bf16, held in fp32), the kernel's flat buffers and,
+    on the card, its weight image."""
 
     pe: torch.Tensor  # [8, 128] f32
     sm: torch.Tensor  # [1, 128] f32, 1 where the column is a sinusoid
@@ -47,11 +55,52 @@ class ProbeOperands(NamedTuple):
     bs: List[torch.Tensor]  # [1, 256] f32
     wbuf: torch.Tensor  # flat bf16: W_0 then W_1.., each row-major
     bbuf: torch.Tensor  # [n_layers, 256] f32
+    wimg: Optional[torch.Tensor]  # wbuf's weight image on the card; None on the CPU
+
+
+def probe_weight_image_plain(wbuf: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel 3's weight image: the stacked
+    weights ``[128 + 256 (n_layers - 1), 256]`` (``wbuf``'s rows) as
+    2 + 4 (n_layers - 1) swizzled K-slabs of 32 KB, in the order the
+    kernel's products consume them."""
+    return swizzled_slabs(wbuf.view(IN_W + (n_layers - 1) * W, W))
+
+
+def fwd_probe_image(wbuf: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """Kernel 3's weight image of the flat bf16 weights ``wbuf`` of
+    ``n_layers`` layers.  CPU tensors take the plain version; CUDA tensors
+    launch ``probe_wimg_kernel`` (one launch, counted in
+    ``fwd_probe_image.launches``)."""
+    n_elems = (IN_W + (n_layers - 1) * W) * W
+    if not 1 <= n_layers <= MAX_LAYERS or wbuf.dtype != torch.bfloat16 or \
+            wbuf.shape != (n_elems,):
+        raise ValueError(f"the probe's weights of {n_layers} layers must be bfloat16 "
+                         f"[{n_elems}], got {wbuf.dtype} {tuple(wbuf.shape)}")
+    if wbuf.device.type == "cpu":
+        return probe_weight_image_plain(wbuf, n_layers)
+    if wbuf.device.type != "cuda":
+        raise ValueError(f"fwd_probe_image: unsupported device {wbuf.device}")
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("fwd_probe")
+    wbuf = wbuf.contiguous()
+    img = torch.empty_like(wbuf)
+    with torch.cuda.device(wbuf.device):
+        err = lib.fwd_probe_image(wbuf.data_ptr(), img.data_ptr(), n_layers,
+                                  torch.cuda.current_stream(wbuf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fwd_probe_image launch failed: cudaError {err}")
+    fwd_probe_image.launches += 1
+    return img
+
+
+fwd_probe_image.launches = 0
 
 
 def probe_operands(pe, sm, ws, bs) -> ProbeOperands:
     """Round the weights to bf16 once (the Pallas ``_mm`` rounds them in
-    every product, to the same values) and lay out the kernel's buffers."""
+    every product, to the same values) and lay out the kernel's buffers;
+    on the card also its weight image (one ``fwd_probe_image`` launch)."""
     n_layers = len(ws)
     if not 1 <= n_layers <= MAX_LAYERS or len(bs) != n_layers:
         raise ValueError(f"the probe takes 1..{MAX_LAYERS} layers, each with a bias; "
@@ -61,11 +110,11 @@ def probe_operands(pe, sm, ws, bs) -> ProbeOperands:
         raise ValueError(f"weights must be {shapes}, got {[tuple(w.shape) for w in ws]}")
     w16 = [w.to(torch.bfloat16) for w in ws]
     bs = [b.float().reshape(1, W) for b in bs]
+    wbuf = torch.cat([w.reshape(-1) for w in w16]).contiguous()
     return ProbeOperands(
         pe=pe.float().reshape(8, IN_W).contiguous(), sm=sm.float().reshape(1, IN_W).contiguous(),
-        ws=[w.float() for w in w16], bs=bs,
-        wbuf=torch.cat([w.reshape(-1) for w in w16]).contiguous(),
-        bbuf=torch.cat(bs).contiguous())
+        ws=[w.float() for w in w16], bs=bs, wbuf=wbuf, bbuf=torch.cat(bs).contiguous(),
+        wimg=fwd_probe_image(wbuf, n_layers) if wbuf.is_cuda else None)
 
 
 def probe_inputs(n_layers: int, n: int = N_PTS, seed: int = 0, bias_scale: float = 0.0,
@@ -137,8 +186,8 @@ def fwd_probe(in8: torch.Tensor, ops: ProbeOperands, variant: str = "full", tile
               out_dtype=torch.bfloat16) -> torch.Tensor:
     """``[N, 8]`` fp32 -> ``[N, 128]`` in ``out_dtype``.  CPU tensors take
     the plain version (``tile`` is the card's and means nothing there);
-    CUDA tensors launch kernel 3 with ``tile`` points per block (one
-    launch, counted in ``fwd_probe.launches``)."""
+    CUDA tensors launch kernel 3 with ``tile`` points per block on the
+    operands' weight image (one launch, counted in ``fwd_probe.launches``)."""
     _check(variant, out_dtype)
     if in8.device.type == "cpu":
         return fwd_probe_plain(in8, ops, variant, out_dtype)
@@ -148,7 +197,10 @@ def fwd_probe(in8: torch.Tensor, ops: ProbeOperands, variant: str = "full", tile
         raise ValueError(f"tile must be one of {TILES} points per block, got {tile}")
     if in8.dtype != torch.float32 or in8.dim() != 2 or in8.shape[1] != 8:
         raise ValueError(f"in8 must be float32 [N, 8], got {in8.dtype} {tuple(in8.shape)}")
-    for t in (ops.pe, ops.sm, ops.wbuf, ops.bbuf):
+    if ops.wimg is None or ops.wimg.shape != ops.wbuf.shape:
+        raise ValueError("fwd_probe on the card needs the operands' weight image "
+                         "(probe_operands builds it for CUDA tensors)")
+    for t in (ops.pe, ops.sm, ops.wimg, ops.bbuf):
         if t.device != in8.device:
             raise ValueError("probe operands must all lie on in8's device")
     from intrinsicnerf_tpu_torch.ops.build import load_library
@@ -162,7 +214,7 @@ def fwd_probe(in8: torch.Tensor, ops: ProbeOperands, variant: str = "full", tile
     with torch.cuda.device(in8.device):
         err = lib.fwd_probe(
             in8.data_ptr(), ops.pe.data_ptr(), ops.sm.data_ptr(),
-            ops.wbuf.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n, len(ops.ws),
+            ops.wimg.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n, len(ops.ws),
             VARIANTS.index(variant), tile, int(out_dtype == torch.float32),
             torch.cuda.current_stream(in8.device).cuda_stream,
         )

@@ -15,9 +15,14 @@ the kernel in each with CUDA events at the training step's fine shape
 - ``no_output_stores``: the output tile's staging and its stores;
 - ``no_consumer_sync``: the barrier of the two consumer warpgroups before
   each product (it orders every epilogue before the next product's reads);
-- ``stages4``: a ring of four stages instead of three.
+- ``stages4``: a ring of four stages instead of three;
+- ``no_pe``: the positional encoding of the tile's points (the features
+  are whatever the buffer holds);
+- ``pe_staged``: the positional encoding fed from shared memory: the
+  tile's in8 rows and the PE matrix staged there by one pass of loads and
+  a barrier first (the output is right).
 
-A variant computes garbage; only its time means anything.  The ``base``
+A cut computes garbage; only its time means anything.  The ``base``
 build of each source is also held against the plain version at the fine
 step (max |d| / max(|plain|, 1) over the output, and a bitwise repeat).
 The patched sources and libraries go to ``_build/ablate/``
@@ -55,6 +60,7 @@ _EPI = "  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;\n"
 _STORE = "  unsigned char* A = S + wg * ATOM;\n"
 _SYNC = ("  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy\n"
          "  consumer_sync();\n")
+_FEAT = "  for (int e = threadIdx.x; e < TILE_M * IN_W; e += NTHREADS) {\n"
 
 PATCHES = {
     "base": [],
@@ -64,6 +70,19 @@ PATCHES = {
     "no_output_stores": [(_STORE, "  return;\n" + _STORE)],
     "no_consumer_sync": [(_SYNC, "")],
     "stages4": [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")],
+    "no_pe": [(_FEAT, "  return;\n" + _FEAT)],
+    "pe_staged": [
+        (_FEAT, """  float* s_in = reinterpret_cast<float*>(feat + OV_BUFA);  // [64, 8]
+  float* s_pe = s_in + TILE_M * IN8_W;                      // [8, 128]
+  for (int e = threadIdx.x; e < TILE_M * IN8_W; e += NTHREADS)
+    s_in[e] = row0 + e / IN8_W < n ? in8[row0 * IN8_W + e] : 0.0f;
+  for (int e = threadIdx.x; e < IN8_W * IN_W; e += NTHREADS) s_pe[e] = pe_mat[e];
+  consumer_sync();
+""" + _FEAT),
+        ("      const float* x = in8 + p * IN8_W;\n      float z = __fmul_rn(x[0], pe_mat[c]);",
+         "      const float* x = s_in + i * IN8_W;\n      float z = __fmul_rn(x[0], s_pe[c]);"),
+        ("__fmul_rn(x[k], pe_mat[k * IN_W + c])", "__fmul_rn(x[k], s_pe[k * IN_W + c])"),
+    ],
 }
 SOURCE = os.path.join(build.CSRC, "fused_mlp_fwd.cu")
 # the shapes timed: the step's fine call and the view's fine chunk

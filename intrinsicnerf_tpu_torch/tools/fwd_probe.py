@@ -5,7 +5,9 @@ kernel 1's structure, over the sweep of ``tools_fwd_probe.py``: the five
 variants at 8 layers, the tile, the layer count and an fp32 output.  One
 line per case: layers, variant, tile (points per block), ms, TFLOP/s,
 the bound and the card.  On the TPU the tile was the points of one VMEM
-grid step (512..16,384); here it is the points per block (32, 64, 128).
+grid step (512..16,384); here it is the points per block: 64 (kernel 1's
+tile, the warpgroups splitting the columns) or 128 (each warpgroup on its
+own 64 rows).
 
     python -m intrinsicnerf_tpu_torch.tools.fwd_probe            # on the GPU
     python -m intrinsicnerf_tpu_torch.tools.fwd_probe --device cpu --n 4096
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -85,6 +88,26 @@ def run_case(n_layers, variant, tile, out_dtype, n, dev, iters):
     return {"layers": n_layers, "variant": variant, "tile": tile,
             "out": "f32" if out_dtype == torch.float32 else "bf16", "points": n,
             "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def layer_slope(ms_by_layers) -> float:
+    """Least-squares slope of ms over the layer count: the cost of one
+    more 256x256 layer (``{layers: ms}``)."""
+    xs, ys = list(ms_by_layers), list(ms_by_layers.values())
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    return (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+            / sum((x - mx) ** 2 for x in xs))
+
+
+def instantiations(usage) -> dict:
+    """{"variant/tile": {registers, spill_stores, spill_loads}} of kernel
+    3's instantiations in ``build.ptxas_usage`` of its build log."""
+    out = {}
+    for entry, u in usage.items():
+        m = re.search(r"fwd_probe_kernelILi(\d)ELi(\d+)E", entry)
+        if m:
+            out[f"{fp.VARIANTS[int(m.group(1))]}/{m.group(2)}"] = u
+    return out
 
 
 def cublas_layer_ms(n: int, dev, iters: int) -> float:

@@ -20,7 +20,9 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
 - kernel 3 (the forward probe): max |d| / max(|plain|, 1) < 2e-2, the
   bound ``chip_smoke.py`` holds it to; both sides round the same operands
   to bf16, and a fp32 sum-order flip of an intermediate bf16 rounding
-  moves an output by ~1e-3 at most.
+  moves an output by ~1e-3 at most; two launches give bitwise-equal
+  outputs, and its weight image on the card equals the plain version's
+  byte for byte.
 """
 
 import pytest
@@ -186,8 +188,10 @@ def test_training_step_on_card(model):
 
 @pytest.mark.parametrize("variant,n_layers,tile,out,n", [
     *[(v, 8, 64, torch.bfloat16, 20_003) for v in fp.VARIANTS],
-    ("full", 1, 32, torch.bfloat16, 4_096), ("full", 16, 128, torch.bfloat16, 4_097),
+    ("full", 1, 64, torch.bfloat16, 4_096), ("full", 16, 128, torch.bfloat16, 4_097),
     ("full", 8, 64, torch.float32, 65), ("nobias", 2, 128, torch.float32, 1),
+    ("full", 8, 128, torch.bfloat16, 1), ("norelu", 8, 128, torch.float32, 64),
+    ("nope", 4, 128, torch.bfloat16, 4_097),
 ])
 def test_probe_kernel_matches_plain(card, variant, n_layers, tile, out, n):
     """Kernel 3 against its plain version, with nonzero biases, at ragged
@@ -201,3 +205,27 @@ def test_probe_kernel_matches_plain(card, variant, n_layers, tile, out, n):
     assert got.dtype == out and got.shape == (n, fp.OUT_W)
     err = (got.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(), 1.0)
     assert err < 2e-2, err
+
+
+@pytest.mark.parametrize("tile", fp.TILES)
+def test_probe_kernel_is_deterministic(card, tile):
+    """Two launches of kernel 3 on the same inputs give bitwise-equal outputs."""
+    in8, ops = fp.probe_inputs(8, n=20_003, bias_scale=0.1, device=card)
+    got = fp.fwd_probe(in8, ops, "full", tile, torch.float32)
+    again = fp.fwd_probe(in8, ops, "full", tile, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_layers", [1, 8, fp.MAX_LAYERS])
+def test_probe_weight_image_matches_plain(card, n_layers):
+    """Kernel 3's weight image built on the card, byte for byte against the
+    plain version's, and the one ``probe_operands`` keeps."""
+    _, ops = fp.probe_inputs(n_layers, n=1, device=card)
+    before = fp.fwd_probe_image.launches
+    img = fp.fwd_probe_image(ops.wbuf, n_layers)
+    torch.cuda.synchronize()
+    assert fp.fwd_probe_image.launches == before + 1
+    want = fp.probe_weight_image_plain(ops.wbuf, n_layers).view(torch.int16)
+    assert torch.equal(img.view(torch.int16), want)
+    assert torch.equal(ops.wimg.view(torch.int16), want)

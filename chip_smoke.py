@@ -24,7 +24,10 @@ weights:
   four synthetic 320x240 views, which must launch kernels 1 and 2 twice
   each per step, keep every loss term finite, move the parameters,
   lower the loss on a fixed batch, and agree with the same step run by
-  the plain versions on the host;
+  the plain versions on the host; then ``make_multi_step``: 8 steps
+  captured as one CUDA graph and replayed, against 8 eager steps from
+  the same state and generator (bitwise where two eager runs are),
+  kernels 1 and 2 found by name 16 times each in a profiled replay;
 - the forward probe (kernel 3, ``tools/fwd_probe.py``): its build's
   registers and spills (none allowed), its weight image bitwise, every
   case of its sweep (each variant, tile, layer count and output type),
@@ -36,10 +39,14 @@ weights:
   an evaluation, 400 steps with two cluster rebuilds, a checkpoint and
   an evaluation, then a resume in a second trainer that must restore the
   step, the parameters, the Adam state and the palette exactly and
-  train on.
+  train on; once one step per call, once ``steps_per_call`` 10 (blocks
+  of 10 steps as graph replays, the cadences landing as before, and a
+  replay after the last rebuild reading the new table);
+- the bench (``tools/bench.py``) at 1 and 8 steps per call.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after.  It prints what it measured; the last line is ``{"ok":
+just after; a graph replay's launches are its replays times the
+launches recorded into it (``.captured``).  It prints what it measured; the last line is ``{"ok":
 true, "device": {...}}``, and any failed phase exits non-zero and prints
 no such line.  It needs one card and imports nothing of JAX.
 """
@@ -87,6 +94,16 @@ SCENE_CADENCE = {"step_log_tfb": 50, "step_vis_train": 200, "step_save_ckpt": 20
 SAVE_VIEW_FILES = ("rgb", "albedo", "shading", "residual", "disp", "depth", "vis_depth",
                    "label", "vis_label", "entropy", "vis_entropy")
 TIMED_STEPS, WARM_STEPS, FIXED_STEPS = 20, 3, 30
+GRAPH_K, GRAPH_CALLS = 8, 5  # train_graph: steps per replay, replays per timed window
+# the kernels of one training step's graph (kernel 1 and its weight image;
+# kernel 2: its weight image, activation pass, weight GEMM and row sums),
+# launches per forward or backward call
+REPLAY_KERNELS = {"fused_mlp_fwd_kernel": 1, "fwd_wimg_kernel": 1, "bwd_act_wimg_kernel": 1,
+                  "bwd_act_wgmma_kernel": 1, "bwd_wgrad_gemm_kernel": 1, "reduce_rows_kernel": 2}
+SCENE_K = 10  # the graphed scene run's steps per call: divides 50, 200, 400 and the resume's 50
+# a graphed block against the same steps run eagerly, where eager runs are
+# not bitwise: the JAX scan test's bounds (tests/test_train_step.py)
+GRAPH_TOTAL_RTOL, GRAPH_PARAM_ATOL, GRAPH_PARAM_RTOL = 1e-6, 1e-6, 1e-5
 SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
@@ -151,10 +168,14 @@ def grad_agreement(got, ref, masks, torch):
     return overall, per
 
 
-def profile_window(fn, torch, host=None):
+def profile_window(fn, torch, host=None, counts=None, ops=None):
     """(wall ms, device busy ms, {kernel name: device ms}) of one call of
     ``fn`` under torch.profiler; with ``host`` a dict, it also receives
-    {host op: self CPU ms}."""
+    {host op: self CPU ms}, with ``counts`` {kernel name: launches}, with
+    ``ops`` {host op: device ms of the kernels it launched itself}.  A
+    ``record_function`` range also shows on the device's timeline (Adam's
+    ``Optimizer.step#Adam.step`` spans its kernels); it is not a kernel,
+    so neither the busy time nor the kernels count it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,11 +185,18 @@ def profile_window(fn, torch, host=None):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.key not in ranges:
             by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3
-        elif host is not None and e.device_type == DeviceType.CPU:
-            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
+            if counts is not None:
+                counts[e.key] = counts.get(e.key, 0) + e.count
+        elif e.device_type == DeviceType.CPU:
+            if host is not None:
+                host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
+            if ops is not None and e.self_device_time_total > 0:
+                ops[e.key] = ops.get(e.key, 0.0) + e.self_device_time_total / 1e3
     return wall_ms, sum(by_name.values()), by_name
 
 
@@ -178,6 +206,164 @@ def top(by_name, n=8):
     for k, v in by_name.items():
         cut[k[:60]] = cut.get(k[:60], 0.0) + v
     return {k: round(v, 3) for k, v in sorted(cut.items(), key=lambda kv: -kv[1])[:n]}
+
+
+def run_from(state, snap, gen, fn, torch):
+    """Put ``snap`` back into ``state`` and ``gen``, call ``fn()`` (which
+    returns a ``LossReport``) and return what it left: the report, the
+    parameters, Adam's state and the generator's state."""
+    from intrinsicnerf_tpu_torch.train.step import restore_state
+
+    restore_state(state, snap, gen)
+    report = fn()
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for g in state.optimizer.param_groups for p in g["params"]]
+    adam = [{k: v.clone() for k, v in state.optimizer.state[p].items()}
+            for g in state.optimizer.param_groups for p in g["params"]]
+    return {"report": report, "params": params, "adam": adam, "gen": gen.get_state(),
+            "step": (state.step, int(state.step_t))}
+
+
+def compare_runs(a, b, exact: bool, torch):
+    """(agree, detail) of two ``run_from`` results: bitwise with ``exact``,
+    else the total within GRAPH_TOTAL_RTOL and every parameter within
+    GRAPH_PARAM_ATOL + GRAPH_PARAM_RTOL |ref|; the generator states and
+    step counts always equal."""
+    terms = {k: (float(x), float(y)) for k, x, y in
+             zip(a["report"]._fields, a["report"], b["report"])}
+    param_err = max(float((x - y).abs().max()) for x, y in zip(a["params"], b["params"]))
+    same_gen = torch.equal(a["gen"], b["gen"]) and a["step"] == b["step"]
+    if exact:
+        agree = (all(torch.equal(x, y) for x, y in zip(a["report"], b["report"]))
+                 and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+                 and all(torch.equal(x[k], y[k]) for x, y in zip(a["adam"], b["adam"]) for k in x))
+    else:
+        total_a, total_b = terms["total"]
+        agree = (abs(total_a - total_b) <= GRAPH_TOTAL_RTOL * abs(total_b)
+                 and all(torch.allclose(x, y, rtol=GRAPH_PARAM_RTOL, atol=GRAPH_PARAM_ATOL)
+                         for x, y in zip(a["params"], b["params"])))
+    max_term_rel = max(abs(x - y) / max(abs(y), 1e-12) for x, y in terms.values())
+    return agree and same_gen, {"max_param_abs_diff": param_err, "max_term_rel_diff": max_term_rel,
+                                "generator_and_step_equal": same_gen}
+
+
+def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card):
+    """``train_graph``: GRAPH_K eager steps twice from one state and
+    generator state (bitwise or not), then GRAPH_K steps as one graph
+    replay from the same state, held to the eager steps; the kernels of a
+    profiled replay by name; eager and graphed ms per step."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+    from intrinsicnerf_tpu_torch.train.step import make_multi_step, restore_state, snapshot_state
+
+    k = GRAPH_K
+    w_c_t = torch.tensor(w_c, dtype=torch.float32, device=state.step_t.device)
+    snap = snapshot_state(state, gen)
+
+    def eager():
+        for _ in range(k):
+            report = step_fn(state, pools, table, w_c_t, gen)
+        return report
+
+    multi = make_multi_step(step_fn, k)
+
+    def graphed():
+        return multi(state, pools, table, w_c_t, gen)
+
+    first = run_from(state, snap, gen, eager, torch)
+    second = run_from(state, snap, gen, eager, torch)
+    eager_bitwise, eager_detail = compare_runs(first, second, True, torch)
+    counters = (fm.fused_mlp_forward, fm.fwd_weight_image, fm.fused_mlp_backward)
+    for c in counters:
+        c.launches = c.captured = 0
+    t0 = time.perf_counter()
+    g1 = run_from(state, snap, gen, graphed, torch)  # the capture, then its first replay
+    capture_s = time.perf_counter() - t0
+    eager_launches = [c.launches for c in counters]
+    captured = [c.captured for c in counters]
+    g2 = run_from(state, snap, gen, graphed, torch)  # a replay of the restored state
+    agree1, detail1 = compare_runs(g1, first, eager_bitwise, torch)
+    agree2, detail2 = compare_runs(g2, first, eager_bitwise, torch)
+
+    # the kernels of GRAPH_CALLS replays, by name
+    counts, ops = {}, {}
+    restore_state(state, snap, gen)
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: [graphed() for _ in range(GRAPH_CALLS)], torch, counts=counts)
+    n_steps = GRAPH_CALLS * k
+
+    def n_named(sub):  # launches per replay
+        per = sum(v for name, v in counts.items() if sub in name) / GRAPH_CALLS
+        return int(per) if per == int(per) else per
+
+    # per step, coarse + fine: each kernel of kernels 1 and 2 twice, kernel
+    # 2's row sums four times (weights and biases)
+    want = {name: 2 * k * n for name, n in REPLAY_KERNELS.items()}
+    found = {name: n_named(name) for name in REPLAY_KERNELS}
+    k1_ms = sum(v for name, v in by_name.items()
+                if "fused_mlp_fwd_kernel" in name or "fwd_wimg_kernel" in name)
+    k2_ms = sum(v for name, v in by_name.items()
+                if any(sub in name for sub in bwd_passes.PASSES.values()))
+    other = {name: v for name, v in by_name.items()
+             if "fused_mlp_fwd_kernel" not in name and "fwd_wimg_kernel" not in name
+             and not any(sub in name for sub in bwd_passes.PASSES.values())}
+
+    # the same device work by host op, from one eager step
+    profile_window(lambda: step_fn(state, pools, table, w_c_t, gen), torch, ops=ops)
+
+    # ms per step: eager and graphed windows of GRAPH_CALLS x GRAPH_K steps
+    def window_ms(fn):
+        times = []
+        for _ in range(3):
+            restore_state(state, snap, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0) / (GRAPH_CALLS * k))
+        return float(np.median(times)), times
+
+    eager_ms, eager_times = window_ms(eager)
+    graph_ms, graph_times = window_ms(graphed)
+    t0 = time.perf_counter()
+    graphed()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    restore_state(state, snap, gen)  # the state as this phase found it
+
+    kernels_ok = found == want
+    say("train_graph", k=k, eager_bitwise=eager_bitwise, eager_repeat=json.dumps(eager_detail),
+        mode="bitwise" if eager_bitwise else json.dumps(
+            {"total_rtol": GRAPH_TOTAL_RTOL, "param_atol": GRAPH_PARAM_ATOL,
+             "param_rtol": GRAPH_PARAM_RTOL}),
+        graph_vs_eager=json.dumps(detail1), replay_after_restore_vs_eager=json.dumps(detail2),
+        capture_s=f"{capture_s:.3f}", capture_eager_launches=json.dumps(eager_launches),
+        captured=json.dumps(captured), replay_kernels=json.dumps(found), want=json.dumps(want),
+        eager_ms_per_step=f"{eager_ms:.3f}", graph_ms_per_step=f"{graph_ms:.3f}",
+        eager_windows_ms=json.dumps([round(x, 3) for x in eager_times]),
+        graph_windows_ms=json.dumps([round(x, 3) for x in graph_times]),
+        replay_enqueue_ms=f"{enqueue_ms:.3f}", card=json.dumps(card))
+    say("profile", path="train_graph_replay", replays=GRAPH_CALLS, steps=n_steps,
+        wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}",
+        busy_ms_per_step=f"{busy_ms / n_steps:.3f}",
+        busy_over_graph_ms_per_step=f"{busy_ms / n_steps / graph_ms:.3f}",
+        kernel1_ms_per_step=f"{k1_ms / n_steps:.3f}", kernel2_ms_per_step=f"{k2_ms / n_steps:.3f}",
+        other_ms_per_step=f"{sum(other.values()) / n_steps:.3f}",
+        other_top_kernels_ms_per_step=json.dumps({n: round(v / n_steps, 4) for n, v in
+                                                  top(other, 15).items()}),
+        eager_step_device_ms_by_op=json.dumps(top(ops, 20)), card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    if not (agree1 and agree2 and kernels_ok and captured == [2 * k] * 3
+            and eager_launches == [2, 2, 2]):
+        raise AssertionError(f"the graphed steps disagree with the eager steps or their kernels: "
+                             f"{detail1} {detail2} {found} captured {captured} "
+                             f"eager {eager_launches}")
+    del multi
+    torch.cuda.empty_cache()
+    return {"eager_bitwise": eager_bitwise, "eager_ms": eager_ms, "graph_ms": graph_ms,
+            "busy_share": busy_ms / wall_ms, "replay_kernels": {n: int(v) for n, v in found.items()}}
 
 
 def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
@@ -339,6 +525,9 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         last=json.dumps({k: float(f"{float(v):.5g}") for k, v in reports[-1]._asdict().items()}),
         card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
 
+    # K steps per call: eager against one CUDA graph replay
+    graph = graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card)
+
     # one fixed batch with fixed draws: the generator is reseeded before each step
     totals = []
     for _ in range(FIXED_STEPS):
@@ -359,7 +548,8 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     def run_on(device):
         mc = copy.deepcopy(state.model_coarse).to(device)
         mf = copy.deepcopy(state.model_fine).to(device)
-        opt = torch.optim.Adam(list(mc.parameters()) + list(mf.parameters()), lr=tcfg.lrate)
+        opt = torch.optim.Adam(list(mc.parameters()) + list(mf.parameters()), lr=tcfg.lrate,
+                               capturable=torch.device(device).type == "cuda")
         st = TrainState(step=state.step, model_coarse=mc, model_fine=mf, optimizer=opt)
         b = RayBatch(*(x.to(device) if torch.is_tensor(x) else x for x in sl))
         dr = {k: (v.to(device) if v is not None else None) for k, v in draws.items()}
@@ -409,7 +599,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
     return {"bwd_timing": bwd_timing, "bwd_max_err": bwd_max_err, "launches": launches,
-            "fwd_step_ms": fwd_step_ms}
+            "fwd_step_ms": fwd_step_ms, "graph": graph}
 
 
 def probe_phases(torch, np, dev, card, build_log):
@@ -527,28 +717,53 @@ def read_scalars(path):
     return out
 
 
-def scene_phases(torch, np, dev, card):
-    """The scene trainer on a synthetic room at the Replica config: an
-    evaluation, ``SCENE_STEPS`` steps with two rebuilds, a checkpoint and
-    an evaluation; then a resume in a second trainer."""
+def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
+    """The scene trainer on a synthetic room at the Replica config with
+    ``steps_per_call`` ``spc``: an evaluation, ``SCENE_STEPS`` steps with
+    two rebuilds, two checkpoints and an evaluation; with ``spc`` > 1 a
+    graphed block after the last rebuild held to the same steps run
+    eagerly on the new table (bitwise with ``exact``, else the graph
+    bounds); then a resume in a second trainer.  With ``other``, an
+    earlier run's result, it prints how far the two runs' parameters
+    after ``SCENE_STEPS`` lie apart."""
     import shutil
 
+    from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table
     from intrinsicnerf_tpu_torch.config import from_yaml
     from intrinsicnerf_tpu_torch.data.replica import default_replica_split, load_replica
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.tools.synthetic_replica import write_synthetic_replica
-    from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
+    from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer, saved_steps
     from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
+    from intrinsicnerf_tpu_torch.train.step import snapshot_state
     from intrinsicnerf_tpu_torch.train.trainer import Trainer
 
-    work = os.path.join(ROOT, "logs", "chip_smoke_scene")
+    phase = "scene" if spc == 1 else f"scene_k{spc}"
+    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
+                "image": fm.fwd_weight_image}
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = c.captured = 0
+
+    def counts(trainer):
+        """(eager launches, launches recorded into graphs, launches in all
+        runs: eager + replays x launches per replay) per wrapper."""
+        eager = {k: c.launches for k, c in counters.items()}
+        captured = {k: c.captured for k, c in counters.items()}
+        replays = trainer.multi_step.replays if trainer.multi_step is not None else 0
+        per_replay = {k: 2 * spc if replays else 0 for k in counters}  # coarse + fine a step
+        total = {k: eager[k] + replays * per_replay[k] for k in counters}
+        return eager, captured, per_replay, replays, total
+
+    work = os.path.join(ROOT, "logs", f"chip_smoke_{phase}")
     shutil.rmtree(work, ignore_errors=True)
     data_dir, save_dir = os.path.join(work, "data"), os.path.join(work, "run")
     t0 = time.perf_counter()
     report = write_synthetic_replica(data_dir, SCENE_FRAMES, W, H)
     data_s = time.perf_counter() - t0
     overrides = {"experiment.dataset_dir": data_dir, "experiment.save_dir": save_dir,
-                 "train.N_iters": SCENE_STEPS,
+                 "train.N_iters": SCENE_STEPS, "train.steps_per_call": spc,
                  **{f"logging.{k}": v for k, v in SCENE_CADENCE.items()}}
     cfg = from_yaml(CONFIG, overrides)
     train_ids, test_ids = default_replica_split(SCENE_FRAMES, SCENE_SPLIT)
@@ -556,10 +771,10 @@ def scene_phases(torch, np, dev, card):
                         img_w=cfg.experiment.width)
     bundle = prepare_replica_bundle(cfg, data, device=dev)
     n_train, n_test = len(train_ids), len(test_ids)
-    say("scene_data", tool=json.dumps(report), seconds=f"{data_s:.1f}", train_views=n_train,
+    say(f"{phase}_data", tool=json.dumps(report), seconds=f"{data_s:.1f}", train_views=n_train,
         test_views=n_test, classes=bundle.num_valid_classes, view=f"{H}x{W}")
 
-    steps = []  # (step, enqueue ms, step ms, did periodic work)
+    steps = []  # (step, enqueue ms, call ms, did periodic work), one per call
 
     def hook(done, t_start, t_enqueued, did_work):
         torch.cuda.synchronize()
@@ -571,19 +786,50 @@ def scene_phases(torch, np, dev, card):
     rebuilds = []
     trainer = Trainer(cfg, bundle, seed=0, device=dev)
     trainer.step_hook = hook
-    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
-    fm.fwd_weight_image.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     m0 = trainer.evaluate(0)
     eval_s = time.perf_counter() - t0
     report_last = trainer.fit(progress=False)
     torch.cuda.synchronize()
-    launches = {"fwd": fm.fused_mlp_forward.launches, "bwd": fm.fused_mlp_backward.launches}
-    image_launches = fm.fwd_weight_image.launches
+    eager, captured, per_replay, replays, total = counts(trainer)
+
+    # after the last rebuild, a replay reads the table copied in: one block
+    # as a replay against the same steps run eagerly, on the new table and
+    # on an empty one
+    table_check = None
+    if spc > 1:
+        st, gen = trainer.state, trainer.generator
+        snap = snapshot_state(st, gen)
+        trainer._w_c_t.fill_(trainer.w_c)
+        empty = empty_cluster_table(trainer.n_table_classes, device=dev)
+
+        def eager_block(table):
+            def fn():
+                for _ in range(spc):
+                    rep = trainer.step_fn(st, bundle.pools, table, trainer._w_c_t, gen)
+                return rep
+            return fn
+
+        graphed = run_from(st, snap, gen, lambda: trainer.multi_step(
+            st, bundle.pools, trainer.table, trainer._w_c_t, gen), torch)
+        on_new = run_from(st, snap, gen, eager_block(trainer.table), torch)
+        on_empty = run_from(st, snap, gen, eager_block(empty), torch)
+        run_from(st, snap, gen, lambda: None, torch)  # the state as the fit left it
+        agree_new, detail_new = compare_runs(graphed, on_new, exact, torch)
+        agree_empty, detail_empty = compare_runs(graphed, on_empty, exact, torch)
+        table_check = {"graph_vs_eager_new_table": detail_new,
+                       "graph_vs_eager_empty_table": detail_empty}
+        say(f"{phase}_table", w_c=trainer.w_c, mode="bitwise" if exact else "bounds",
+            **{k: json.dumps(v) for k, v in table_check.items()})
+        if not agree_new or agree_empty:
+            raise AssertionError(f"a replay after the rebuild does not read the new table: "
+                                 f"{table_check}")
+
     state_after = [p.detach().clone() for m in (trainer.state.model_coarse,
                                                 trainer.state.model_fine) for p in m.parameters()]
     opt_after = copy.deepcopy(trainer.state.optimizer.state_dict())
-    table_after = trainer.table
+    table_after = [t.clone() for t in trainer.table[:4]]
     anneal_after = (trainer.w_c, trainer.b_f)
     gen_after = trainer.generator.get_state()
     ck_dir = os.path.join(work, "ckpt_timing")
@@ -603,16 +849,17 @@ def scene_phases(torch, np, dev, card):
     views = n_test + 2 * n_train + n_test  # eval(0), two rebuilds, eval at the end
     n_logs = SCENE_STEPS // SCENE_CADENCE["step_log_tfb"]
     probes = n_logs if trainer.logger.writer is not None else 0  # sigma probe: 2 launches
-    want = {"fwd": 2 * SCENE_STEPS + 2 * chunks * views + 2 * probes, "bwd": 2 * SCENE_STEPS}
-    if launches != want:
-        raise AssertionError(f"the scene run launched {launches}, want {want}")
-    # kernel 1's weight image: one per forward of a step; a render builds
-    # one per model at each set of weights and keeps it for its chunks
-    # (eval at 0, then the sigma probes, or the rebuilds without them)
-    img_want = 2 * SCENE_STEPS + 2 * (1 + (probes or 2))
-    if image_launches != img_want:
-        raise AssertionError(f"the scene run built kernel 1's weight image {image_launches} "
-                             f"times, want {img_want}")
+    # eager training steps: all of them, or the one a capture warms up with
+    eager_steps = SCENE_STEPS - replays * spc + (1 if replays else 0)
+    want = {"fwd": 2 * eager_steps + 2 * chunks * views + 2 * probes, "bwd": 2 * eager_steps,
+            # kernel 1's weight image: one per forward of a step; a render
+            # builds one per model at each set of weights and keeps it for its
+            # chunks (eval at 0, then the sigma probes, or the rebuilds without them)
+            "image": 2 * eager_steps + 2 * (1 + (probes or 2))}
+    want_captured = {k: (2 * spc if spc > 1 else 0) for k in counters}
+    if (eager, captured) != (want, want_captured) or (spc > 1 and replays != SCENE_STEPS // spc):
+        raise AssertionError(f"the {phase} run launched {eager} (want {want}), recorded "
+                             f"{captured} into graphs (want {want_captured}), {replays} replays")
     img = sc["Train/Loss/img_fine"]
     log_steps = sorted(img)
     first, last = np.mean([img[s] for s in log_steps[:2]]), np.mean([img[s] for s in log_steps[-2:]])
@@ -631,10 +878,21 @@ def scene_phases(torch, np, dev, card):
     missing += [d for d in rebuild_dirs
                 if not all(os.path.exists(os.path.join(d, f)) for f in
                            ("cluster/clusters.json", "c000.png", "edit000.png", "rgb_000.png"))]
+    # every cadence lands where one step per call puts it
+    landed = {"logs": log_steps,
+              "checkpoints": saved_steps(os.path.join(save_dir, "checkpoints")),
+              "evals": sorted(sc.get("Test/psnr", {})), "rebuild_calls": [
+                  r for r, *_ in steps if r % SCENE_CADENCE["step_vis_train"] == 0]}
+    def every(cadence):
+        return list(range(SCENE_CADENCE[cadence], SCENE_STEPS + 1, SCENE_CADENCE[cadence]))
+
+    want_landed = {"logs": every("step_log_tfb"), "checkpoints": every("step_save_ckpt"),
+                   "evals": [0] + every("step_val"), "rebuild_calls": every("step_vis_train")}
     plain = [x for x in steps if not x[3]]
-    median_ms = float(np.median([x[2] for x in plain]))
-    say("scene_fit", steps=SCENE_STEPS, launches=json.dumps(launches), want=json.dumps(want),
-        image_launches=image_launches, image_want=img_want,
+    median_ms = float(np.median([x[2] for x in plain])) / spc  # per step
+    say(f"{phase}_fit", steps=SCENE_STEPS, steps_per_call=spc, launches=json.dumps(eager),
+        want=json.dumps(want), captured=json.dumps(captured), replays=replays,
+        launches_with_replays=json.dumps(total), landed=json.dumps(landed),
         img_fine_first=f"{first:.5f}", img_fine_last=f"{last:.5f}",
         cluster_mse=json.dumps({s: round(cluster[s], 6) for s in log_steps}),
         w_c_eff=json.dumps({s: w_c_eff[s] for s in log_steps}),
@@ -647,14 +905,19 @@ def scene_phases(torch, np, dev, card):
     # the cluster term as the loss weighs it: off until the first rebuild
     term = {s: w_c_eff[s] * cluster[s] for s in log_steps}
     ok = (last < first and all(term[s] == 0.0 for s in before)
-          and all(term[s] > 0.0 for s in after)
+          and all(term[s] > 0.0 for s in after) and landed == want_landed
           and len(rebuilds) == 2 and finite and m_end["psnr"] > m0["psnr"] and not missing
           and all(math.isfinite(float(v)) for v in report_last))
     if not ok:
-        raise AssertionError("the scene run failed a check (see the scene_fit line)")
-    say("scene_time", median_ms_per_plain_step=f"{median_ms:.3f}",
-        median_host_enqueue_ms=f"{float(np.median([x[1] for x in plain])):.3f}",
-        plain_steps=len(plain), steps_per_s=f"{1e3 / median_ms:.2f}",
+        raise AssertionError(f"the {phase} run failed a check (see the {phase}_fit line)")
+    if other is not None:
+        diff = max(float((a - b).abs().max()) for a, b in zip(state_after, other["params"]))
+        say(f"{phase}_vs_scene", params_bitwise=all(
+            torch.equal(a, b) for a, b in zip(state_after, other["params"])),
+            max_param_abs_diff=diff, psnr_end=json.dumps([m_end["psnr"], other["psnr_end"]]))
+    say(f"{phase}_time", steps_per_call=spc, median_ms_per_plain_step=f"{median_ms:.3f}",
+        median_host_enqueue_ms_per_step=f"{float(np.median([x[1] for x in plain])) / spc:.3f}",
+        plain_calls=len(plain), steps_per_s=f"{1e3 / median_ms:.2f}",
         rebuilds=json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
                               for k, v in r.items()} for r in rebuilds]),
         eval_s=f"{eval_s:.3f}", eval_views=n_test,
@@ -677,34 +940,60 @@ def scene_phases(torch, np, dev, card):
             return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
         return a == b
 
-    exact = {
-        "step": step == SCENE_STEPS,
+    exact_resume = {
+        "step": step == SCENE_STEPS == int(trainer2.state.step_t),
         "params": same(state_after, params2),
         "adam": same(opt_after["state"], opt2["state"]),
-        "palette": same(list(table_after[:4]), list(trainer2.table[:4])),
+        "palette": same(table_after, list(trainer2.table[:4])),
         "anneal": (trainer2.w_c, trainer2.b_f) == anneal_after,
         "generator": same(gen_after, trainer2.generator.get_state()),
     }
-    fm.fused_mlp_backward.launches = 0
+    zero_counts()
     rep = trainer2.fit(n_iters=SCENE_STEPS + SCENE_MORE, progress=False)
     torch.cuda.synchronize()
-    more = fm.fused_mlp_backward.launches
+    _, _, _, replays2, total2 = counts(trainer2)
     # where a step of the loop goes, on the device and on the host
     host = {}
     wall_ms, busy_ms, by_name = profile_window(
         lambda: trainer2.step_fn(trainer2.state, trainer2.bundle.pools, trainer2.table,
                                  trainer2.w_c, trainer2.generator), torch, host)
-    say("profile", path="scene_step", wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
-        busy_share=f"{busy_ms / wall_ms:.3f}", top_kernels_ms=json.dumps(top(by_name, 5)),
+    say("profile", path=f"{phase}_step", wall_ms=f"{wall_ms:.2f}",
+        device_busy_ms=f"{busy_ms:.2f}", busy_share=f"{busy_ms / wall_ms:.3f}",
+        top_kernels_ms=json.dumps(top(by_name, 5)),
         host_cpu_ms=f"{sum(host.values()):.2f}", top_host_ops_ms=json.dumps(top(host, 10)),
         card=json.dumps(card))
     trainer2.close()
-    say("scene_resume", exact=json.dumps(exact), more_steps=SCENE_MORE, bwd_launches=more,
+    # the eager step that warms a capture adds one step's launches
+    more_want = 2 * SCENE_MORE + (2 if replays2 else 0)
+    say(f"{phase}_resume", exact=json.dumps(exact_resume), more_steps=SCENE_MORE,
+        bwd_launches_with_replays=total2["bwd"], want=more_want, replays=replays2,
         global_step=trainer2.global_step, last_total=f"{float(rep.total):.5f}")
-    if not (all(exact.values()) and more == 2 * SCENE_MORE and math.isfinite(float(rep.total))
+    if not (all(exact_resume.values()) and total2["bwd"] == more_want
+            and (spc == 1 or replays2 == SCENE_MORE // spc)
+            and math.isfinite(float(rep.total))
             and trainer2.global_step == SCENE_STEPS + SCENE_MORE):
-        raise AssertionError(f"the resume failed: {exact}, {more} launches")
-    return {"launches": launches, "image_launches": image_launches, "median_ms": median_ms}
+        raise AssertionError(f"the {phase} resume failed: {exact_resume}, {total2} launches")
+    return {"launches": total, "eager_launches": eager, "replays": replays,
+            "median_ms": median_ms, "table_check": table_check, "params": state_after,
+            "psnr_end": m_end["psnr"]}
+
+
+def bench_phase(torch, card):
+    """``tools/bench.py`` at one step per call and at GRAPH_K, in this
+    process (its kernels already built); each prints its JSON line."""
+    from intrinsicnerf_tpu_torch.tools import bench
+
+    out = {}
+    for k in (1, GRAPH_K):
+        result = bench.main(["--steps_per_call", str(k)])
+        if not (math.isfinite(result["value"]) and math.isfinite(result["last_total"])):
+            raise AssertionError(f"the bench at {k} steps per call: {result}")
+        out[k] = result
+        torch.cuda.empty_cache()
+    say("bench", rays_per_s=json.dumps({k: round(r["value"], 1) for k, r in out.items()}),
+        ms_per_step=json.dumps({k: round(r["ms_per_step"], 3) for k, r in out.items()}),
+        card=json.dumps(card))
+    return out
 
 
 def main() -> int:
@@ -961,6 +1250,8 @@ def main() -> int:
     train = train_phases(torch, np, fc, mcfg, dev, card, macs, rays)
     probe = probe_phases(torch, np, dev, card, builds[names.index("fwd_probe")][2])
     scene = scene_phases(torch, np, dev, card)
+    scene_k = scene_phases(torch, np, dev, card, SCENE_K, train["graph"]["eager_bitwise"], scene)
+    bench_phase(torch, card)
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
@@ -969,8 +1260,13 @@ def main() -> int:
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_fwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:346",
-        "launches": scene["launches"]["fwd"],  # the scene run: steps, renders, probes
+        # the graphed scene run: eager launches (renders, probes, the capture's
+        # warm-up step) + replays x 2 x steps per call (train_graph's profiled
+        # replay finds them by name)
+        "launches": scene_k["launches"]["fwd"],
+        "launches_scene_one_step_per_call": scene["launches"]["fwd"],
         "launches_train_step_phase": train["launches"]["fwd"],
+        "launches_per_graph_replay": train["graph"]["replay_kernels"]["fused_mlp_fwd_kernel"],
         "launches_per_step": train["launches"]["fwd"] // TIMED_STEPS,
         "launches_per_view": launches,
         "max_abs_err": max_err,
@@ -992,7 +1288,8 @@ def main() -> int:
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_fwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:451",  # _run_fwd's resident weights
-        "launches": scene["image_launches"],  # the scene run: 2 per step, 2 per set of weights rendered
+        "launches": scene_k["launches"]["image"],  # 2 per step, 2 per set of weights rendered
+        "launches_scene_one_step_per_call": scene["launches"]["image"],
         "launches_per_view": view_images,
         "max_abs_err": 0.0,  # bitwise
         "ms": image["ms"],
@@ -1005,8 +1302,10 @@ def main() -> int:
         "route": "cuda",
         "source": "intrinsicnerf_tpu_torch/ops/csrc/fused_mlp_bwd.cu",
         "replaces": "intrinsicnerf_tpu/ops/fused_mlp.py:354",
-        "launches": scene["launches"]["bwd"],  # the scene run: 2 per step
+        "launches": scene_k["launches"]["bwd"],  # the graphed scene run: 2 per step
+        "launches_scene_one_step_per_call": scene["launches"]["bwd"],
         "launches_train_step_phase": train["launches"]["bwd"],
+        "launches_per_graph_replay": train["graph"]["replay_kernels"]["bwd_act_wgmma_kernel"],
         "launches_per_step": train["launches"]["bwd"] // TIMED_STEPS,
         "max_abs_err": train["bwd_max_err"],
         "ms": b["ms"],  # the step's fine call (196,608 points)

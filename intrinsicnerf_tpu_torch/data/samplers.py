@@ -55,11 +55,14 @@ def gather_ray_pairs(
     nei_h = torch.clamp(idx_h + bias_h, 0, h - 1)
     nei_w = torch.clamp(idx_w + bias_w, 0, w - 1)
     idx = torch.cat([idx_hw, nei_h * w + nei_w])  # [2N]
+    # the image as a 1-element index: a 0-dim tensor index is read back to
+    # the host, which a CUDA graph capture refuses
+    img1 = img.reshape(1)
 
     def gather(pool):
-        return pool[img, idx]
+        return pool[img1, idx]
 
-    sem_flag = (mask_ids[img].float() if mask_ids is not None
+    sem_flag = (mask_ids[img1].float().reshape(()) if mask_ids is not None
                 else torch.ones((), dtype=torch.float32, device=rays_pool.device))
     return RayBatch(
         rays=gather(rays_pool),

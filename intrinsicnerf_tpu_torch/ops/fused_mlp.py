@@ -41,7 +41,10 @@ On a CPU tensor each wrapper runs its plain PyTorch version
 (``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
 tensor it launches its kernel (counting the launch in
 ``fused_mlp_forward.launches`` / ``fused_mlp_backward.launches``) or
-raises.  The kernel libraries are compiled at first use by
+raises.  A launch made while the stream captures a CUDA graph is
+recorded into the graph, not run, and counts in ``.captured`` instead:
+the graph's replays run it without passing through the wrapper, so a
+run counts them from its replays (``train/step.py:make_multi_step``).  The kernel libraries are compiled at first use by
 ``ops/build.py``; importing this module needs no compiler.
 """
 
@@ -427,6 +430,15 @@ def swizzled_slabs(block: torch.Tensor) -> torch.Tensor:
     return x[:, :, r, chunk_at].reshape(-1)  # [slab, atom, row, position, 8]
 
 
+def _count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, or one more recorded into
+    a CUDA graph when the current stream is capturing."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def fwd_weight_image_plain(wbuf: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel 1's weight image: the swizzled
     K-slabs of each block of ``FWD_IMAGE_ORDER`` (W ``[in, out]``)."""
@@ -462,11 +474,11 @@ def fwd_weight_image(wbuf: torch.Tensor) -> torch.Tensor:
                                       torch.cuda.current_stream(wbuf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd_image launch failed: cudaError {err}")
-    fwd_weight_image.launches += 1
+    _count_launch(fwd_weight_image)
     return img
 
 
-fwd_weight_image.launches = 0
+fwd_weight_image.launches = fwd_weight_image.captured = 0
 
 
 class FusedOperands(NamedTuple):
@@ -540,11 +552,11 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
-    fused_mlp_forward.launches += 1
+    _count_launch(fused_mlp_forward)
     return out
 
 
-fused_mlp_forward.launches = 0
+fused_mlp_forward.launches = fused_mlp_forward.captured = 0
 
 
 def backward_splits(n: int) -> int:
@@ -618,11 +630,11 @@ def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -
         )
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
-    fused_mlp_backward.launches += 1
+    _count_launch(fused_mlp_backward)
     return _unflatten_grads(dw, db, ops.packed)
 
 
-fused_mlp_backward.launches = 0
+fused_mlp_backward.launches = fused_mlp_backward.captured = 0
 
 
 class FusedMLP(torch.autograd.Function):

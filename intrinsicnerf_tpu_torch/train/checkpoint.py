@@ -11,7 +11,10 @@ resumed run draws what the uninterrupted run would have.
 
 The optimizer's state dict carries Adam's moments and each parameter's
 step count, so a restore resumes bias correction exactly; the learning
-rate the step sets by hand is recomputed from ``global_step``.  A save
+rate the step sets by hand is recomputed from ``global_step`` (the file
+keeps it as a number, and Adam's step counts on the host, whether or
+not the run's Adam was ``capturable``).  A restore puts the counts where
+the restoring Adam keeps them and sets the device step counter.  A save
 copies every tensor to the host first (that copy waits for the device)
 and only then hands the write to a background thread, so training
 cannot change what is written.  The newest ``MAX_TO_KEEP`` files stay.
@@ -70,7 +73,11 @@ def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> 
     }
     if generator is not None:
         ckpt["generator_state"] = generator.get_state()
-    return _host(ckpt)
+    ckpt = _host(ckpt)
+    for group in ckpt["optimizer_state_dict"]["param_groups"]:
+        if torch.is_tensor(group["lr"]):  # the graphed step's device LR
+            group["lr"] = float(group["lr"])
+    return ckpt
 
 
 def restore_into(state: TrainState, ckpt: dict,
@@ -80,8 +87,14 @@ def restore_into(state: TrainState, ckpt: dict,
     state.model_coarse.load_state_dict(ckpt["network_coarse_state_dict"])
     if state.model_fine is not None:
         state.model_fine.load_state_dict(ckpt["network_fine_state_dict"])
-    state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    # Adam places its step counts by the loaded groups' ``capturable``:
+    # keep this optimizer's, so a host run's file resumes on the card
+    opt_sd = ckpt["optimizer_state_dict"]
+    groups = [{**saved, "capturable": own["capturable"]}
+              for saved, own in zip(opt_sd["param_groups"], state.optimizer.param_groups)]
+    state.optimizer.load_state_dict({**opt_sd, "param_groups": groups})
     state.step = int(ckpt["global_step"])
+    state.step_t.fill_(state.step)
     if generator is not None and "generator_state" in ckpt:
         generator.set_state(ckpt["generator_state"])
     return state.step

@@ -9,15 +9,26 @@
   ``w_i1 -> w_i2`` after 50k (the switch steps themselves keep the first
   weight);
 - cluster-loss weight and bandwidth factor anneal at each cluster rebuild.
+
+The LR and the loss weights take the step as a Python int (a float
+back) or as a 0-dim integer tensor, the training step's device counter
+(a 0-dim float32 tensor back, on its device, computed as ``optax`` and
+``jnp.where`` compute them in float32).  The step reads the tensor
+form, so a CUDA graph replay reads the count the device holds, not one
+baked in at capture.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def make_lr_schedule(base_lr: float, decay_steps: float, decay_rate: float = 0.1):
     """``step -> base_lr * decay_rate ** (step / decay_steps)``."""
 
-    def schedule(step: int) -> float:
+    def schedule(step):
+        if torch.is_tensor(step):
+            return base_lr * torch.pow(decay_rate, step.float() / decay_steps)
         return base_lr * decay_rate ** (step / decay_steps)
 
     return schedule
@@ -33,6 +44,9 @@ def loss_weight_schedule(
     intensity_switch: int = 50_000,
 ):
     """(residual weight, intensity weight) at ``step``."""
+    if torch.is_tensor(step):
+        return (torch.where(step <= residual_switch, w_res1, w_res2).float(),
+                torch.where(step <= intensity_switch, w_i1, w_i2).float())
     w_res = w_res1 if step <= residual_switch else w_res2
     w_i = w_i1 if step <= intensity_switch else w_i2
     return w_res, w_i

@@ -20,12 +20,19 @@ call, and the backward of that pack drops the padded slots, so Adam on
 the ``nn.Linear`` parameters is the JAX Adam on the masked packed state
 (whose masked slots keep zero moments and never move).  All random draws
 come from the ``torch.Generator`` handed to the step.
+
+Everything the step reads that changes from step to step lives on the
+device: the step count (``TrainState.step_t``), from which the step
+computes the LR and the loss-weight switches, and the cluster weight
+``w_c``.  So one step body serves both modes of :func:`make_multi_step`:
+K steps as a Python loop, and K steps captured once as a CUDA graph and
+replayed, with the same arithmetic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -70,12 +77,21 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """Mutable training state: the step updates it in place."""
+    """Mutable training state: the step updates it in place.  ``step`` is
+    the host's count of steps taken; ``step_t`` the device's (0-dim
+    int64 on the parameters' device, made from ``step`` when not given),
+    which the step reads and advances."""
 
     step: int
     model_coarse: IntrinsicMLP
     model_fine: Optional[IntrinsicMLP]
     optimizer: torch.optim.Adam
+    step_t: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.step_t is None:
+            dev = next(self.model_coarse.parameters()).device
+            self.step_t = torch.tensor(self.step, dtype=torch.int64, device=dev)
 
 
 class DataPools(NamedTuple):
@@ -113,14 +129,55 @@ def create_train_state(
 ) -> TrainState:
     """Coarse and fine models initialised from ``generator`` (a CPU
     generator; default seed 0) on ``device`` (default ``"cuda"``, which
-    raises without a GPU), and one Adam over both."""
+    raises without a GPU), and one Adam over both.  On the card Adam is
+    ``capturable`` (its step counts and LR stay on the device, so a CUDA
+    graph can hold its update); the host's Adam does not take that
+    option."""
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     model_c = IntrinsicMLP(mcfg, device=dev, generator=g)
     model_f = IntrinsicMLP(mcfg, device=dev, generator=g) if with_fine else None
     params = list(model_c.parameters()) + (list(model_f.parameters()) if with_fine else [])
-    opt = torch.optim.Adam(params, lr=tcfg.lrate, betas=(0.9, 0.999), eps=1e-8)
+    opt = torch.optim.Adam(params, lr=tcfg.lrate, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=dev.type == "cuda")
     return TrainState(step=0, model_coarse=model_c, model_fine=model_f, optimizer=opt)
+
+
+def snapshot_state(state: TrainState, generator: Optional[torch.Generator] = None) -> dict:
+    """Copies, on the device, of everything a step changes: parameters,
+    Adam's state (None for a parameter that has none yet), both step
+    counts and the generator's state."""
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    opt_state = state.optimizer.state
+    return {
+        "params": [p.detach().clone() for p in params],
+        "adam": [{k: v.clone() for k, v in opt_state[p].items()} if p in opt_state else None
+                 for p in params],
+        "step": state.step,
+        "step_t": state.step_t.clone(),
+        "generator": generator.get_state() if generator is not None else None,
+    }
+
+
+@torch.no_grad()
+def restore_state(state: TrainState, snap: dict,
+                  generator: Optional[torch.Generator] = None) -> None:
+    """Put ``snap`` back into ``state``'s own tensors (a CUDA graph that
+    holds them sees the restored values).  Adam state made after the
+    snapshot is zeroed, which is the state a fresh Adam starts from."""
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    opt_state = state.optimizer.state
+    for p, saved, adam in zip(params, snap["params"], snap["adam"]):
+        p.copy_(saved)
+        for k, v in opt_state.get(p, {}).items():
+            if adam is None:
+                v.zero_()
+            else:
+                v.copy_(adam[k])
+    state.step = snap["step"]
+    state.step_t.copy_(snap["step_t"])
+    if generator is not None:
+        generator.set_state(snap["generator"])
 
 
 def make_train_step(
@@ -135,11 +192,14 @@ def make_train_step(
     """The step ``step_fn(state, pools, table, w_c, generator) ->
     LossReport``.  It updates ``state`` in place, leaves this step's
     gradients in the parameters' ``.grad``, and returns the loss terms
-    as detached 0-dim tensors on the device (no host sync).
+    as detached 0-dim tensors on the device (no host sync).  ``w_c`` is
+    a number or a 0-dim float32 tensor on the device; the LR and the
+    loss-weight switches are read from ``state.step_t``.
 
     ``sample_fn(generator, pools, step) -> RayBatch`` overrides the
-    paired pool sampler; ``noise_fn(generator, n_rays) -> dict`` overrides
-    ``draw_train_noise`` (both hooks let callers inject fixed draws)."""
+    paired pool sampler (``step`` is the host's count); ``noise_fn(
+    generator, n_rays) -> dict`` overrides ``draw_train_noise`` (both
+    hooks let callers inject fixed draws)."""
     lr_schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay)
 
     def loss_terms(maps, batch, w_res, w_i, cluster_target, w_c):
@@ -172,9 +232,9 @@ def make_train_step(
 
     def step_fn(state: TrainState, pools: DataPools, table: Optional[ClusterTable],
                 w_c, generator: torch.Generator) -> LossReport:
-        step = state.step
+        step_t = state.step_t
         if sample_fn is not None:
-            batch = sample_fn(generator, pools, step)
+            batch = sample_fn(generator, pools, state.step)
         else:
             batch = sample_ray_pairs(generator, pools.rays, pools.rgb, h, w, tcfg.n_rays,
                                      depth_pool=pools.depth, sem_pool=pools.semantic,
@@ -182,9 +242,10 @@ def make_train_step(
         n = batch.rays.shape[0]
         draws = (noise_fn(generator, n) if noise_fn is not None
                  else draw_train_noise(n, rcfg, generator, batch.rays.device))
-        w_res, w_i = loss_weight_schedule(step, tcfg.w_res1, tcfg.w_res2, tcfg.w_i1,
+        w_res, w_i = loss_weight_schedule(step_t, tcfg.w_res1, tcfg.w_res2, tcfg.w_i1,
                                           tcfg.w_i2, tcfg.residual_switch,
                                           tcfg.intensity_switch)
+        w_c = torch.as_tensor(w_c, dtype=torch.float32, device=step_t.device)
 
         out = render_rays(state.model_coarse, state.model_fine, mcfg, batch.rays, rcfg,
                           train=True, **draws)
@@ -206,11 +267,14 @@ def make_train_step(
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         total.backward()
-        lr = lr_schedule(step)  # the pre-update count, as optax reads it
+        lr = lr_schedule(step_t)  # the pre-update count, as optax reads it
+        if lr.device.type == "cpu":
+            lr = float(lr)  # the host's Adam takes a number
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
-        state.step = step + 1
+        step_t.add_(1)
+        state.step += 1
 
         def both(get):
             v = get(t_c)
@@ -234,3 +298,91 @@ def make_train_step(
         )
 
     return step_fn
+
+
+def make_multi_step(step_fn, k: int):
+    """``k`` training steps per call, with ``step_fn``'s signature; the
+    last step's ``LossReport`` comes back (cadence-gated logging reads one
+    report per block, and the trainer requires its cadences to be
+    multiples of ``k``).  Port of the JAX ``make_multi_step`` (K steps in
+    one ``lax.scan`` executable), which amortises the host's per-step
+    dispatch.
+
+    On CPU tensors the ``k`` steps run as a Python loop.  On the card they
+    are captured once as one ``torch.cuda.CUDAGraph`` per set of static
+    inputs (the pools, the table's tensors, ``w_c``, the generator and the
+    training state's tensors) and replayed.  The capture first runs one
+    eager step on a side stream (kernels built, Adam's state made) and
+    puts the state and the generator back as they were, so the first
+    call's steps are replays too.  Callers change ``w_c`` and the table by
+    copying into the same tensors; ``w_c`` must then be a 0-dim float32
+    tensor on the device, since a graph would hold a number as a
+    constant.  The generator is registered with the graph, so every
+    replay draws as the eager steps would and advances it as they do.
+    A replay writes the parameters without PyTorch seeing it, so each
+    replay bumps their version counters, as an in-place update does (the
+    model's packed fused-kernel operands are kept by version).  A failed
+    capture or replay raises.  The returned callable keeps ``k``
+    in ``.k`` and counts its replays in ``.replays``."""
+    if k < 1:
+        raise ValueError(f"steps per call must be >= 1, got {k}")
+    cache: Dict[str, object] = {"key": None, "graph": None, "out": None, "params": None}
+
+    def multi(state: TrainState, pools: DataPools, table: Optional[ClusterTable], w_c,
+              generator: torch.Generator) -> LossReport:
+        if state.step_t.device.type != "cuda":
+            report = None
+            for _ in range(k):
+                report = step_fn(state, pools, table, w_c, generator)
+            return report
+        if not (torch.is_tensor(w_c) and w_c.dim() == 0 and w_c.device == state.step_t.device):
+            raise ValueError("a graphed step needs w_c as a 0-dim tensor on the device, "
+                             f"got {w_c!r}")
+        if cache["key"] != _static_key(state, pools, table, w_c, generator):
+            cache["graph"] = cache["out"] = None  # free the old graph's memory first
+            cache["graph"], cache["out"] = _capture(step_fn, k, state, pools, table, w_c,
+                                                    generator)
+            cache["key"] = _static_key(state, pools, table, w_c, generator)
+            cache["params"] = [p for g in state.optimizer.param_groups for p in g["params"]]
+        cache["graph"].replay()
+        torch.autograd.graph.increment_version(cache["params"])
+        state.step += k
+        multi.replays += 1
+        return LossReport(*cache["out"].clone().unbind())
+
+    multi.replays = 0
+    multi.k = k
+    return multi
+
+
+def _static_key(state, pools, table, w_c, generator) -> tuple:
+    """What a captured graph holds by address: a new tensor anywhere
+    here (a restored Adam state, a new table) needs a new capture."""
+    tensors = [*pools, *(table if table is not None else ()), w_c, state.step_t]
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            tensors += [p, *state.optimizer.state.get(p, {}).values()]
+    return (id(generator), *(t.data_ptr() if torch.is_tensor(t) else t for t in tensors))
+
+
+def _capture(step_fn, k, state, pools, table, w_c, generator):
+    """(graph, the last step's stacked report) of ``k`` steps."""
+    if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise RuntimeError("a graphed step needs torch.cuda.CUDAGraph.register_generator_state "
+                           f"(this PyTorch is {torch.__version__})")
+    snap = snapshot_state(state, generator)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step_fn(state, pools, table, w_c, generator)
+    torch.cuda.current_stream().wait_stream(side)
+    restore_state(state, snap, generator)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    state.optimizer.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            report = step_fn(state, pools, table, w_c, generator)
+        out = torch.stack(list(report))
+    state.step = snap["step"]  # capture ran nothing: only the replays count
+    return graph, out

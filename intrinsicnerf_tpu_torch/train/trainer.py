@@ -20,11 +20,16 @@ the JAX package's, so its GUI, editing tools and gate read a port run.
 ``maybe_resume`` restores the newest checkpoint (parameters, Adam state,
 the draws' generator) and the newest palette no newer than it.
 
+``steps_per_call = K > 1`` runs K steps per call as one CUDA graph
+replay (``train/step.py:make_multi_step``) when K divides the start step,
+the steps left and every cadence (``_steps_per_call``, the JAX rule).
+The graph reads the cluster table and ``w_c`` from tensors the trainer
+keeps for its whole life and copies new values into (``_set_table``,
+``_w_c_t``), so a rebuild or a restore reaches the next replay.
+
 Left out here: the device mesh and several hosts, the object pipeline's
-pose sampler, ``steps_per_call > 1`` (one step per Python iteration; a
-fused block of steps needs CUDA graphs) and the mp4s of
-``tools/video.py``.  ``render_views`` is also a free function: the
-serving path.
+pose sampler and the mp4s of ``tools/video.py``.  ``render_views`` is
+also a free function: the serving path.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
 from intrinsicnerf_tpu_torch.train.logging_utils import ProfilerTrace, TBLogger
 from intrinsicnerf_tpu_torch.train.schedules import cluster_anneal
 from intrinsicnerf_tpu_torch.train.step import (
-    DataPools, TrainState, create_train_state, make_train_step)
+    DataPools, TrainState, create_train_state, make_multi_step, make_train_step)
 from intrinsicnerf_tpu_torch.utils.image import (
     depth2rgb, imwrite, label_colormap, plot_semantic_legend, to8b)
 
@@ -145,10 +150,11 @@ def _views(model_c, model_f, mcfg, rcfg, rays_all, h, w, chunk):
 class Trainer:
     """Trains one scene on one device (default ``"cuda"``, which raises
     without a GPU).  ``step_hook(step, t_start, t_enqueued, did_work)``,
-    when set, is called after each step with the host clock before the
-    step and after it was enqueued, and whether the step did periodic
-    work (log, checkpoint, rebuild, eval); ``profile_steps = N`` traces N
-    steps with ``torch.profiler``."""
+    when set, is called after each call of the step (one step, or a block
+    of ``steps_per_call``) with the step count after it, the host clock
+    before the call and after it was enqueued, and whether the call did
+    periodic work (log, checkpoint, rebuild, eval); ``profile_steps = N``
+    traces N steps with ``torch.profiler``."""
 
     def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda"):
         self.device = resolve_device(device)
@@ -182,8 +188,13 @@ class Trainer:
 
         self.n_table_classes = max(1, 1 if cfg.train.no_semantic_tree else bundle.num_valid_classes)
         self.cluster_manager: Optional[ClusterManager] = None
-        self.table: ClusterTable = empty_cluster_table(self.n_table_classes, device=self.device)
+        # the table the step reads: these tensors stay, new tables are copied in
+        empty = empty_cluster_table(self.n_table_classes, device=self.device)
+        self.table: ClusterTable = empty._replace(intensity_factor=torch.tensor(
+            empty.intensity_factor, dtype=torch.float32, device=self.device))
         self.w_c = 0.01
+        self._w_c_t = torch.zeros((), dtype=torch.float32, device=self.device)  # w_c as applied
+        self.multi_step = None  # the block of steps_per_call steps, made by fit
         self.b_f = 0.25
         self.last_rebuild: Dict[str, object] = {}  # seconds and the mean-shift path
         # image writes run off the loop; flush_io() joins them
@@ -261,7 +272,7 @@ class Trainer:
                   f"the cluster term resumes at the next rebuild")
             return
         self.cluster_manager = mgr
-        self.table = mgr.to_table(device=self.device)
+        self._set_table(mgr.to_table(device=self.device))
         self.w_c, self.b_f = cluster_anneal(best_step, self.cfg.logging.step_vis_train,
                                             self.cfg.train.n_iters, self.cfg.b_f_cap)
         print(f"cluster palette restored from rebuild @{best_step} "
@@ -269,14 +280,33 @@ class Trainer:
 
     # ------------------------------------------------------------- train
 
-    def _steps_per_call(self) -> int:
-        """Always 1: a block of several steps per call needs CUDA graphs,
-        which the port does not have yet.  Says so when asked for more."""
-        k = int(self.cfg.train.steps_per_call)
-        if k > 1:
-            print(f"steps_per_call={k}: the port runs one step per call (a fused block of "
-                  f"steps needs CUDA graphs); using 1")
-        return 1
+    def _set_table(self, table: ClusterTable):
+        """Copy ``table`` into the tensors the step reads."""
+        for buf, new in zip(self.table[:4], table[:4]):
+            buf.copy_(new)
+        self.table.intensity_factor.fill_(float(table.intensity_factor))
+
+    def _steps_per_call(self, n_iters: int, start: int) -> int:
+        """Steps per call of the fit loop: the config's ``steps_per_call``
+        when it divides the start step, the steps left and every cadence
+        (a block must end on each log, checkpoint, rebuild and eval step),
+        else 1 with a message; 1 while ``--profile`` traces steps."""
+        k = max(1, int(self.cfg.train.steps_per_call))
+        if k == 1:
+            return 1
+        log = self.cfg.logging
+        cadences = (log.step_log_tfb, log.step_save_ckpt,
+                    log.step_vis_train, log.step_val, n_iters - start)
+        if self.profile_steps > 0:
+            print("steps_per_call: disabled while --profile is active")
+            return 1
+        if start % k or any(c % k for c in cadences):
+            print(
+                f"steps_per_call={k} does not divide start={start} and the "
+                f"logging cadences {cadences}; falling back to 1"
+            )
+            return 1
+        return k
 
     def fit(self, n_iters: Optional[int] = None, progress: bool = True):
         """Train from ``global_step`` to ``n_iters`` (default: the
@@ -286,13 +316,19 @@ class Trainer:
         start = self.global_step
         if start == 0:
             self.log_gt_panels()
-        spc = self._steps_per_call()
+        spc = self._steps_per_call(n_iters, start)
         self.logger.scalars(max(start, 1), {"Train/steps_per_call_effective": float(spc)})
-        it = range(start, n_iters)
+        step_fn = self.step_fn
+        if spc > 1:
+            if self.multi_step is None or self.multi_step.k != spc:
+                self.multi_step = make_multi_step(self.step_fn, spc)
+            step_fn = self.multi_step
+        it = range(start, n_iters, spc)
         if progress:
             from tqdm import trange
 
-            it = trange(start, n_iters, initial=start)
+            # tqdm counts blocks, so the resume's initial is in blocks too
+            it = trange(start, n_iters, spc, initial=start // spc)
         # --profile N traces steps [start+1, start+1+N): the first step,
         # which builds the kernels, stays out of the trace
         prof_start = start + 1 if self.profile_steps > 0 else None
@@ -306,11 +342,12 @@ class Trainer:
             if i == prof_stop and self._profiler is not None:
                 self._stop_profile()
             t_start = time.perf_counter()
-            w_c_eff = self.w_c if self.cluster_manager is not None else 0.0
-            report = self.step_fn(self.state, self.bundle.pools, self.table, w_c_eff,
-                                  self.generator)
+            # no cluster term until the first rebuild
+            self._w_c_t.fill_(self.w_c if self.cluster_manager is not None else 0.0)
+            report = step_fn(self.state, self.bundle.pools, self.table, self._w_c_t,
+                             self.generator)
             t_enqueued = time.perf_counter()
-            done = i + 1
+            done = i + spc
             did_work = False
             if done % log.step_log_tfb == 0:
                 self._log_scalars(done, report, time.time() - t0)
@@ -478,7 +515,7 @@ class Trainer:
         print(f"cluster rebuild @{step}: render {render_s:.1f}s ({len(views)} views), "
               f"mean-shift {meanshift_s:.1f}s ({path}) (w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
         self.cluster_manager = mgr
-        self.table = mgr.to_table(device=self.device)
+        self._set_table(mgr.to_table(device=self.device))
         if save:
             mgr.save(os.path.join(save_dir, "cluster"))
             self._save_cluster_previews(save_dir, views)

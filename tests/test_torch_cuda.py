@@ -23,19 +23,25 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   moves an output by ~1e-3 at most; two launches give bitwise-equal
   outputs, and its weight image on the card equals the plain version's
   byte for byte.
+- K training steps as one CUDA graph replay (``make_multi_step``) against
+  the same K steps run eagerly from the same state and generator state:
+  bitwise where two eager runs are bitwise, else the JAX scan test's
+  bounds (``tests/test_train_step.py``: the total within rtol 1e-6, every
+  parameter within atol 1e-6 + rtol 1e-5); the generator's state equal.
 """
 
 import pytest
 import torch
 
-from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table
+from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table, map_drgb, table_from_numpy
 from intrinsicnerf_tpu_torch.core.rays import create_rays
 from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
 from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays_chunked
 from intrinsicnerf_tpu_torch.train.step import (
-    DataPools, TrainConfig, create_train_state, make_train_step)
+    DataPools, TrainConfig, create_train_state, make_multi_step, make_train_step, restore_state,
+    snapshot_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -229,3 +235,135 @@ def test_probe_weight_image_matches_plain(card, n_layers):
     want = fp.probe_weight_image_plain(ops.wbuf, n_layers).view(torch.int16)
     assert torch.equal(img.view(torch.int16), want)
     assert torch.equal(ops.wimg.view(torch.int16), want)
+
+
+# ---- K steps per call as one CUDA graph -------------------------------
+
+GRAPH_K = 4
+
+
+@pytest.fixture
+def graph_setup(model):
+    """A Replica-width step on two small synthetic views, a state after one
+    eager step (Adam's state made) and its snapshot."""
+    cfg, _ = model
+    h, w = 24, 32
+    c2w = torch.eye(4, device="cuda").repeat(2, 1, 1)
+    c2w[:, 2, 3] = torch.tensor([-1.0, -1.3])
+    rays = create_rays(c2w, h, w, 16.0, 16.0, 15.5, 11.5, 0.1, 10.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    pools = DataPools(rays=rays, rgb=torch.rand(2, h * w, 3, device="cuda", generator=gen),
+                      semantic=torch.randint(0, C + 1, (2, h * w), device="cuda", generator=gen),
+                      mask_ids=torch.ones(2, dtype=torch.int32, device="cuda"))
+    tcfg = TrainConfig(n_rays=128)
+    state = create_train_state(cfg, tcfg, device="cuda")
+    step = make_train_step(cfg, RenderConfig(perturb=1.0, raw_noise_std=1.0), tcfg, h, w)
+    table = empty_cluster_table(C, 64, device="cuda")
+    w_c = torch.tensor(0.1, device="cuda")
+    step(state, pools, table, w_c, gen)
+    return step, state, pools, table, w_c, gen, snapshot_state(state, gen)
+
+
+def _run(state, snap, gen, fn):
+    restore_state(state, snap, gen)
+    report = fn()
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for g in state.optimizer.param_groups for p in g["params"]]
+    return report, params, gen.get_state()
+
+
+def _agree(a, b, exact):
+    (ra, pa, ga), (rb, pb, gb) = a, b
+    if not torch.equal(ga, gb):
+        return False
+    if exact:
+        return all(torch.equal(x, y) for x, y in zip(ra, rb)) and all(
+            torch.equal(x, y) for x, y in zip(pa, pb))
+    return (abs(float(ra.total) - float(rb.total)) <= 1e-6 * abs(float(rb.total))
+            and all(torch.allclose(x, y, rtol=1e-5, atol=1e-6) for x, y in zip(pa, pb)))
+
+
+def test_graphed_steps_equal_eager_steps(graph_setup):
+    """K steps as one replay equal K eager steps from the same state and
+    generator state; the kernels were recorded into the graph 2K times;
+    a replay bumps the parameters' versions, so the model's packed
+    operands are made anew."""
+    step, state, pools, table, w_c, gen, snap = graph_setup
+
+    def eager():
+        for _ in range(GRAPH_K):
+            rep = step(state, pools, table, w_c, gen)
+        return rep
+
+    first, second = _run(state, snap, gen, eager), _run(state, snap, gen, eager)
+    exact = _agree(first, second, True)
+    multi = make_multi_step(step, GRAPH_K)
+    before = (fm.fused_mlp_forward.captured, fm.fused_mlp_backward.captured)
+    graphed = _run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen))
+    assert (fm.fused_mlp_forward.captured, fm.fused_mlp_backward.captured) == (
+        before[0] + 2 * GRAPH_K, before[1] + 2 * GRAPH_K)
+    assert multi.replays == 1 and state.step == snap["step"] + GRAPH_K
+    assert int(state.step_t) == state.step
+    assert _agree(graphed, first, exact)
+    assert _agree(_run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen)), first,
+                  exact)
+    # the replay wrote the parameters: the model's packed operands follow
+    ops = state.model_fine.fused_operands(state.model_fine.cfg)
+    fine = [p.detach().clone() for p in state.model_fine.parameters()]
+    multi(state, pools, table, w_c, gen)
+    assert state.model_fine.fused_operands(state.model_fine.cfg) is not ops
+    assert not all(torch.equal(a, p) for a, p in zip(fine, state.model_fine.parameters()))
+
+
+def test_generator_advances_across_replays(graph_setup):
+    """Each replay draws new rays and noise: two replays leave the generator
+    where 2K eager steps leave it, with different losses from each."""
+    step, state, pools, table, w_c, gen, snap = graph_setup
+    multi = make_multi_step(step, GRAPH_K)
+    restore_state(state, snap, gen)
+    r1 = multi(state, pools, table, w_c, gen)
+    after_one = gen.get_state()
+    r2 = multi(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    after_two = gen.get_state()
+    assert not torch.equal(after_one, after_two) and float(r1.total) != float(r2.total)
+    restore_state(state, snap, gen)
+    for _ in range(2 * GRAPH_K):
+        step(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    assert torch.equal(gen.get_state(), after_two)
+
+
+def test_graph_reads_a_table_copied_in(graph_setup):
+    """A graph captured on one table reads a new one copied into its
+    tensors, and the ``w_c`` copied into its tensor: its replay equals the
+    eager steps on the new table, not those on the old."""
+    step, state, pools, table, w_c, gen, snap = graph_setup
+    multi = make_multi_step(step, GRAPH_K)
+    _run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen))  # captured on the empty table
+    g = torch.Generator().manual_seed(2)
+    per_class = []
+    for _ in range(C):
+        centers = torch.rand(4, 3, generator=g).numpy()
+        links = torch.randint(0, 4, (64,), generator=g).numpy()
+        per_class.append((map_drgb(centers[links]), links, centers))
+    new = table_from_numpy(per_class, 64, device="cuda")
+    old = [t.clone() for t in table[:4]]
+    for buf, t in zip(table[:4], new[:4]):
+        buf.copy_(t)
+    w_c.fill_(1.0)
+
+    def eager(tab):
+        def fn():
+            for _ in range(GRAPH_K):
+                rep = step(state, pools, tab, w_c, gen)
+            return rep
+        return fn
+
+    graphed = _run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen))
+    on_new = _run(state, snap, gen, eager(new))
+    on_old = _run(state, snap, gen, eager(table._replace(
+        anchors=old[0], colors=old[1], links=old[2], has_cluster=old[3])))
+    exact = _agree(_run(state, snap, gen, eager(new)), on_new, True)
+    assert _agree(graphed, on_new, exact)
+    assert not _agree(graphed, on_old, False)

@@ -42,7 +42,19 @@ weights:
   train on; once one step per call, once ``steps_per_call`` 10 (blocks
   of 10 steps as graph replays, the cadences landing as before, and a
   replay after the last rebuild reading the new table);
-- the bench (``tools/bench.py``) at 1 and 8 steps per call.
+- the bench (``tools/bench.py``) at 1 and 8 steps per call;
+- the object pipeline at ``configs/object/lego.txt`` (8x256 with view
+  directions, the semantic head off, 1,024 pairs of 64 + 128 samples,
+  precrop for 500 steps) on the synthetic object of
+  ``tools_make_synthetic_blender.py`` at 800x800 (400x400 after
+  ``half_res``): the step (its kernels by name, a slice against the
+  host, kernels 1 and 2 at its 131,072 / 393,216-point calls against
+  their plain versions), 8 steps as one graph replay across the end of
+  the precrop warm-up, a 400x400 view, the CLI twin for 600 steps at 10
+  per call with its rebuilds and evaluations, a resume in a second
+  process, ``--render_only --render_test``, the blender_intrinsic loader,
+  LLFF in NDC on five of its views, and the cube check of ``tools/validate_convergence.py`` (held-out PSNR
+  > 20).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a graph replay's launches are its replays times the
@@ -55,6 +67,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -106,6 +119,22 @@ SCENE_K = 10  # the graphed scene run's steps per call: divides 50, 200, 400 and
 GRAPH_TOTAL_RTOL, GRAPH_PARAM_ATOL, GRAPH_PARAM_RTOL = 1e-6, 1e-6, 1e-5
 SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+# the object pipeline: configs/object/lego.txt on the synthetic object at
+# 800x800 (24 train, 1 val, 5 test views; half_res makes the views 400x400)
+OBJ_CONFIG = os.path.join(ROOT, "configs", "object", "lego.txt")
+OBJ_INTRINSIC_CONFIG = os.path.join(ROOT, "configs", "object", "intrinsic_lego.txt")
+OBJ_RES, OBJ_VIEWS = 800, (24, 1, 5)
+# the CLI run: 600 steps at 10 per call, crossing the precrop boundary at
+# 500; a resume for 50 more; 20 steps of the blender_intrinsic loader
+OBJ_STEPS, OBJ_MORE, OBJ_K, OBJ_INTRINSIC_STEPS = 600, 50, 10, 20
+OBJ_CADENCE = {"i_print": 100, "i_weights": 300, "i_testset": 300}
+OBJ_SAVE_VIEW = SAVE_VIEW_FILES[:7]  # no semantic maps
+# LLFF in NDC: configs/object/fern.txt on 5 adjacent train views of the
+# object written as an LLFF capture (images_8: 100x100), 50 steps
+OBJ_LLFF_CONFIG = os.path.join(ROOT, "configs", "object", "fern.txt")
+OBJ_LLFF_STEPS = 50
+# what lego.txt sets: the MLP, the samples, the batch, half_res and precrop
+OBJ_WANT = ((8, 256, True, True, False), (64, 128, True, 1.0), (1024, "mask"), (True, 500, 0.5))
 
 
 def say(phase: str, **kv):
@@ -247,8 +276,8 @@ def compare_runs(a, b, exact: bool, torch):
                                 "generator_and_step_equal": same_gen}
 
 
-def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card):
-    """``train_graph``: GRAPH_K eager steps twice from one state and
+def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="train_graph"):
+    """``train_graph`` (or ``phase``): GRAPH_K eager steps twice from one state and
     generator state (bitwise or not), then GRAPH_K steps as one graph
     replay from the same state, held to the eager steps; the kernels of a
     profiled replay by name; eager and graphed ms per step."""
@@ -333,7 +362,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card):
     restore_state(state, snap, gen)  # the state as this phase found it
 
     kernels_ok = found == want
-    say("train_graph", k=k, eager_bitwise=eager_bitwise, eager_repeat=json.dumps(eager_detail),
+    say(phase, k=k, eager_bitwise=eager_bitwise, eager_repeat=json.dumps(eager_detail),
         mode="bitwise" if eager_bitwise else json.dumps(
             {"total_rtol": GRAPH_TOTAL_RTOL, "param_atol": GRAPH_PARAM_ATOL,
              "param_rtol": GRAPH_PARAM_RTOL}),
@@ -344,7 +373,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card):
         eager_windows_ms=json.dumps([round(x, 3) for x in eager_times]),
         graph_windows_ms=json.dumps([round(x, 3) for x in graph_times]),
         replay_enqueue_ms=f"{enqueue_ms:.3f}", card=json.dumps(card))
-    say("profile", path="train_graph_replay", replays=GRAPH_CALLS, steps=n_steps,
+    say("profile", path=f"{phase}_replay", replays=GRAPH_CALLS, steps=n_steps,
         wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
         busy_share=f"{busy_ms / wall_ms:.3f}",
         busy_ms_per_step=f"{busy_ms / n_steps:.3f}",
@@ -366,6 +395,50 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card):
             "busy_share": busy_ms / wall_ms, "replay_kernels": {n: int(v) for n, v in found.items()}}
 
 
+def step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
+                 phase="step_vs_plain"):
+    """One training step on the batch ``sl`` with the fixed ``draws``, from
+    copies of ``state``'s models: on the card (kernels 1 and 2, each
+    launched twice) against the plain versions on the host, the loss
+    terms within STEP_REL and each level's gradient within cosine
+    STEP_COS."""
+    from intrinsicnerf_tpu_torch.data.samplers import RayBatch
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.train.step import TrainState, make_train_step
+
+    def run_on(device):
+        mc = copy.deepcopy(state.model_coarse).to(device)
+        mf = copy.deepcopy(state.model_fine).to(device)
+        opt = torch.optim.Adam(list(mc.parameters()) + list(mf.parameters()), lr=tcfg.lrate,
+                               capturable=torch.device(device).type == "cuda")
+        st = TrainState(step=state.step, model_coarse=mc, model_fine=mf, optimizer=opt)
+        b = RayBatch(*(x.to(device) if torch.is_tensor(x) else x for x in sl))
+        dr = {k: (v.to(device) if v is not None else None) for k, v in draws.items()}
+        tab = type(table)(*(x.to(device) if torch.is_tensor(x) else x for x in table))
+        fn = make_train_step(mcfg, rcfg, tcfg, h, w, sample_fn=lambda g_, p_, s_: b,
+                             noise_fn=lambda g_, n_: dr)
+        rep = fn(st, None, tab, w_c, None)
+        grads = [torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
+                 for m in (mc, mf)]
+        return {k: float(v) for k, v in rep._asdict().items()}, grads
+
+    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
+    rep_k, grads_k = run_on(dev)
+    torch.cuda.synchronize()
+    slice_launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches,
+                      fm.fwd_weight_image.launches)
+    rep_p, grads_p = run_on("cpu")
+    rel = {k: abs(rep_k[k] - rep_p[k]) / max(abs(rep_p[k]), 1e-7) for k in rep_p}
+    cos = [float(a @ b / (a.norm() * b.norm())) for a, b in zip(grads_k, grads_p)]
+    say(phase, pairs=SLICE_PAIRS, launches=json.dumps(slice_launches),
+        rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}), tol=STEP_REL,
+        grad_cos=json.dumps({"coarse": round(cos[0], 7), "fine": round(cos[1], 7)}),
+        cos_tol=STEP_COS)
+    if slice_launches != (2, 2, 2) or max(rel.values()) > STEP_REL or min(cos) < STEP_COS:
+        raise AssertionError(f"the step on the card disagrees with the plain step: {rel} {cos}")
+
+
 def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     """Kernel 2 against its plain version, then the training path: timed
     steps, a fixed-batch run, the step against the plain versions on the
@@ -378,8 +451,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
     from intrinsicnerf_tpu_torch.tools import bwd_passes
-    from intrinsicnerf_tpu_torch.train.step import (
-        DataPools, TrainState, create_train_state, make_train_step)
+    from intrinsicnerf_tpu_torch.train.step import DataPools, create_train_state, make_train_step
 
     rcfg, tcfg = fc.render, fc.train
     n_rays = 2 * tcfg.n_rays  # pixels and their neighbours
@@ -545,37 +617,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
                   sem_flag=big.sem_flag, image_idx=big.image_idx)
     draws = draw_train_noise(2 * SLICE_PAIRS, rcfg, gen.manual_seed(12), dev)
 
-    def run_on(device):
-        mc = copy.deepcopy(state.model_coarse).to(device)
-        mf = copy.deepcopy(state.model_fine).to(device)
-        opt = torch.optim.Adam(list(mc.parameters()) + list(mf.parameters()), lr=tcfg.lrate,
-                               capturable=torch.device(device).type == "cuda")
-        st = TrainState(step=state.step, model_coarse=mc, model_fine=mf, optimizer=opt)
-        b = RayBatch(*(x.to(device) if torch.is_tensor(x) else x for x in sl))
-        dr = {k: (v.to(device) if v is not None else None) for k, v in draws.items()}
-        tab = type(table)(*(x.to(device) if torch.is_tensor(x) else x for x in table))
-        fn = make_train_step(mcfg, rcfg, tcfg, H, W, sample_fn=lambda g_, p_, s_: b,
-                             noise_fn=lambda g_, n_: dr)
-        rep = fn(st, None, tab, w_c, None)
-        grads = [torch.cat([p.grad.flatten().double().cpu() for p in m.parameters()])
-                 for m in (mc, mf)]
-        return {k: float(v) for k, v in rep._asdict().items()}, grads
-
-    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
-    fm.fwd_weight_image.launches = 0
-    rep_k, grads_k = run_on(dev)
-    torch.cuda.synchronize()
-    slice_launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches,
-                      fm.fwd_weight_image.launches)
-    rep_p, grads_p = run_on("cpu")
-    rel = {k: abs(rep_k[k] - rep_p[k]) / max(abs(rep_p[k]), 1e-7) for k in rep_p}
-    cos = [float(a @ b / (a.norm() * b.norm())) for a, b in zip(grads_k, grads_p)]
-    say("step_vs_plain", pairs=SLICE_PAIRS, launches=json.dumps(slice_launches),
-        rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in rel.items()}), tol=STEP_REL,
-        grad_cos=json.dumps({"coarse": round(cos[0], 7), "fine": round(cos[1], 7)}),
-        cos_tol=STEP_COS)
-    if slice_launches != (2, 2, 2) or max(rel.values()) > STEP_REL or min(cos) < STEP_COS:
-        raise AssertionError(f"the step on the card disagrees with the plain step: {rel} {cos}")
+    step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, H, W, dev)
 
     # where a step's device time goes
     bwd_before = fm.fused_mlp_backward.launches
@@ -978,6 +1020,674 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
             "psnr_end": m_end["psnr"]}
 
 
+# ---------------------------------------------------------------- objects
+
+
+def object_txt(src, work, data_dir, expname, n_iters, **extra):
+    """A copy of the object config ``src`` in ``work`` with only the data
+    paths, the run's name and length, the cadences and ``extra`` changed
+    (``testskip`` 1 keeps the synthetic object's 5 test views)."""
+    changed = {"datadir": data_dir, "basedir": work, "expname": expname, "N_iters": n_iters,
+               "testskip": 1, **OBJ_CADENCE, **extra}
+    lines = [ln for ln in open(src).read().splitlines()
+             if ln.split("#")[0].split("=")[0].strip() not in changed]
+    path = os.path.join(work, f"{expname}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + [f"{k} = {v}" for k, v in changed.items()]) + "\n")
+    return path
+
+
+def object_data_phase(torch, np, dev, card):
+    """``object_data``: the synthetic object at 800x800 (24 train, 1 val,
+    5 test views), loaded by the CLI's loader at a copy of the lego config,
+    and its bundle on the card."""
+    import shutil
+
+    from intrinsicnerf_tpu_torch.config import from_object_txt
+    from intrinsicnerf_tpu_torch.tools.synthetic_blender import write_synthetic_blender
+    from intrinsicnerf_tpu_torch.train.prepare import prepare_blender_bundle
+    from intrinsicnerf_tpu_torch.train_object import load_object_data
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_object")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    report = write_synthetic_blender(data_dir, OBJ_RES, OBJ_RES, *OBJ_VIEWS)
+    data_s = time.perf_counter() - t0
+    cfg_path = object_txt(OBJ_CONFIG, work, data_dir, "lego", OBJ_STEPS, steps_per_call=OBJ_K)
+    cfg = from_object_txt(cfg_path)
+    m, r, t = cfg.mlp, cfg.render, cfg.train
+    got = ((m.depth, m.width, m.use_viewdirs, m.use_fused_kernel, m.enable_semantic),
+           (r.n_coarse, r.n_importance, r.white_bkgd, r.perturb), (t.n_rays, t.mask_mode),
+           (cfg.half_res, cfg.precrop_iters, cfg.precrop_frac))
+    if got != OBJ_WANT:
+        raise AssertionError(f"{OBJ_CONFIG} no longer sets the lego configuration: {got}")
+    t0 = time.perf_counter()
+    data = load_object_data(cfg)
+    bundle, pools = prepare_blender_bundle(cfg, data, device=dev)
+    load_s = time.perf_counter() - t0
+    counts = [len(s) for s in data.i_split]
+    say("object_data", tool=json.dumps(report), seconds=f"{data_s:.1f}",
+        load_seconds=f"{load_s:.1f}", h=data.h, w=data.w, focal=f"{data.focal:.4f}",
+        train_val_test=json.dumps(counts), render_path=len(data.render_poses),
+        config=os.path.relpath(OBJ_CONFIG, ROOT))
+    if (data.h, data.w) != (OBJ_RES // 2, OBJ_RES // 2) or counts != list(OBJ_VIEWS):
+        raise AssertionError(f"the object loaded at {data.h}x{data.w} with {counts} views")
+    return {"work": work, "data_dir": data_dir, "cfg_path": cfg_path, "cfg": cfg,
+            "bundle": bundle, "pools": pools, "focal": data.focal}
+
+
+def object_mlp_config(cfg):
+    """The MLP an object trains: the semantic head off, as ``Trainer`` sets it."""
+    return dataclasses.replace(cfg.mlp, num_semantic_classes=0, enable_semantic=False)
+
+
+def one_class_table(np, dev, seed):
+    """A seeded one-class palette (an object's table), 2,048 anchors."""
+    from intrinsicnerf_tpu_torch.cluster.assign import map_drgb, table_from_numpy
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0.05, 1.0, size=(8, 3)).astype(np.float32)
+    links = rng.integers(0, 8, size=2048)
+    anchors = map_drgb(centers[links]) + rng.normal(size=(2048, 3)).astype(np.float32) * 0.02
+    return table_from_numpy([(anchors, links, centers)], 2048, device=dev)
+
+
+def object_kernel_checks(torch, np, model, mcfg, rays, rcfg, card):
+    """Kernels 1 and 2 at the object step's coarse and fine calls (the
+    batch's rays at 64 and 192 samples: 131,072 and 393,216 points)
+    against their plain versions: kernel 1 per output slice within
+    KERNEL_TOL with its semantic and padding columns exactly 0, kernel 2
+    within its bounds per block, its zero semantic blocks exactly 0, each
+    bitwise across two launches.  Times and bounds at the object
+    network's own multiply-adds."""
+    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+
+    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    work = bwd_passes.backward_macs(model)
+    bwd_macs = sum(work.values())
+    ops = model.fused_operands(mcfg)
+    masks = fm.packed_grad_masks(dict(model.named_parameters()), mcfg)
+    gen = torch.Generator(device=rays.device).manual_seed(23)
+    out = {"macs": macs, "bwd_macs": bwd_macs}
+    slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8)}
+    for label, n_samples in (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance)):
+        z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples)
+        in8 = fm.build_in8(rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None], rays[:, 8:11])
+        n = in8.shape[0]
+        got = fm.fused_mlp_forward(ops, in8)
+        again = fm.fused_mlp_forward(ops, in8)
+        torch.cuda.synchronize()
+        fwd_bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
+        sem_zero = bool((got[:, 8:] == 0).all())
+        ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+        errs = {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
+                / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
+        fwd_err = (got[:, :8].float() - ref[:, :8].float()).abs().max().item()
+        g = loss_cotangent(got, 8, gen, torch)
+        bwd = fm.fused_mlp_backward(ops, in8, g)
+        bwd2 = fm.fused_mlp_backward(ops, in8, g)
+        torch.cuda.synchronize()
+        bwd_bitwise = all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
+        # the zero semantic blocks: no gradient through them, and the mask
+        # projection gives the shared output bias's none of it (b_m2)
+        sem_grad = max([float(bwd[k].abs().max()) for k in ("w_m1", "b_m1", "w_m2")]
+                       + [float((bwd[k] * masks[k]).abs().max())
+                          for k in ("w_m1", "b_m1", "w_m2", "b_m2")])
+        bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+        (cos, rel), per = grad_agreement(bwd, bref, masks, torch)
+        bwd_err = max(float(((bwd[k] - bref[k]) * masks[k]).abs().max()) for k in bwd)
+        f_flops, f_bytes = fused_work(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
+        b_flops = 2.0 * bwd_macs * n
+        b_bytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
+
+        def bound(flops, nbytes):
+            by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+            return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by
+
+        f_bound, f_by = bound(f_flops, f_bytes)
+        b_bound, b_by = bound(b_flops, b_bytes)
+        row = {
+            "points": n,
+            "fwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch),
+                        plain_ms=cuda_ms(lambda: fm.fused_mlp_forward_plain(ops.packed, ops.pe,
+                                                                            in8), 2, torch),
+                        bound_ms=f_bound, bound_by=f_by, max_abs_err=fwd_err),
+            "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
+                        plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
+                            ops.packed, ops.pe, in8, g), 2, torch),
+                        bound_ms=b_bound, bound_by=b_by, max_abs_err=bwd_err)}
+        out[label] = row
+        worst = min(per.items(), key=lambda kv: kv[1][0])
+        say("object_kernels_vs_plain", call=label, points=n, fwd_bitwise_repeat=fwd_bitwise,
+            fwd_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
+            semantic_columns_zero=sem_zero, bwd_bitwise_repeat=bwd_bitwise,
+            bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}",
+            worst_block_cos=json.dumps([worst[0], round(worst[1][0], 7)]),
+            semantic_block_grad_max=sem_grad,
+            tol=json.dumps({"fwd": KERNEL_TOL, "cos": BWD_COS, "rel": BWD_REL}),
+            fwd_ms=f"{row['fwd']['ms']:.4f}", fwd_plain_ms=f"{row['fwd']['plain_ms']:.4f}",
+            fwd_bound_ms=f"{f_bound:.4f}", bwd_ms=f"{row['bwd']['ms']:.4f}",
+            bwd_plain_ms=f"{row['bwd']['plain_ms']:.4f}", bwd_bound_ms=f"{b_bound:.4f}",
+            card=json.dumps(card))
+        ok = (fwd_bitwise and sem_zero and all(e < KERNEL_TOL for e in errs.values())
+              and bwd_bitwise and sem_grad == 0.0 and cos > BWD_COS and rel <= BWD_REL
+              and all(c > BWD_COS and r <= BWD_REL for c, r in per.values())
+              and bool(torch.isfinite(got.float()).all()))
+        if not ok:
+            raise AssertionError(f"kernels 1 and 2 disagree with their plain versions at the "
+                                 f"object's {label} call: {errs} {(cos, rel)} {per}")
+        del in8, got, again, ref, g, bwd, bwd2, bref
+    torch.cuda.empty_cache()
+    return out
+
+
+def object_step_phase(torch, np, dev, card, od):
+    """``object_step``: the lego step (1,024 pairs from the pose sampler,
+    64 + 128 samples, the semantic head off) 3 + 20 times eagerly, its
+    kernels found by name in a profiled step, one step on a 64-pair slice
+    against the plain versions on the host, then kernels 1 and 2 at the
+    step's coarse and fine calls against their plain versions."""
+    from intrinsicnerf_tpu_torch.data.samplers import RayBatch
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+    from intrinsicnerf_tpu_torch.train.step import create_train_state, make_train_step
+    from intrinsicnerf_tpu_torch.train.trainer import make_object_sample_fn
+
+    cfg, bundle, pools = od["cfg"], od["bundle"], od["pools"]
+    mcfg, rcfg, tcfg = object_mlp_config(cfg), cfg.render, cfg.train
+    h, w = bundle.h, bundle.w
+    state = create_train_state(mcfg, tcfg, device=dev, generator=torch.Generator().manual_seed(20))
+    sample_fn = make_object_sample_fn(cfg, bundle)
+    step_fn = make_train_step(mcfg, rcfg, tcfg, h, w, sample_fn=sample_fn)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    table = one_class_table(np, dev, 22)
+    w_c = 0.1
+    for _ in range(WARM_STEPS):
+        step_fn(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in state.model_fine.parameters()]
+    counters = (fm.fused_mlp_forward, fm.fused_mlp_backward, fm.fwd_weight_image)
+    for c in counters:
+        c.launches = 0
+    step_ms, host_ms, reports = [], [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        reports.append(step_fn(state, pools, table, w_c, gen))
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(zip(("fwd", "bwd", "fwd_image"), (c.launches for c in counters)))
+    bad = [(i, k) for i, r in enumerate(reports) for k, v in r._asdict().items()
+           if not math.isfinite(float(v))]
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(state.model_fine.parameters(), before))
+    # the kernels of one profiled step, by name
+    named = {}
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: step_fn(state, pools, table, w_c, gen), torch, counts=named)
+    found = {k: sum(v for name, v in named.items() if k in name) for k in REPLAY_KERNELS}
+    want_named = {k: 2 * v for k, v in REPLAY_KERNELS.items()}
+    k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
+    k2 = sum(v for k, v in by_name.items() if any(s in k for s in bwd_passes.PASSES.values()))
+    median = float(np.median(step_ms))
+    n_rays = 2 * tcfg.n_rays
+    points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)  # coarse + fine, each way
+    model = state.model_fine
+    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    bwd_macs = sum(bwd_passes.backward_macs(model).values())
+    bound_ms = 1e3 * 2.0 * (macs + bwd_macs) * points / PEAK_BF16_FLOPS
+    say("object_step", rays=n_rays, points_each_way=points, launches=json.dumps(launches),
+        want=2 * TIMED_STEPS, kernels_by_name=json.dumps(found), want_by_name=json.dumps(want_named),
+        median_ms_per_step=f"{median:.3f}", steps_ms=json.dumps([round(x, 3) for x in step_ms]),
+        median_host_enqueue_ms=f"{float(np.median(host_ms)):.3f}",
+        rays_per_s=f"{n_rays * 1e3 / median:.0f}", bound_ms_per_step=f"{bound_ms:.3f}",
+        macs_per_point=json.dumps({"fwd": macs, "bwd": bwd_macs}),
+        profiled_busy_ms=f"{busy_ms:.3f}", profiled_wall_ms=f"{wall_ms:.3f}",
+        kernel1_ms=f"{k1:.3f}", kernel2_ms=f"{k2:.3f}",
+        last=json.dumps({k: float(f"{float(v):.5g}") for k, v in reports[-1]._asdict().items()}),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if (launches != {k: 2 * TIMED_STEPS for k in launches} or bad or found != want_named
+            or moved != len(before)):
+        raise AssertionError(f"the object step: launches {launches}, by name {found}, "
+                             f"not finite {bad[:5]}, {moved} of {len(before)} moved")
+
+    # one step on a 64-pair slice: the card against the plain versions on the host
+    big = sample_fn(gen.manual_seed(24), pools, state.step_t)
+    idx = torch.cat([torch.arange(SLICE_PAIRS), tcfg.n_rays + torch.arange(SLICE_PAIRS)]).to(dev)
+    sl = RayBatch(rays=big.rays[idx], rgb=big.rgb[idx], depth=None, semantic=big.semantic[idx],
+                  sem_flag=big.sem_flag, image_idx=big.image_idx)
+    draws = draw_train_noise(2 * SLICE_PAIRS, rcfg, gen.manual_seed(25), dev)
+    step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
+                 phase="object_step_vs_plain")
+    kernels = object_kernel_checks(torch, np, model, mcfg, big.rays, rcfg, card)
+    return {"state": state, "step_fn": step_fn, "sample_fn": sample_fn, "gen": gen,
+            "table": table, "mcfg": mcfg, "launches": launches, "median_ms": median,
+            "host_ms": float(np.median(host_ms)), "bound_ms": bound_ms, "kernels": kernels}
+
+
+def batch_pixels(torch, batch, pools, h, w, focal, n):
+    """(rows, columns) of a batch's first ``n`` rays (its pixels, not their
+    neighbours), recovered from their directions in the camera's frame."""
+    rot = pools.poses[batch.image_idx.reshape(1)][0, :3, :3]
+    d = batch.rays[:n, 3:6] @ rot
+    cols = torch.round(d[:, 0] / -d[:, 2] * focal + w * 0.5).long()
+    rows = torch.round(h * 0.5 - d[:, 1] / -d[:, 2] * focal).long()
+    return rows, cols
+
+
+def object_graph_phase(torch, np, dev, card, od, st):
+    """``object_graph``: starting OBJ_GRAPH_K / 2 steps before the precrop
+    warm-up ends, GRAPH_K eager steps twice from one snapshot (bitwise or
+    not) and as one graph replay (``graph_phase``); then the pixels each
+    step drew, recorded on the device by step count inside the steps: the
+    replay's equal the eager steps', the first half inside the centre
+    crop, the second half not all inside it."""
+    from intrinsicnerf_tpu_torch.train.step import (
+        make_multi_step, make_train_step, restore_state, snapshot_state)
+
+    cfg, bundle, pools = od["cfg"], od["bundle"], od["pools"]
+    state, gen, table = st["state"], st["gen"], st["table"]
+    k = GRAPH_K
+    start = cfg.precrop_iters - k // 2
+    state.step = start
+    state.step_t.fill_(start)
+    graph = graph_phase(torch, np, st["step_fn"], state, pools, table, 0.1, gen, card,
+                        phase="object_graph")
+
+    n = cfg.train.n_rays
+    rec = torch.full((2, k, n), -1, dtype=torch.long, device=dev)
+
+    def recording(generator, pools_, step):
+        batch = st["sample_fn"](generator, pools_, step)
+        rows, cols = batch_pixels(torch, batch, pools_, bundle.h, bundle.w,
+                                  od["focal"], n)
+        i = (step - start).clamp(0, k - 1).reshape(1)
+        rec[0].index_copy_(0, i, rows[None])
+        rec[1].index_copy_(0, i, cols[None])
+        return batch
+
+    rec_step = make_train_step(st["mcfg"], cfg.render, cfg.train, bundle.h, bundle.w,
+                               sample_fn=recording)
+    w_c_t = torch.tensor(0.1, device=dev)
+    snap = snapshot_state(state, gen)
+    for _ in range(k):
+        rec_step(state, pools, table, w_c_t, gen)
+    torch.cuda.synchronize()
+    eager_px = rec.clone()
+    restore_state(state, snap, gen)
+    rec.fill_(-1)
+    multi = make_multi_step(rec_step, k)
+    multi(state, pools, table, w_c_t, gen)
+    torch.cuda.synchronize()
+    graph_px = rec.clone()
+    restore_state(state, snap, gen)
+    del multi
+    h, w = bundle.h, bundle.w
+    dh = max(int(h // 2 * cfg.precrop_frac), 1)
+    dw = max(int(w // 2 * cfg.precrop_frac), 1)
+    inside = ((graph_px[0] >= h // 2 - dh) & (graph_px[0] < h // 2 + dh)
+              & (graph_px[1] >= w // 2 - dw) & (graph_px[1] < w // 2 + dw)).all(dim=1).tolist()
+    want_inside = [s < cfg.precrop_iters for s in range(start, start + k)]
+    same = torch.equal(eager_px, graph_px)
+    say("object_graph_precrop", start=start, precrop_iters=cfg.precrop_iters,
+        steps_all_pixels_in_crop=json.dumps(inside), want=json.dumps(want_inside),
+        replay_pixels_equal_eager=same, crop_rows=json.dumps([h // 2 - dh, h // 2 + dh]))
+    if not same or inside != want_inside or int((graph_px < 0).sum()):
+        raise AssertionError(f"the graphed object steps' crop: {inside} (want {want_inside}), "
+                             f"pixels equal to the eager steps' {same}")
+    torch.cuda.empty_cache()
+    return graph
+
+
+def object_view_phase(torch, np, dev, card, od, st):
+    """``object_view``: one 400x400 test view through ``render_views`` of
+    weights loaded just before it (five chunks of 32,768 rays, the last
+    one short), against the plain version on a seeded subset of its rays;
+    the median of 5 views, kernel 1's share of a profiled view, and the
+    view's bound at the object network's multiply-adds."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.render.pipeline import render_rays_chunked
+    from intrinsicnerf_tpu_torch.train.trainer import render_views
+
+    cfg, bundle = od["cfg"], od["bundle"]
+    mcfg, rcfg, chunk = st["mcfg"], cfg.render, cfg.chunk
+    mc, mf = st["state"].model_coarse, st["state"].model_fine
+    h, w = bundle.h, bundle.w
+    rays = bundle.rays_test[:1]
+    n_rays = rays.shape[1]
+
+    def view():
+        return next(render_views(mc, mf, mcfg, rcfg, rays, h, w, chunk, device=dev))
+
+    view()  # warm-up
+    for m in (mc, mf):
+        m.load_state_dict(m.state_dict())
+    torch.cuda.synchronize()
+    fm.fused_mlp_forward.launches = fm.fused_mlp_backward.launches = 0
+    fm.fwd_weight_image.launches = 0
+    t0 = time.perf_counter()
+    out = view()
+    torch.cuda.synchronize()
+    times = [1e3 * (time.perf_counter() - t0)]
+    launches = (fm.fused_mlp_forward.launches, fm.fused_mlp_backward.launches,
+                fm.fwd_weight_image.launches)
+    chunks = math.ceil(n_rays / chunk)
+    shapes = {"rgb": (h, w, 3), "disp": (h, w), "depth": (h, w), "acc": (h, w),
+              "albedo": (h, w, 3), "shading": (h, w), "residual": (h, w, 3)}
+    bad = [k for k, s in shapes.items() if out[k].shape != s or not np.isfinite(out[k]).all()]
+    if launches != (2 * chunks, 0, 2) or bad or "sem_label" in out:
+        raise AssertionError(f"the object view launched {launches} (want {(2 * chunks, 0, 2)}); "
+                             f"bad maps {bad}; keys {sorted(out)}")
+    for _ in range(4):
+        t0 = time.perf_counter()
+        view()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    median = float(np.median(times))
+    macs = st["kernels"]["macs"]
+    points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)
+    bound_ms = 1e3 * 2.0 * macs * points / PEAK_BF16_FLOPS
+    wall_ms, busy_ms, by_name = profile_window(view, torch)
+    k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
+    # against the plain version on the host, on a seeded subset of the view's rays
+    idx = torch.randperm(n_rays, generator=torch.Generator().manual_seed(26))[:SUBSET]
+    with torch.no_grad():
+        ref = render_rays_chunked(copy.deepcopy(mc).to("cpu"), copy.deepcopy(mf).to("cpu"), mcfg,
+                                  rays[0, idx.to(dev)].cpu(), rcfg, SUBSET).fine
+    flat = idx.numpy()
+    got = {"rgb": out["rgb"].reshape(-1, 3)[flat], "depth": out["depth"].reshape(-1)[flat],
+           "albedo": out["albedo"].reshape(-1, 3)[flat]}
+    errs = {k: float(np.mean(np.abs(v - getattr(ref, k).numpy()))
+                     / max(np.abs(getattr(ref, k).numpy()).max(), 1.0)) for k, v in got.items()}
+    say("object_view", view=f"{h}x{w}", rays=n_rays, chunk=chunk, chunks=chunks,
+        launches=json.dumps(launches), ms_per_view=json.dumps([round(x, 2) for x in times]),
+        median_ms_per_view=f"{median:.2f}", rays_per_s=f"{n_rays / median * 1e3:.0f}",
+        bound_ms_per_view=f"{bound_ms:.2f}", macs_per_point=macs,
+        profiled_wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}", kernel1_ms=f"{k1:.2f}",
+        kernel1_share=f"{k1 / busy_ms:.3f}", vs_plain_mean_rel_err=json.dumps(errs),
+        tol=VIEW_TOL, top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    if not all(e <= VIEW_TOL for e in errs.values()) or k1 <= 0.0:
+        raise AssertionError(f"the object view disagrees with the plain version: {errs} "
+                             f"(kernel 1 {k1} ms)")
+    return {"median_ms": median, "bound_ms": bound_ms, "launches": launches[0],
+            "kernel1_share": k1 / busy_ms, "busy_share": busy_ms / wall_ms}
+
+
+# the second process of object_fit: the CLI's trainer at the same config,
+# resumed, held to the state the first process left, then trained on
+_RESUME_RUNNER = """
+import json, sys, torch
+from intrinsicnerf_tpu_torch.train_object import build_trainer, parse_args
+cfg_path, ref_path, n_iters, device = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+_, _, trainer = build_trainer(parse_args(["--config", cfg_path, "--device", device]))
+ref = torch.load(ref_path, weights_only=False)
+def same(a, b):
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a == b
+with trainer as t:
+    step = t.maybe_resume()
+    st = t.state
+    exact = {
+        "step": step == ref["step"] == int(st.step_t),
+        "params": same(ref["params"], [p.detach() for m in (st.model_coarse, st.model_fine)
+                                       for p in m.parameters()]),
+        "adam": same(ref["adam"], st.optimizer.state_dict()["state"]),
+        "palette": same(ref["table"], list(t.table[:4])),
+        "anneal": [t.w_c, t.b_f] == ref["anneal"],
+        "generator": same(ref["generator"], t.generator.get_state()),
+    }
+    report = t.fit(n_iters=n_iters, progress=False)
+    replays = t.multi_step.replays if t.multi_step is not None else 0
+print(json.dumps({"exact": exact, "global_step": t.global_step, "replays": replays,
+                  "last_total": float(report.total)}))
+"""
+
+
+def run_port(args, timeout=900):
+    """Run a command of the port in a subprocess from the repo root; its
+    stdout, raising with its stderr's tail when it fails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, cwd=ROOT,
+                          env=env, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[:3]} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def object_fit_phase(torch, np, dev, card, od):
+    """``object_fit``: the CLI's trainer (``train_object.build_trainer``)
+    at the lego config with ``steps_per_call`` OBJ_K for OBJ_STEPS steps
+    (log every 100, checkpoint, rebuild and evaluation every 300; the
+    precrop warm-up ends at 500); its launches (eager + replays x the
+    launches recorded into the graph, 2 x OBJ_K of each kernel), falling loss, cluster term off until the first rebuild, the
+    rebuild of the 5 test views, rising PSNR and every ``_save_view``
+    file; then a second process that resumes exactly and trains OBJ_MORE
+    steps, ``--render_only --render_test`` in a third, and steps of
+    ``intrinsic_lego.txt``'s loader on the same directory."""
+    from intrinsicnerf_tpu_torch import train_object
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    cfg, work = od["cfg"], od["work"]
+    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
+                "image": fm.fwd_weight_image}
+    calls = []
+
+    def hook(done, t_start, t_enqueued, did_work):
+        torch.cuda.synchronize()
+        calls.append((done, 1e3 * (t_enqueued - t_start), 1e3 * (time.perf_counter() - t_start),
+                      did_work, dict(trainer.last_rebuild)))
+
+    for c in counters.values():
+        c.launches = c.captured = 0
+    t0 = time.perf_counter()
+    args = train_object.parse_args(["--config", od["cfg_path"], "--device", dev.type])
+    _, _, trainer = train_object.build_trainer(args)
+    trainer.step_hook = hook
+    with trainer:
+        trainer.maybe_resume()
+        trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eager = {k: c.launches for k, c in counters.items()}
+    captured = {k: c.captured for k, c in counters.items()}
+    replays = trainer.multi_step.replays if trainer.multi_step is not None else 0
+    total = {k: eager[k] + replays * captured[k] for k in counters}
+    save_dir = cfg.experiment.save_dir
+    sc = read_scalars(os.path.join(save_dir, "tfb_logs", "scalars.csv"))
+    log_steps = sorted(sc["Train/Loss/img_fine"])
+    img = sc["Train/Loss/img_fine"]
+    cluster, w_c_eff = sc["Train/Loss/reflect_cluster"], sc["Train/w_c_eff"]
+    rebuild = OBJ_CADENCE["i_testset"]
+    term = {s: w_c_eff[s] * cluster[s] for s in log_steps}
+    psnr = sc.get("Test/psnr", {})
+    n_test = od["bundle"].rays_test.shape[0]
+    missing = []
+    for sub in ("test_render", "train_render"):
+        for s in range(rebuild, OBJ_STEPS + 1, rebuild):
+            d = os.path.join(save_dir, sub, f"step_{s:06d}")
+            missing += [os.path.join(sub, f"step_{s:06d}", f"{n}_{i:03d}.png")
+                        for n in OBJ_SAVE_VIEW for i in range(n_test)
+                        if not os.path.exists(os.path.join(d, f"{n}_{i:03d}.png"))]
+    videos = sorted(os.path.basename(p) for p in glob.glob(os.path.join(
+        save_dir, "test_render", f"step_{OBJ_STEPS:06d}", "*.mp4")))
+    rebuilds = [c[4] for c in calls if c[0] % rebuild == 0]
+    chunks = math.ceil(od["bundle"].h * od["bundle"].w / cfg.chunk)
+    views = 2 * n_test * (OBJ_STEPS // rebuild)  # rebuild and evaluation renders
+    probes = len(log_steps) if trainer.logger.writer is not None else 0
+    eager_steps = OBJ_STEPS - replays * OBJ_K + (1 if replays else 0)
+    want = {"fwd": 2 * eager_steps + 2 * chunks * views + 2 * probes, "bwd": 2 * eager_steps}
+    plain = [c for c in calls if not c[3]]
+    median_ms = float(np.median([c[2] for c in plain])) / OBJ_K
+    say("object_fit", steps=OBJ_STEPS, steps_per_call=OBJ_K, seconds=f"{fit_s:.1f}",
+        launches=json.dumps(eager), want=json.dumps(want), captured=json.dumps(captured),
+        replays=replays, launches_with_replays=json.dumps(total), log_steps=json.dumps(log_steps),
+        img_fine=json.dumps({s: round(img[s], 5) for s in log_steps}),
+        cluster_term=json.dumps({s: round(term[s], 7) for s in log_steps}),
+        eval_psnr=json.dumps(psnr), rebuild_views=json.dumps([r.get("views") for r in rebuilds]),
+        missing_files=json.dumps(missing[:10]), videos=json.dumps(videos))
+    say("object_fit_time", median_ms_per_plain_step=f"{median_ms:.3f}",
+        median_host_enqueue_ms_per_step=f"{float(np.median([c[1] for c in plain])) / OBJ_K:.3f}",
+        plain_calls=len(plain), steps_per_s=f"{1e3 / median_ms:.2f}",
+        rebuilds=json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
+                              for k, v in r.items()} for r in rebuilds]),
+        work_calls_ms=json.dumps({c[0]: round(c[2], 1) for c in calls if c[3]}),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    before = [s for s in log_steps if s <= rebuild]
+    after = [s for s in log_steps if s > rebuild]
+    graphed = dev.type == "cuda"  # on the host a block of steps is a loop
+    ok = (eager["bwd"] == want["bwd"] and eager["fwd"] == want["fwd"]
+          and captured == {k: (2 * OBJ_K if graphed else 0) for k in counters}
+          and replays == (OBJ_STEPS // OBJ_K if graphed else 0)
+          and np.mean([img[s] for s in log_steps[-2:]]) < np.mean([img[s] for s in log_steps[:2]])
+          and all(term[s] == 0.0 for s in before) and all(term[s] > 0.0 for s in after)
+          and [r.get("views") for r in rebuilds] == [n_test] * (OBJ_STEPS // rebuild)
+          and psnr.get(OBJ_STEPS, -1) > psnr.get(rebuild, 1e9) and not missing)
+    if not ok:
+        raise AssertionError("the object run failed a check (see the object_fit line)")
+
+    # ---- a second process resumes exactly and trains on ----
+    st = trainer.state
+    ref = {"step": OBJ_STEPS,
+           "params": [p.detach().cpu() for m in (st.model_coarse, st.model_fine)
+                      for p in m.parameters()],
+           "adam": copy.deepcopy(st.optimizer.state_dict()["state"]),
+           "table": [t.cpu() for t in trainer.table[:4]], "anneal": [trainer.w_c, trainer.b_f],
+           "generator": trainer.generator.get_state()}
+    ref_path = os.path.join(work, "state_at_fit_end.pt")
+    torch.save(ref, ref_path)
+    del trainer, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = run_port(["-c", _RESUME_RUNNER, od["cfg_path"], ref_path, str(OBJ_STEPS + OBJ_MORE),
+                    dev.type])
+    resume = json.loads(out.strip().splitlines()[-1])
+    resume_s = time.perf_counter() - t0
+    say("object_resume", seconds=f"{resume_s:.1f}", **{k: json.dumps(v) for k, v in resume.items()})
+    if not (all(resume["exact"].values()) and resume["global_step"] == OBJ_STEPS + OBJ_MORE
+            and resume["replays"] == (OBJ_MORE // OBJ_K if dev.type == "cuda" else 0)
+            and math.isfinite(resume["last_total"])):
+        raise AssertionError(f"the object resume failed: {resume}")
+
+    # ---- --render_only --render_test in a third ----
+    t0 = time.perf_counter()
+    out = run_port(["-m", "intrinsicnerf_tpu_torch.train_object", "--config", od["cfg_path"],
+                    "--render_only", "--render_test", "--no_progress", "--device", dev.type])
+    render_s = time.perf_counter() - t0
+    rdir = os.path.join(save_dir, f"renderonly_test_{OBJ_STEPS:06d}")
+    missing = [f"{n}_{i:03d}.png" for n in OBJ_SAVE_VIEW for i in range(n_test)
+               if not os.path.exists(os.path.join(rdir, f"{n}_{i:03d}.png"))]
+    say("object_render_only", seconds=f"{render_s:.1f}", dir=os.path.relpath(rdir, ROOT),
+        views=n_test, missing_files=json.dumps(missing), said=json.dumps(out.strip()[-80:]))
+    if missing or f"resumed from step {OBJ_STEPS}" not in out:
+        raise AssertionError(f"--render_only --render_test: missing {missing}; said {out[-400:]}")
+
+    # ---- intrinsic_lego.txt's loader (blender_intrinsic) on the same directory ----
+    icfg = object_txt(OBJ_INTRINSIC_CONFIG, work, od["data_dir"], "intrinsic_lego",
+                      OBJ_INTRINSIC_STEPS, i_print=OBJ_INTRINSIC_STEPS, i_weights=10 ** 9,
+                      i_testset=10 ** 9)
+    for c in counters.values():
+        c.launches = c.captured = 0
+    t0 = time.perf_counter()
+    train_object.main(["--config", icfg, "--no_progress", "--device", dev.type])
+    torch.cuda.synchronize()
+    intr_s = time.perf_counter() - t0
+    intr = {k: c.launches for k, c in counters.items()}
+    isc = read_scalars(os.path.join(work, "intrinsic_lego", "tfb_logs", "scalars.csv"))
+    last = {k[11:]: v[OBJ_INTRINSIC_STEPS] for k, v in isc.items()
+            if k.startswith("Train/Loss/") and OBJ_INTRINSIC_STEPS in v}
+    say("object_intrinsic", steps=OBJ_INTRINSIC_STEPS, seconds=f"{intr_s:.1f}",
+        launches=json.dumps(intr), last=json.dumps({k: round(v, 5) for k, v in last.items()}))
+    if (intr["bwd"] != 2 * OBJ_INTRINSIC_STEPS or not last
+            or not all(math.isfinite(v) for v in last.values())):
+        raise AssertionError(f"the blender_intrinsic run: launches {intr}, losses {last}")
+    return {"launches": total, "eager": eager, "replays": replays, "median_ms": median_ms,
+            "rebuilds": rebuilds, "psnr": psnr, "fit_s": fit_s}
+
+
+def object_llff_phase(torch, np, dev, card, od):
+    """``object_llff``: five adjacent train views of the object written as
+    an LLFF capture (``tools/synthetic_blender.py:write_llff_from_blender``,
+    the helper the CPU test uses), OBJ_LLFF_STEPS steps of the CLI at a
+    copy of ``fern.txt`` (NDC, 64 + 64 samples), then its test view
+    rendered by ``--render_only --render_test``."""
+    from intrinsicnerf_tpu_torch import train_object
+    from intrinsicnerf_tpu_torch.config import from_object_txt
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools.synthetic_blender import write_llff_from_blender
+
+    work = od["work"]
+    llff_dir = os.path.join(work, "llff")
+    n_views = write_llff_from_blender(od["data_dir"], llff_dir, views=range(5), factor=8)
+    cfg_path = object_txt(OBJ_LLFF_CONFIG, work, llff_dir, "fern", OBJ_LLFF_STEPS,
+                          i_print=OBJ_LLFF_STEPS, i_weights=OBJ_LLFF_STEPS, i_testset=10 ** 9)
+    cfg = from_object_txt(cfg_path)
+    data = train_object.load_object_data(cfg)
+    ndc_focal = train_object.ndc_focal_for(cfg, data)
+    counters = (fm.fused_mlp_forward, fm.fused_mlp_backward)
+    for c in counters:
+        c.launches = c.captured = 0
+    t0 = time.perf_counter()
+    train_object.main(["--config", cfg_path, "--no_progress", "--device", dev.type])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    run_dir = cfg.experiment.save_dir
+    sc = read_scalars(os.path.join(run_dir, "tfb_logs", "scalars.csv"))
+    last = {k[11:]: v[OBJ_LLFF_STEPS] for k, v in sc.items()
+            if k.startswith("Train/Loss/") and OBJ_LLFF_STEPS in v}
+    t0 = time.perf_counter()
+    train_object.main(["--config", cfg_path, "--render_only", "--render_test", "--no_progress",
+                       "--device", dev.type])
+    render_s = time.perf_counter() - t0
+    rdir = os.path.join(run_dir, f"renderonly_test_{OBJ_LLFF_STEPS:06d}")
+    rendered = sorted(f for f in os.listdir(rdir) if f.startswith("rgb_"))
+    say("object_llff", views=n_views, h=data.h, w=data.w, focal=f"{data.focal:.4f}",
+        ndc_focal=ndc_focal, depth_range=json.dumps(cfg.depth_range),
+        train_test=json.dumps([len(data.i_split[0]), len(data.i_split[2])]),
+        steps=OBJ_LLFF_STEPS, launches_fwd_bwd=json.dumps(launches), train_s=f"{train_s:.1f}",
+        render_s=f"{render_s:.1f}", rendered=json.dumps(rendered),
+        last=json.dumps({k: round(v, 5) for k, v in last.items()}))
+    if not (ndc_focal is not None and launches[1] == 2 * OBJ_LLFF_STEPS and last
+            and all(math.isfinite(v) for v in last.values()) and rendered == ["rgb_000.png"]):
+        raise AssertionError(f"the LLFF run: launches {launches}, losses {last}, renders {rendered}")
+    return {"launches": launches}
+
+
+def object_cube_phase(torch, np, dev, card):
+    """``object_cube``: ``tools/validate_convergence.py`` at its defaults
+    (3,000 steps, 64x64, 60 views) through kernels 1 and 2; the held-out
+    PSNR must exceed 20."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools import validate_convergence as vc
+
+    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
+                "image": fm.fwd_weight_image}
+    for c in counters.values():
+        c.launches = c.captured = 0
+    result = vc.run(device=dev, save_dir=os.path.join(ROOT, "logs", "chip_smoke_cube"))
+    launches = {k: c.launches for k, c in counters.items()}
+    say("object_cube", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                          for k, v in result.items()}, launches=json.dumps(launches),
+        floor=vc.PSNR_FLOOR, card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if not (result["psnr"] > vc.PSNR_FLOOR and result["fused"]
+            and launches["bwd"] == 2 * result["steps"]):
+        raise AssertionError(f"the cube check failed: {result}, launches {launches}")
+    return {**result, "launches": launches}
+
+
 def bench_phase(torch, card):
     """``tools/bench.py`` at one step per call and at GRAPH_K, in this
     process (its kernels already built); each prints its JSON line."""
@@ -1252,6 +1962,18 @@ def main() -> int:
     scene = scene_phases(torch, np, dev, card)
     scene_k = scene_phases(torch, np, dev, card, SCENE_K, train["graph"]["eager_bitwise"], scene)
     bench_phase(torch, card)
+    od = object_data_phase(torch, np, dev, card)
+    ost = object_step_phase(torch, np, dev, card, od)
+    ograph = object_graph_phase(torch, np, dev, card, od, ost)
+    oview = object_view_phase(torch, np, dev, card, od, ost)
+    okern = ost["kernels"]
+    del ost
+    torch.cuda.empty_cache()
+    ofit = object_fit_phase(torch, np, dev, card, od)
+    object_llff_phase(torch, np, dev, card, od)
+    del od
+    torch.cuda.empty_cache()
+    ocube = object_cube_phase(torch, np, dev, card)
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
@@ -1283,6 +2005,14 @@ def main() -> int:
         "bound_ms_fine_chunk": timing["fine_chunk"]["bound_ms"],
         "ms_per_step_call": train["fwd_step_ms"],
         "ablation_ms": {row["variant"]: row["ms"] for row in ablation},
+        # the object path (lego config, semantic head off): its CLI run, one
+        # 400x400 view, the cube check; the step's calls against their bounds
+        # at the object network's 659,456 multiply-adds per point
+        "launches_object_fit": ofit["launches"]["fwd"],
+        "launches_object_view": oview["launches"],
+        "launches_object_cube": ocube["launches"]["fwd"],
+        "object_step": {k: okern[k]["fwd"] for k in ("coarse", "fine")},
+        "object_view": {"median_ms": oview["median_ms"], "bound_ms": oview["bound_ms"]},
     }, {
         "name": "fused_mlp_fwd_image",
         "route": "cuda",
@@ -1297,6 +2027,7 @@ def main() -> int:
         "bound_ms": image["bound_ms"],
         "bound_by": image["bound_by"],
         "library_ms": None,  # no single PyTorch call lays out the slabs
+        "launches_object_fit": ofit["launches"]["image"],
     }, {
         "name": "fused_mlp_bwd",
         "route": "cuda",
@@ -1317,6 +2048,9 @@ def main() -> int:
         "pass_ms": b["pass_ms"],  # the fine call's passes: activations, weight GEMM, reductions
         "pass_bound_ms": b["pass_bound_ms"],
         "per_shape": train["bwd_timing"],
+        "launches_object_fit": ofit["launches"]["bwd"],
+        "launches_object_cube": ocube["launches"]["bwd"],
+        "object_step": {k: okern[k]["bwd"] for k in ("coarse", "fine")},  # 131,072 / 393,216
     }, {
         "name": "fwd_probe",
         "route": "cuda",

@@ -1,27 +1,33 @@
-"""Dataset -> device bundle for the Replica scene pipeline.
+"""Dataset -> device bundle for the Replica scene and the object pipelines.
 
 Port of ``intrinsicnerf_tpu/train/prepare.py`` (``replica_intrinsics``,
-``prepare_replica_bundle``): Replica's 90-degree pinhole camera with
+``prepare_replica_bundle``, ``apply_ndc_to_rays``,
+``prepare_blender_bundle``).  Replica: its 90-degree pinhole camera with
 ``cx = (W-1)/2``; the per-image training ray and GT pools uploaded once;
 the scaled train-view rays (``rays_vis``, kept on the device as JAX keeps
 them: 720 x 76,800 x 11 fp32 = 2.4 GB at full Replica) and test-view
 rays; and the scaled GT for evaluation (bilinear images and depth,
 nearest labels shifted so void = -1), resized with OpenCV as the JAX
-package resizes them.  The ScanNet and Blender preparers come with their
-datasets.
+package resizes them.  Objects (Blender, Blender-intrinsic, LLFF,
+DeepVoxels, LINEMOD): the white-background composite, the alpha masks,
+the pose pools of the object sampler (``PosePools``) and the test and
+render-path rays at full resolution.  The ScanNet preparer comes with its
+dataset.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from intrinsicnerf_tpu_torch import resolve_device
 from intrinsicnerf_tpu_torch.config import FrameworkConfig
-from intrinsicnerf_tpu_torch.core.rays import create_rays
-from intrinsicnerf_tpu_torch.train.step import DataPools
+from intrinsicnerf_tpu_torch.core.rays import camera_ray_dirs, create_rays, ndc_rays
+from intrinsicnerf_tpu_torch.data.blender import BlenderData, composite_white_background
+from intrinsicnerf_tpu_torch.train.step import DataPools, PosePools
 from intrinsicnerf_tpu_torch.train.trainer import SceneBundle
 from intrinsicnerf_tpu_torch.utils.image import label_colormap
 
@@ -106,3 +112,52 @@ def prepare_replica_bundle(cfg: FrameworkConfig, data, device="cuda") -> SceneBu
         colour_map=cmap, class_names=getattr(data, "class_names", None),
         semantic_class_ids=np.asarray(class_ids) if class_ids is not None else None,
     )
+
+
+def apply_ndc_to_rays(rays: torch.Tensor, h: int, w: int, focal: float) -> torch.Tensor:
+    """Project a ``[..., 11]`` ray block to NDC (bounds become [0, 1]; the
+    view directions keep their world-space values)."""
+    o, d = ndc_rays(h, w, focal, 1.0, rays[..., 0:3], rays[..., 3:6])
+    nf = torch.tensor([0.0, 1.0], dtype=rays.dtype, device=rays.device)
+    return torch.cat([o, d, nf.expand(*rays.shape[:-1], 2), rays[..., 8:11]], dim=-1)
+
+
+def prepare_blender_bundle(cfg: FrameworkConfig, data: BlenderData, ndc_focal=None,
+                           device="cuda") -> Tuple[SceneBundle, PosePools]:
+    """The object pipeline's bundle and the ``PosePools`` its pose sampler
+    reads: the white-background composite (per config), the alpha masks,
+    the camera-frame pixel directions (OpenGL, ``cx = w/2``), the test
+    views' rays (which the rebuilds render too) and the render path's.
+    ``ndc_focal`` set projects the test and path rays to NDC (LLFF
+    forward-facing).  Tensors go to ``device`` (default ``"cuda"``, which
+    raises without a GPU)."""
+    dev = resolve_device(device)
+    near, far = cfg.depth_range
+    h, w, focal = data.h, data.w, data.focal
+    i_train, _, i_test = data.i_split
+    images = (composite_white_background(data.images) if cfg.render.white_bkgd
+              else data.images[..., :3])
+    masks = data.images[..., 3]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+
+    dirs_cam = camera_ray_dirs(h, w, focal, focal, w * 0.5, h * 0.5, convention="opengl",
+                               device=dev).reshape(-1, 3)
+    pools = PosePools(dirs_cam=dirs_cam, poses=t(data.poses[i_train]),
+                      rgb=t(images[i_train].reshape(len(i_train), -1, 3)),
+                      mask=t(masks[i_train].reshape(len(i_train), -1)))
+    rays_test = create_rays(t(data.poses[i_test]), h, w, focal, focal, w * 0.5, h * 0.5, near,
+                            far, convention="opengl")
+    rays_vis = create_rays(t(data.render_poses), h, w, focal, focal, w * 0.5, h * 0.5, near,
+                           far, convention="opengl")
+    if ndc_focal is not None:
+        rays_test = apply_ndc_to_rays(rays_test, h, w, ndc_focal)
+        rays_vis = apply_ndc_to_rays(rays_vis, h, w, ndc_focal)
+    bundle = SceneBundle(
+        pools=pools, rays_vis=rays_vis, rays_test=rays_test, h=h, w=w, h_scaled=h, w_scaled=w,
+        num_valid_classes=0,
+        # an object rebuilds its clusters from the test views, not the render path
+        rays_cluster=rays_test,
+        test_gt={"image": np.asarray(images[i_test], np.float32)})
+    return bundle, pools

@@ -104,6 +104,16 @@ class DataPools(NamedTuple):
     mask_ids: Optional[torch.Tensor] = None  # [I]
 
 
+class PosePools(NamedTuple):
+    """Object-pipeline pools: rays built on the fly from the poses (O(HW)
+    instead of O(I*HW*11) memory)."""
+
+    dirs_cam: torch.Tensor  # [H*W, 3]
+    poses: torch.Tensor  # [I, 4, 4]
+    rgb: torch.Tensor  # [I, H*W, 3]
+    mask: Optional[torch.Tensor] = None  # [I, H*W] object mask (alpha)
+
+
 class LossReport(NamedTuple):
     total: torch.Tensor
     img_coarse: torch.Tensor
@@ -197,7 +207,9 @@ def make_train_step(
     loss-weight switches are read from ``state.step_t``.
 
     ``sample_fn(generator, pools, step) -> RayBatch`` overrides the
-    paired pool sampler (``step`` is the host's count); ``noise_fn(
+    paired pool sampler (``step`` is the device counter ``state.step_t``,
+    read before this step advances it, so a graph replay sees each step's
+    count, as the traced step of the JAX scan does); ``noise_fn(
     generator, n_rays) -> dict`` overrides ``draw_train_noise`` (both
     hooks let callers inject fixed draws)."""
     lr_schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay)
@@ -234,7 +246,7 @@ def make_train_step(
                 w_c, generator: torch.Generator) -> LossReport:
         step_t = state.step_t
         if sample_fn is not None:
-            batch = sample_fn(generator, pools, state.step)
+            batch = sample_fn(generator, pools, step_t)
         else:
             batch = sample_ray_pairs(generator, pools.rays, pools.rgb, h, w, tcfg.n_rays,
                                      depth_pool=pools.depth, sem_pool=pools.semantic,

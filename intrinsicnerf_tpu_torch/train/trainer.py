@@ -27,8 +27,12 @@ The graph reads the cluster table and ``w_c`` from tensors the trainer
 keeps for its whole life and copies new values into (``_set_table``,
 ``_w_c_t``), so a rebuild or a restore reaches the next replay.
 
-Left out here: the device mesh and several hosts, the object pipeline's
-pose sampler and the mp4s of ``tools/video.py``.  ``render_views`` is
+The object pipeline passes its pose sampler (``make_object_sample_fn``)
+as ``sample_fn``; its bundle renders the test views at each rebuild
+(``rays_cluster``) and has no semantic head.  After each rebuild and
+evaluation the rendered frames become mp4s (``tools/video.py``).
+
+Left out here: the device mesh and several hosts.  ``render_views`` is
 also a free function: the serving path.
 """
 
@@ -52,8 +56,10 @@ from intrinsicnerf_tpu_torch.cluster.meanshift import backend as meanshift_backe
 from intrinsicnerf_tpu_torch.core.losses import semantic_entropy
 from intrinsicnerf_tpu_torch.core.metrics import (
     calculate_depth_metrics, calculate_segmentation_metrics, psnr_np)
+from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs_from_poses
 from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays, render_rays_chunked
+from intrinsicnerf_tpu_torch.tools.video import generate_all
 from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
 from intrinsicnerf_tpu_torch.train.logging_utils import ProfilerTrace, TBLogger
 from intrinsicnerf_tpu_torch.train.schedules import cluster_anneal
@@ -61,8 +67,6 @@ from intrinsicnerf_tpu_torch.train.step import (
     DataPools, TrainState, create_train_state, make_multi_step, make_train_step)
 from intrinsicnerf_tpu_torch.utils.image import (
     depth2rgb, imwrite, label_colormap, plot_semantic_legend, to8b)
-
-VIDEO_NOTE = "video write skipped: tools/video.py is not ported yet (ROADMAP queue 1, item 8)"
 
 
 @dataclasses.dataclass
@@ -84,6 +88,24 @@ class SceneBundle:
     colour_map: Optional[np.ndarray] = None  # [C+1, 3] with the void row
     class_names: Optional[list] = None  # ["void", ...] by original id
     semantic_class_ids: Optional[np.ndarray] = None  # original ids with void
+
+
+def make_object_sample_fn(cfg, bundle: SceneBundle, ndc_focal=None):
+    """The pose-based pair sampler with the precrop warm-up, for the object
+    pipeline (twin of the JAX ``make_object_sample_fn``); ``ndc_focal``
+    turns on the LLFF forward-facing NDC projection.  The crop is decided
+    on the device from the step counter the step hands it, so a CUDA
+    graph replay ends the warm-up where the eager steps would."""
+    near, far = cfg.depth_range
+    h, w, n_rays = bundle.h, bundle.w, cfg.train.n_rays
+
+    def sample_fn(generator, pools, step):
+        return sample_ray_pairs_from_poses(
+            generator, pools.dirs_cam, pools.poses, pools.rgb, h, w, n_rays, near, far,
+            mask_pool=pools.mask, step=step, precrop_iters=cfg.precrop_iters,
+            precrop_frac=cfg.precrop_frac, ndc_focal=ndc_focal)
+
+    return sample_fn
 
 
 def _host(x: torch.Tensor, *shape) -> np.ndarray:
@@ -154,9 +176,10 @@ class Trainer:
     of ``steps_per_call``) with the step count after it, the host clock
     before the call and after it was enqueued, and whether the call did
     periodic work (log, checkpoint, rebuild, eval); ``profile_steps = N``
-    traces N steps with ``torch.profiler``."""
+    traces N steps with ``torch.profiler``.  ``sample_fn`` replaces the
+    step's pool sampler (the object pipeline's pose sampler)."""
 
-    def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda"):
+    def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda", sample_fn=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.bundle = bundle
@@ -181,7 +204,8 @@ class Trainer:
             self.mcfg, cfg.train, device=self.device,
             generator=torch.Generator().manual_seed(seed),
             with_fine=cfg.render.n_importance > 0)
-        self.step_fn = make_train_step(self.mcfg, cfg.render, cfg.train, bundle.h, bundle.w)
+        self.step_fn = make_train_step(self.mcfg, cfg.render, cfg.train, bundle.h, bundle.w,
+                                       sample_fn=sample_fn)
         # every training draw (pixels, jitter, sigma noise, importance
         # uniforms) comes from this generator; checkpoints keep its state
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -525,7 +549,15 @@ class Trainer:
             self._log_view_panels(step, "Train", views)
         self.flush_io()
         if save:
-            print(VIDEO_NOTE)
+            self._write_videos(save_dir)
+
+    def _write_videos(self, save_dir: str):
+        """mp4s of the rendered frames in ``save_dir``; a failed write is
+        reported and training goes on."""
+        try:
+            generate_all(save_dir)
+        except Exception as e:  # file IO only: no launch runs in here
+            print(f"video write skipped: {e}")
 
     def _log_train_render_metrics(self, step: int, views):
         """Batch PSNR / MSE, the depth suite, the mIoU suite and panels of
@@ -619,6 +651,6 @@ class Trainer:
         self._log_view_panels(step, "Test", views)
         print(f"eval @{step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
         if save:
-            self.flush_io()
-            print(VIDEO_NOTE)
+            self.flush_io()  # the videos read the PNGs from disk
+            self._write_videos(save_dir)
         return metrics

@@ -52,25 +52,31 @@ def depth2rgb(
 
 
 def imwrite(path: str, arr: np.ndarray) -> None:
-    """Write an ``[H, W]`` or ``[H, W, 3]`` uint8 / uint16 array as an image
-    (RGB order), as ``imageio.v2.imwrite`` does."""
+    """Write an ``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` uint8 / uint16
+    array as an image (RGB or RGBA order), as ``imageio.v2.imwrite`` does."""
     import cv2
 
     arr = np.asarray(arr)
     if arr.ndim == 3:
-        arr = np.ascontiguousarray(arr[..., ::-1])  # OpenCV writes BGR
+        arr = np.ascontiguousarray(_swap_rb(arr))  # OpenCV writes BGR(A)
     if not cv2.imwrite(path, arr):
         raise OSError(f"could not write {path}")
 
 
 def imread(path: str) -> np.ndarray:
-    """Read an image as written (RGB order, uint8 or uint16 unchanged)."""
+    """Read an image as written (RGB or RGBA order, uint8 or uint16
+    unchanged)."""
     import cv2
 
     arr = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if arr is None:
         raise OSError(f"could not read {path}")
-    return arr[..., ::-1].copy() if arr.ndim == 3 else arr
+    return _swap_rb(arr).copy() if arr.ndim == 3 else arr
+
+
+def _swap_rb(arr: np.ndarray) -> np.ndarray:
+    """BGR(A) <-> RGB(A): the colour channels reversed, alpha kept last."""
+    return np.concatenate([arr[..., 2::-1], arr[..., 3:]], axis=-1)
 
 
 def plot_semantic_legend(

@@ -23,6 +23,12 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   moves an output by ~1e-3 at most; two launches give bitwise-equal
   outputs, and its weight image on the card equals the plain version's
   byte for byte.
+- the object configuration (``configs/object/lego.txt``: the semantic
+  head off): kernel 1's semantic and padding columns exactly 0; kernel 2
+  at the lego step's fine call (2,048 rays x 192 samples = 393,216
+  points) against its plain version at kernel 2's bounds, bitwise across
+  launches, its semantic blocks' gradients exactly 0 after the mask
+  projection;
 - K training steps as one CUDA graph replay (``make_multi_step``) against
   the same K steps run eagerly from the same state and generator state:
   bitwise where two eager runs are bitwise, else the JAX scan test's
@@ -367,3 +373,121 @@ def test_graph_reads_a_table_copied_in(graph_setup):
     exact = _agree(_run(state, snap, gen, eager(new)), on_new, True)
     assert _agree(graphed, on_new, exact)
     assert not _agree(graphed, on_old, False)
+
+
+# ---- the object configuration (semantic head off) ----------------------
+
+
+@pytest.fixture(scope="module")
+def object_model(card):
+    cfg = MLPConfig(pos_scalar_factor=1.0, enable_semantic=False, compute_dtype=torch.bfloat16,
+                    use_fused_kernel=True)
+    return cfg, IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(1))
+
+
+def test_object_kernel_semantic_columns_are_zero(object_model):
+    """With the semantic head off the pack fills its blocks with zeros;
+    kernel 1 still runs that block, and its output columns 8 and up must
+    come out exactly 0, the real columns within kernel 1's bound."""
+    cfg, m = object_model
+    in8, _ = _in8(131_072, 3)  # the lego step's coarse call: 2,048 rays x 64 samples
+    ops = m.fused_operands(cfg)
+    got = fm.fused_mlp_forward(ops, in8)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 8:], torch.zeros_like(got[:, 8:]))
+    ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+    for a, b in SLICES[:4]:
+        x, y = got[:, a:b].float(), ref[:, a:b].float()
+        assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
+
+
+def test_object_backward_at_the_fine_step(object_model):
+    """Kernel 2 at the lego step's fine call (393,216 points, twice the
+    largest Replica call) against its plain version, bitwise across
+    launches; the zero semantic blocks get an exactly zero gradient, and
+    the mask projection keeps the summed output bias's share (``b_m2``)
+    from any parameter."""
+    cfg, m = object_model
+    n = 393_216
+    ops = m.fused_operands(cfg)
+    in8, gen = _in8(n, 4)
+    out = fm.fused_mlp_forward(ops, in8)
+    g = (out.float() - torch.rand(out.shape, device="cuda", generator=gen)) / n
+    g[:, 8:] = 0.0  # the object model reads sigma, albedo, shading and residual
+    g = g.to(torch.bfloat16)
+    got = fm.fused_mlp_backward(ops, in8, g)
+    again = fm.fused_mlp_backward(ops, in8, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    for k in ("w_m1", "b_m1", "w_m2"):
+        assert float(got[k].abs().max()) == 0.0, k
+    for k in ("w_m1", "b_m1", "w_m2", "b_m2"):  # b_m2 is a share of the summed output bias
+        assert float((got[k] * masks[k]).abs().max()) == 0.0, k
+    ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
+    assert not any(k.endswith(("m1", "m2")) for k in keys)
+    cos, rel = _cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
+                        torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
+    assert cos > 0.999 and rel <= 1e-2, (cos, rel)
+    for k in keys:
+        cos, rel = _cos_rel(got[k] * masks[k], ref[k] * masks[k])
+        assert cos > 0.999 and rel <= 1e-2, (k, cos, rel)
+
+
+def test_graphed_object_steps_cross_the_precrop_boundary(object_model):
+    """K object steps as one replay, starting K/2 steps before the precrop
+    warm-up ends, equal the same K eager steps (bitwise where two eager
+    runs are), and differ from K steps whose warm-up never ends: the
+    replay's sampler reads the device step counter."""
+    import types
+
+    from intrinsicnerf_tpu_torch.data.blender import pose_spherical
+    from intrinsicnerf_tpu_torch.core.rays import camera_ray_dirs
+    from intrinsicnerf_tpu_torch.train.step import PosePools
+    from intrinsicnerf_tpu_torch.train.trainer import SceneBundle, make_object_sample_fn
+
+    cfg, _ = object_model
+    h = w = 32
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    poses = torch.stack([torch.from_numpy(pose_spherical(60.0 * i, -30.0, 4.0))
+                         for i in range(3)]).cuda()
+    pools = PosePools(dirs_cam=camera_ray_dirs(h, w, 40.0, 40.0, w * 0.5, h * 0.5, "opengl",
+                                               device="cuda").reshape(-1, 3),
+                      poses=poses, rgb=torch.rand(3, h * w, 3, device="cuda", generator=gen),
+                      mask=(torch.rand(3, h * w, device="cuda", generator=gen) > 0.5).float())
+    bundle = SceneBundle(pools=pools, rays_vis=None, rays_test=None, h=h, w=w, h_scaled=h,
+                         w_scaled=w, num_valid_classes=0)
+    tcfg = TrainConfig(n_rays=256, mask_mode="mask", no_semantic_tree=True)
+    start = 100
+    rcfg = RenderConfig(perturb=1.0, raw_noise_std=0.0, white_bkgd=True)
+
+    def step_for(precrop_iters):
+        ocfg = types.SimpleNamespace(depth_range=(2.0, 6.0), train=tcfg,
+                                     precrop_iters=precrop_iters, precrop_frac=0.5)
+        return make_train_step(cfg, rcfg, tcfg, h, w,
+                               sample_fn=make_object_sample_fn(ocfg, bundle))
+
+    step, endless = step_for(start + GRAPH_K // 2), step_for(10 ** 9)
+    state = create_train_state(cfg, tcfg, device="cuda")
+    table = empty_cluster_table(1, 64, device="cuda")
+    w_c = torch.tensor(0.1, device="cuda")
+    step(state, pools, table, w_c, gen)  # Adam's state made
+    state.step = start
+    state.step_t.fill_(start)
+    snap = snapshot_state(state, gen)
+
+    def eager(fn):
+        def run():
+            for _ in range(GRAPH_K):
+                rep = fn(state, pools, table, w_c, gen)
+            return rep
+        return run
+
+    first, second = _run(state, snap, gen, eager(step)), _run(state, snap, gen, eager(step))
+    exact = _agree(first, second, True)
+    multi = make_multi_step(step, GRAPH_K)
+    graphed = _run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen))
+    assert int(state.step_t) == state.step == start + GRAPH_K
+    assert _agree(graphed, first, exact)
+    assert not _agree(graphed, _run(state, snap, gen, eager(endless)), False)

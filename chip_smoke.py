@@ -43,6 +43,18 @@ weights:
   of 10 steps as graph replays, the cadences landing as before, and a
   replay after the last rebuild reading the new table);
 - the bench (``tools/bench.py``) at 1 and 8 steps per call;
+- the other scene data on the same room: written as a ScanNet scan
+  (1296x968 frames) and loaded at ``configs/scene/scannet_template.yaml``
+  (324x243, ``nyu40``, depth on): the step (its kernels by name, a slice
+  against the host, kernels 1 and 2 at the scan's C and at C = 40 and 13
+  against their plain versions, 8 steps as one replay, a 324x243 view),
+  the CLI twin for 400 steps at 10 per call with its rebuilds and
+  evaluations and a resume in a second process; the Replica config with
+  ``render.no_batching: false`` (8 steps as one replay against eager
+  ones, pairs across images, 200 CLI steps); the Replica-NYU layout
+  (100 CLI steps, an evaluation against the ground truth in the NYU-13
+  palette); each of the five label-degradation flags for 30 steps, its
+  pools holding the degraded labels;
 - the object pipeline at ``configs/object/lego.txt`` (8x256 with view
   directions, the semantic head off, 1,024 pairs of 64 + 128 samples,
   precrop for 500 steps) on the synthetic object of
@@ -53,8 +65,14 @@ weights:
   the precrop warm-up, a 400x400 view, the CLI twin for 600 steps at 10
   per call with its rebuilds and evaluations, a resume in a second
   process, ``--render_only --render_test``, the blender_intrinsic loader,
-  LLFF in NDC on five of its views, and the cube check of ``tools/validate_convergence.py`` (held-out PSNR
-  > 20).
+  LLFF in NDC on five of its views, and the cube check of
+  ``tools/validate_convergence.py`` at 10 steps per call (held-out PSNR
+  > 20);
+- mesh extraction (``extract_mesh``, the CLI twin) from the ScanNet
+  run's checkpoint on a 256^3 grid (kernel 1 once per 131,072 points,
+  twice per 4,096-ray chunk of the vertex-colour render; a slice of the
+  occupancy against the plain version; the PLY read back), then from the
+  object run's at 128^3.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a graph replay's launches are its replays times the
@@ -133,6 +151,31 @@ OBJ_SAVE_VIEW = SAVE_VIEW_FILES[:7]  # no semantic maps
 # object written as an LLFF capture (images_8: 100x100), 50 steps
 OBJ_LLFF_CONFIG = os.path.join(ROOT, "configs", "object", "fern.txt")
 OBJ_LLFF_STEPS = 50
+# the other scene data: configs/scene/scannet_template.yaml on the scene
+# phases' room written as a ScanNet scan (1296x968 frames, 324x243 after
+# the loader; 20 frames: 4 train, 4 test); its fit at 10 steps per call
+# (log every 50, rebuild and checkpoint every 200, eval at 400), a resume
+# for 50 more; the all-images sampler, Replica-NYU and the degradations on
+# the Replica config at the room
+SCANNET_CONFIG = os.path.join(ROOT, "configs", "scene", "scannet_template.yaml")
+SCANNET_SCENE = "scene0088_00"
+SCANNET_WANT = ((8, 256, (4,), True, True), (512, 64, 128, 1.0, 1.0),
+                (324, 243, "nyu40", True, True), 32768)
+SCANNET_STEPS, SCANNET_MORE, SCANNET_K = 400, 50, 10
+SCANNET_CADENCE = {"step_log_print": 50, "step_log_tfb": 50, "step_vis_train": 200,
+                   "step_save_ckpt": 200, "step_val": 400}
+NYU_WIDTHS = (40, 13)  # kernels 1 and 2 held at NYU-40 and NYU-13 too
+ALL_IMAGES_STEPS, NYU_STEPS, DEGRADE_STEPS = 200, 100, 30
+CLI_LOG = 50  # the all-images and Replica-NYU runs' log cadence
+DEGRADATIONS = {
+    "sparse_views": ["--sparse_views", "--sparse_ratio", "0.5"],
+    "pixel_denoising": ["--pixel_denoising", "--pixel_noise_ratio", "0.3"],
+    "region_denoising": ["--region_denoising", "--region_noise_ratio", "0.5"],
+    "super_resolution": ["--super_resolution", "--dense_sr", "8"],
+    "label_propagation": ["--label_propagation", "--partial_perc", "0.05"]}
+# mesh extraction: the ScanNet fit's checkpoint at 256^3 (16,777,216 points,
+# 128 kernel-1 calls of 131,072), the object fit's at 128^3
+MESH_GRID, OBJ_MESH_GRID, MESH_PROBE = 256, 128, 64
 # what lego.txt sets: the MLP, the samples, the batch, half_res and precrop
 OBJ_WANT = ((8, 256, True, True, False), (64, 128, True, 1.0), (1024, "mask"), (True, 500, 0.5))
 
@@ -314,16 +357,19 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
     agree1, detail1 = compare_runs(g1, first, eager_bitwise, torch)
     agree2, detail2 = compare_runs(g2, first, eager_bitwise, torch)
 
-    # the kernels of GRAPH_CALLS replays, by name
+    # the device time of GRAPH_CALLS replays, by kernel name; the kernels of
+    # one replay counted by name in a window of their own (a longer window
+    # of the ScanNet step's replays lost a few records to the profiler)
     counts, ops = {}, {}
     restore_state(state, snap, gen)
     wall_ms, busy_ms, by_name = profile_window(
-        lambda: [graphed() for _ in range(GRAPH_CALLS)], torch, counts=counts)
+        lambda: [graphed() for _ in range(GRAPH_CALLS)], torch)
     n_steps = GRAPH_CALLS * k
+    restore_state(state, snap, gen)
+    profile_window(graphed, torch, counts=counts)
 
-    def n_named(sub):  # launches per replay
-        per = sum(v for name, v in counts.items() if sub in name) / GRAPH_CALLS
-        return int(per) if per == int(per) else per
+    def n_named(sub):  # launches in the replay
+        return sum(v for name, v in counts.items() if sub in name)
 
     # per step, coarse + fine: each kernel of kernels 1 and 2 twice, kernel
     # 2's row sums four times (weights and biases)
@@ -1017,7 +1063,649 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
         raise AssertionError(f"the {phase} resume failed: {exact_resume}, {total2} launches")
     return {"launches": total, "eager_launches": eager, "replays": replays,
             "median_ms": median_ms, "table_check": table_check, "params": state_after,
-            "psnr_end": m_end["psnr"]}
+            "psnr_end": m_end["psnr"], "data_dir": data_dir}
+
+
+# ------------------------------------------------------- the other scene data
+
+
+def scene_yaml(src, path, changes):
+    """A copy of the scene config ``src`` at ``path`` with the dotted keys
+    of ``changes`` set (``{"experiment.dataset_dir": ...}``)."""
+    import yaml
+
+    d = yaml.safe_load(open(src))
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        node = d
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def launch_counters():
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    return {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
+            "image": fm.fwd_weight_image}
+
+
+def zero_launches():
+    for c in launch_counters().values():
+        c.launches = c.captured = 0
+
+
+def run_launches(trainer=None):
+    """(eager launches, recorded into graphs, all: eager + replays x
+    recorded) per wrapper, after a run of ``trainer``."""
+    counters = launch_counters()
+    eager = {k: c.launches for k, c in counters.items()}
+    captured = {k: c.captured for k, c in counters.items()}
+    replays = trainer.multi_step.replays if trainer is not None and trainer.multi_step else 0
+    return eager, captured, {k: eager[k] + replays * captured[k] for k in counters}, replays
+
+
+def semantic_kernel_checks(torch, np, c, rays, rcfg, card, seed, phase="nyu_kernels_vs_plain"):
+    """Kernels 1 and 2 at ``c`` semantic classes (seeded weights) at the
+    scene step's coarse and fine calls (``rays`` at 64 and 192 samples),
+    against their plain versions: kernel 1 per output slice within
+    KERNEL_TOL and its padding columns exactly 0, kernel 2 per block (the
+    output block's columns 8 to 8 + c included) within the gradient
+    bounds, both bitwise across two launches.  Times, and bounds at the
+    network's own multiply-adds (its ``nn.Linear`` weights)."""
+    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
+    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+
+    mcfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=c,
+                     compute_dtype=torch.bfloat16, use_fused_kernel=True)
+    model = IntrinsicMLP(mcfg, device=rays.device, generator=torch.Generator().manual_seed(seed))
+    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    bwd_macs = sum(bwd_passes.backward_macs(model).values())
+    ops = model.fused_operands(mcfg)
+    masks = fm.packed_grad_masks(dict(model.named_parameters()), mcfg)
+    gen = torch.Generator(device=rays.device).manual_seed(seed + 1)
+    slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
+              "semantic": (8, 8 + c)}
+    out = {"c": c, "macs": macs, "bwd_macs": bwd_macs, "max_fwd_err": 0.0, "max_bwd_err": 0.0}
+    calls = (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance))
+    for label, n_samples in calls:
+        z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples)
+        in8 = fm.build_in8(rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None], rays[:, 8:11])
+        n = in8.shape[0]
+        got = fm.fused_mlp_forward(ops, in8)
+        again = fm.fused_mlp_forward(ops, in8)
+        torch.cuda.synchronize()
+        fwd_bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
+        pad_zero = bool((got[:, 8 + c:] == 0).all())
+        ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+        errs = {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
+                / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
+        out["max_fwd_err"] = max(out["max_fwd_err"], (got[:, :8 + c].float()
+                                                      - ref[:, :8 + c].float()).abs().max().item())
+        g = loss_cotangent(got, 8 + c, gen, torch)
+        bwd = fm.fused_mlp_backward(ops, in8, g)
+        bwd2 = fm.fused_mlp_backward(ops, in8, g)
+        torch.cuda.synchronize()
+        bwd_bitwise = all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
+        bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+        (cos, rel), per = grad_agreement(bwd, bref, masks, torch)
+        out["max_bwd_err"] = max(out["max_bwd_err"], max(
+            float(((bwd[k] - bref[k]) * masks[k]).abs().max()) for k in bwd))
+        f_flops, f_bytes = fused_work(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
+        b_flops = 2.0 * bwd_macs * n
+        b_bytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
+
+        def bound(flops, nbytes):
+            by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+            return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by
+
+        (f_bound, f_by), (b_bound, b_by) = bound(f_flops, f_bytes), bound(b_flops, b_bytes)
+        row = {"points": n,
+               "fwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch),
+                           plain_ms=cuda_ms(lambda: fm.fused_mlp_forward_plain(
+                               ops.packed, ops.pe, in8), 2, torch),
+                           bound_ms=f_bound, bound_by=f_by),
+               "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
+                           plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
+                               ops.packed, ops.pe, in8, g), 2, torch), bound_ms=b_bound,
+                           bound_by=b_by)}
+        out[label] = row
+        worst = min(per.items(), key=lambda kv: kv[1][0])
+        say(phase, classes=c, call=label, points=n, fwd_bitwise_repeat=fwd_bitwise,
+            fwd_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
+            padding_columns_zero=pad_zero, bwd_bitwise_repeat=bwd_bitwise,
+            bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}",
+            semantic_blocks=json.dumps({k: [round(per[k][0], 7), float(f"{per[k][1]:.3g}")]
+                                        for k in ("w_m1", "b_m1", "w_m2", "b_m2") if k in per}),
+            worst_block_cos=json.dumps([worst[0], round(worst[1][0], 7)]),
+            tol=json.dumps({"fwd": KERNEL_TOL, "cos": BWD_COS, "rel": BWD_REL}),
+            macs_per_point=json.dumps({"fwd": macs, "bwd": bwd_macs}),
+            fwd_ms=f"{row['fwd']['ms']:.4f}", fwd_plain_ms=f"{row['fwd']['plain_ms']:.4f}",
+            fwd_bound_ms=f"{f_bound:.4f}", bwd_ms=f"{row['bwd']['ms']:.4f}",
+            bwd_plain_ms=f"{row['bwd']['plain_ms']:.4f}", bwd_bound_ms=f"{b_bound:.4f}",
+            card=json.dumps(card))
+        ok = (fwd_bitwise and pad_zero and all(e < KERNEL_TOL for e in errs.values())
+              and bwd_bitwise and cos > BWD_COS and rel <= BWD_REL
+              and {"w_m1", "b_m1", "w_m2", "b_m2"} <= set(per)
+              and all(cc > BWD_COS and r <= BWD_REL for cc, r in per.values())
+              and bool(torch.isfinite(got.float()).all()))
+        if not ok:
+            raise AssertionError(f"kernels 1 and 2 disagree with their plain versions at C = {c}, "
+                                 f"the {label} call: {errs} {(cos, rel)} {per}")
+        del in8, got, again, ref, g, bwd, bwd2, bref
+    del model, ops
+    torch.cuda.empty_cache()
+    return out
+
+
+def scannet_data_phase(torch, np, dev, card, room_dir):
+    """``scannet_data``: the scene phases' room written as a ScanNet scan
+    (``tools/synthetic_replica.py:write_scannet_from_replica``: 1296x968
+    frames, raw label ids and their tsv, poses, intrinsics) under
+    ``logs/chip_smoke_scannet/``, loaded by the CLI's loader at a copy of
+    ``configs/scene/scannet_template.yaml`` with only the data paths, the
+    run's length and the cadences changed, and its bundle on the card."""
+    import shutil
+
+    from intrinsicnerf_tpu_torch import train_scene
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.tools.synthetic_replica import (
+        SCANNET_SIZE, write_scannet_from_replica)
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_scannet")
+    shutil.rmtree(work, ignore_errors=True)
+    scan_dir = os.path.join(work, "scan")
+    t0 = time.perf_counter()
+    frames = write_scannet_from_replica(room_dir, scan_dir, SCANNET_SCENE)
+    write_s = time.perf_counter() - t0
+    cfg_path = scene_yaml(SCANNET_CONFIG, os.path.join(work, "scannet.yaml"), {
+        "experiment.dataset_dir": scan_dir, "experiment.scene_name": SCANNET_SCENE,
+        "experiment.save_dir": os.path.join(work, "run"), "train.N_iters": SCANNET_STEPS,
+        **{f"logging.{k}": v for k, v in SCANNET_CADENCE.items()}})
+    cfg = from_yaml(cfg_path)
+    m, r, e = cfg.mlp, cfg.render, cfg.experiment
+    got = ((m.depth, m.width, tuple(m.skips), m.use_viewdirs, m.use_fused_kernel),
+           (cfg.train.n_rays, r.n_coarse, r.n_importance, r.perturb, r.raw_noise_std),
+           (e.width, e.height, e.nyu_mode, e.enable_semantic, e.enable_depth), cfg.chunk)
+    if got != SCANNET_WANT:
+        raise AssertionError(f"{SCANNET_CONFIG} no longer sets the ScanNet configuration: {got}")
+    args = train_scene.parse_args(["--config_file", cfg_path, "--device", dev.type])
+    t0 = time.perf_counter()
+    data = train_scene.build_dataset(cfg, args)
+    bundle = train_scene.prepare_bundle(cfg, data, dev)
+    load_s = time.perf_counter() - t0
+    split = [len(data.train_ids), len(data.test_ids)]
+    k = data.intrinsics
+    say("scannet_data", frames=frames, written_s=f"{write_s:.1f}", load_seconds=f"{load_s:.1f}",
+        frame=json.dumps(list(SCANNET_SIZE)),
+        h=bundle.h, w=bundle.w, classes=bundle.num_valid_classes,
+        nyu40_ids=json.dumps(data.semantic_classes.tolist()), train_test=json.dumps(split),
+        fx_fy_cx_cy=json.dumps([round(float(x), 4) for x in (k[0, 0], k[1, 1], k[0, 2], k[1, 2])]),
+        config=os.path.relpath(SCANNET_CONFIG, ROOT))
+    if ((bundle.h, bundle.w) != (cfg.experiment.height, cfg.experiment.width)
+            or split != [4, 4] or bundle.num_valid_classes < 2):
+        raise AssertionError(f"the ScanNet scan loaded at {bundle.h}x{bundle.w}, split {split}, "
+                             f"{bundle.num_valid_classes} classes")
+    return {"work": work, "scan_dir": scan_dir, "cfg_path": cfg_path, "cfg": cfg,
+            "bundle": bundle}
+
+
+def scannet_step_phase(torch, np, dev, card, sd):
+    """``scannet_step``: the ScanNet step (512 pairs from the scan's pools,
+    64 + 128 samples, the scan's C classes, depth on) 3 + 20 times eagerly,
+    its kernels by name in a profiled step, a 64-pair slice against the
+    plain versions on the host, kernels 1 and 2 at the step's calls at
+    this C and at C = 40 and 13 against their plain versions, GRAPH_K
+    steps as one replay against eager steps, and one 324x243 view."""
+    from intrinsicnerf_tpu_torch.data.samplers import RayBatch
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise, render_rays_chunked
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+    from intrinsicnerf_tpu_torch.train.step import create_train_state, make_train_step
+    from intrinsicnerf_tpu_torch.train.trainer import render_views
+
+    cfg, bundle = sd["cfg"], sd["bundle"]
+    pools = bundle.pools
+    c = bundle.num_valid_classes
+    mcfg = dataclasses.replace(cfg.mlp, num_semantic_classes=c)
+    rcfg, tcfg, chunk = cfg.render, cfg.train, cfg.chunk
+    h, w = bundle.h, bundle.w
+    state = create_train_state(mcfg, tcfg, device=dev, generator=torch.Generator().manual_seed(30))
+    step_fn = make_train_step(mcfg, rcfg, tcfg, h, w)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    table = one_class_table(np, dev, 32, n_classes=c)
+    w_c = 0.1
+    for _ in range(WARM_STEPS):
+        step_fn(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in state.model_fine.parameters()]
+    zero_launches()
+    step_ms, host_ms, reports = [], [], []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        reports.append(step_fn(state, pools, table, w_c, gen))
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = run_launches()[0]
+    bad = [(i, k) for i, r in enumerate(reports) for k, v in r._asdict().items()
+           if not math.isfinite(float(v))]
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(state.model_fine.parameters(), before))
+    named = {}
+    wall_ms, busy_ms, by_name = profile_window(
+        lambda: step_fn(state, pools, table, w_c, gen), torch, counts=named)
+    found = {k: sum(v for name, v in named.items() if k in name) for k in REPLAY_KERNELS}
+    want_named = {k: 2 * v for k, v in REPLAY_KERNELS.items()}
+    k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
+    k2 = sum(v for k, v in by_name.items() if any(s in k for s in bwd_passes.PASSES.values()))
+    median = float(np.median(step_ms))
+    n_rays = 2 * tcfg.n_rays
+    points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)
+    model = state.model_fine
+    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    bwd_macs = sum(bwd_passes.backward_macs(model).values())
+    bound_ms = 1e3 * 2.0 * (macs + bwd_macs) * points / PEAK_BF16_FLOPS
+    say("scannet_step", rays=n_rays, points_each_way=points, classes=c,
+        launches=json.dumps(launches), want=2 * TIMED_STEPS,
+        kernels_by_name=json.dumps(found), want_by_name=json.dumps(want_named),
+        median_ms_per_step=f"{median:.3f}", steps_ms=json.dumps([round(x, 3) for x in step_ms]),
+        median_host_enqueue_ms=f"{float(np.median(host_ms)):.3f}",
+        rays_per_s=f"{n_rays * 1e3 / median:.0f}", bound_ms_per_step=f"{bound_ms:.3f}",
+        macs_per_point=json.dumps({"fwd": macs, "bwd": bwd_macs}),
+        profiled_busy_ms=f"{busy_ms:.3f}", profiled_wall_ms=f"{wall_ms:.3f}",
+        kernel1_ms=f"{k1:.3f}", kernel2_ms=f"{k2:.3f}",
+        last=json.dumps({k: float(f"{float(v):.5g}") for k, v in reports[-1]._asdict().items()}),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if (launches != {k: 2 * TIMED_STEPS for k in launches} or bad or found != want_named
+            or moved != len(before)):
+        raise AssertionError(f"the ScanNet step: launches {launches}, by name {found}, "
+                             f"not finite {bad[:5]}, {moved} of {len(before)} moved")
+
+    # one step on a 64-pair slice: the card against the plain versions on the host
+    from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs
+
+    big = sample_ray_pairs(gen.manual_seed(33), pools.rays, pools.rgb, h, w, tcfg.n_rays,
+                           depth_pool=pools.depth, sem_pool=pools.semantic,
+                           mask_ids=pools.mask_ids)
+    idx = torch.cat([torch.arange(SLICE_PAIRS), tcfg.n_rays + torch.arange(SLICE_PAIRS)]).to(dev)
+    sl = RayBatch(rays=big.rays[idx], rgb=big.rgb[idx], depth=big.depth[idx],
+                  semantic=big.semantic[idx], sem_flag=big.sem_flag, image_idx=big.image_idx)
+    draws = draw_train_noise(2 * SLICE_PAIRS, rcfg, gen.manual_seed(34), dev)
+    step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
+                 phase="scannet_step_vs_plain")
+
+    # kernels 1 and 2 at the step's calls: this C, then NYU-40 and NYU-13
+    kernels = {cc: semantic_kernel_checks(torch, np, cc, big.rays, rcfg, card, 35 + cc)
+               for cc in (c, *NYU_WIDTHS)}
+
+    # K steps per call: eager against one CUDA graph replay
+    graph = graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card,
+                        phase="scannet_graph")
+
+    # one 324x243 test view (two full chunks and a short one)
+    mc, mf = state.model_coarse, state.model_fine
+    rays = bundle.rays_test[:1]
+    n_view = rays.shape[1]
+
+    def view():
+        return next(render_views(mc, mf, mcfg, rcfg, rays, h, w, chunk, device=dev))
+
+    view()
+    for mdl in (mc, mf):
+        mdl.load_state_dict(mdl.state_dict())
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = view()
+    torch.cuda.synchronize()
+    times = [1e3 * (time.perf_counter() - t0)]
+    view_launches = run_launches()[0]
+    chunks = math.ceil(n_view / chunk)
+    for _ in range(4):
+        t0 = time.perf_counter()
+        view()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    view_ms = float(np.median(times))
+    view_points = n_view * (2 * rcfg.n_coarse + rcfg.n_importance)
+    view_bound = 1e3 * 2.0 * macs * view_points / PEAK_BF16_FLOPS
+    idx = torch.randperm(n_view, generator=torch.Generator().manual_seed(36))[:SUBSET]
+    with torch.no_grad():
+        ref = render_rays_chunked(copy.deepcopy(mc).to("cpu"), copy.deepcopy(mf).to("cpu"), mcfg,
+                                  rays[0, idx.to(dev)].cpu(), rcfg, SUBSET).fine
+    flat = idx.numpy()
+    got = {"rgb": out["rgb"].reshape(-1, 3)[flat], "depth": out["depth"].reshape(-1)[flat],
+           "albedo": out["albedo"].reshape(-1, 3)[flat]}
+    errs = {k: float(np.mean(np.abs(v - getattr(ref, k).numpy()))
+                     / max(np.abs(getattr(ref, k).numpy()).max(), 1.0)) for k, v in got.items()}
+    shapes_ok = all(out[k].shape[:2] == (h, w) and np.isfinite(out[k]).all()
+                    for k in ("rgb", "depth", "albedo", "sem_label"))
+    say("scannet_view", view=f"{h}x{w}", rays=n_view, chunk=chunk, chunks=chunks,
+        launches=json.dumps(view_launches), ms_per_view=json.dumps([round(x, 2) for x in times]),
+        median_ms_per_view=f"{view_ms:.2f}", rays_per_s=f"{n_view / view_ms * 1e3:.0f}",
+        bound_ms_per_view=f"{view_bound:.2f}", vs_plain_mean_rel_err=json.dumps(errs),
+        tol=VIEW_TOL, card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if (view_launches != {"fwd": 2 * chunks, "bwd": 0, "image": 2} or not shapes_ok
+            or not all(e <= VIEW_TOL for e in errs.values())):
+        raise AssertionError(f"the ScanNet view: launches {view_launches}, maps ok {shapes_ok}, "
+                             f"against the plain version {errs}")
+    del state, step_fn, table
+    torch.cuda.empty_cache()
+    return {"launches": launches, "median_ms": median, "bound_ms": bound_ms,
+            "host_ms": float(np.median(host_ms)), "kernels": kernels, "graph": graph,
+            "view": {"median_ms": view_ms, "bound_ms": view_bound,
+                     "launches": view_launches["fwd"]}, "c": c}
+
+
+def resume_state(trainer):
+    """What a resumed trainer must restore exactly: the step, the
+    parameters, Adam's state, the palette, the anneal and the generator."""
+    st = trainer.state
+    return {"step": trainer.global_step,
+            "params": [p.detach().cpu() for m in (st.model_coarse, st.model_fine)
+                       for p in m.parameters()],
+            "adam": copy.deepcopy(st.optimizer.state_dict()["state"]),
+            "table": [t.cpu() for t in trainer.table[:4]], "anneal": [trainer.w_c, trainer.b_f],
+            "generator": trainer.generator.get_state()}
+
+
+def resume_check(torch, ref, work, cli_module, cli_args, n_iters, k, graphed):
+    """A second process of the CLI module at ``cli_args`` resumes, must
+    restore ``ref`` (``resume_state``) exactly and trains to ``n_iters``,
+    as replays of ``k`` steps when ``graphed``.  Returns its JSON line
+    and its seconds."""
+    ref_path = os.path.join(work, "state_at_fit_end.pt")
+    torch.save(ref, ref_path)
+    t0 = time.perf_counter()
+    out = run_port(["-c", _RESUME_RUNNER, cli_module, json.dumps(cli_args), ref_path,
+                    str(n_iters)])
+    resume = json.loads(out.strip().splitlines()[-1])
+    if not (all(resume["exact"].values()) and resume["global_step"] == n_iters
+            and resume["replays"] == ((n_iters - ref["step"]) // k if graphed else 0)
+            and math.isfinite(resume["last_total"])):
+        raise AssertionError(f"the resume of {cli_module} failed: {resume}")
+    return resume, time.perf_counter() - t0
+
+
+def scannet_fit_phase(torch, np, dev, card, sd):
+    """``scannet_fit``: the scene CLI's trainer (``train_scene.build_trainer``)
+    on the scan at steps_per_call SCANNET_K: an evaluation at 0, then
+    SCANNET_STEPS steps (log every 50, rebuild and checkpoint every 200,
+    an evaluation at 400); launches exact, the loss down, the cluster
+    term off until the first rebuild, the PSNR up, mIoU and the depth
+    metrics; then a second process resumes exactly and trains SCANNET_MORE
+    more steps."""
+    from intrinsicnerf_tpu_torch import train_scene
+
+    work = sd["work"]
+    cfg_path = scene_yaml(sd["cfg_path"], os.path.join(work, "scannet_fit.yaml"), {
+        "experiment.save_dir": os.path.join(work, "fit"), "train.steps_per_call": SCANNET_K})
+    cli_args = ["--config_file", cfg_path, "--device", dev.type]
+    calls = []
+
+    def hook(done, t_start, t_enqueued, did_work):
+        torch.cuda.synchronize()
+        calls.append((done, 1e3 * (t_enqueued - t_start), 1e3 * (time.perf_counter() - t_start),
+                      did_work, dict(trainer.last_rebuild)))
+
+    zero_launches()
+    t0 = time.perf_counter()
+    cfg, bundle, trainer = train_scene.build_trainer(train_scene.parse_args(cli_args))
+    trainer.step_hook = hook
+    with trainer:
+        trainer.maybe_resume()
+        m0 = trainer.evaluate(0)
+        trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eager, captured, total, replays = run_launches(trainer)
+    save_dir = cfg.experiment.save_dir
+    sc = read_scalars(os.path.join(save_dir, "tfb_logs", "scalars.csv"))
+    img = sc["Train/Loss/img_fine"]
+    log_steps = sorted(img)
+    term = {s: sc["Train/w_c_eff"][s] * sc["Train/Loss/reflect_cluster"][s] for s in log_steps}
+    rebuild = SCANNET_CADENCE["step_vis_train"]
+    m_end = {k[5:]: v[SCANNET_STEPS] for k, v in sc.items()
+             if k.startswith("Test/") and SCANNET_STEPS in v}
+    n_test, n_train = bundle.rays_test.shape[0], bundle.rays_vis.shape[0]
+    chunks = math.ceil(bundle.h_scaled * bundle.w_scaled / cfg.chunk)
+    views = 2 * n_test + n_train * (SCANNET_STEPS // rebuild)  # two evals, the rebuilds
+    probes = len(log_steps) if trainer.logger.writer is not None else 0
+    eager_steps = SCANNET_STEPS - replays * SCANNET_K + (1 if replays else 0)
+    want = {"fwd": 2 * eager_steps + 2 * chunks * views + 2 * probes, "bwd": 2 * eager_steps}
+    plain = [x for x in calls if not x[3]]
+    median_ms = float(np.median([x[2] for x in plain])) / SCANNET_K
+    rebuilds = [x[4] for x in calls if x[0] % rebuild == 0]
+    say("scannet_fit", steps=SCANNET_STEPS, steps_per_call=SCANNET_K, seconds=f"{fit_s:.1f}",
+        launches=json.dumps(eager), want=json.dumps(want), captured=json.dumps(captured),
+        replays=replays, launches_with_replays=json.dumps(total),
+        img_fine=json.dumps({s: round(img[s], 5) for s in log_steps}),
+        cluster_term=json.dumps({s: round(term[s], 7) for s in log_steps}),
+        eval_0=json.dumps({k: round(v, 4) for k, v in m0.items()}),
+        eval_end=json.dumps({k: round(v, 4) for k, v in m_end.items()}),
+        rebuild_views=json.dumps([r.get("views") for r in rebuilds]))
+    say("scannet_fit_time", median_ms_per_plain_step=f"{median_ms:.3f}",
+        median_host_enqueue_ms_per_step=(
+            f"{float(np.median([x[1] for x in plain])) / SCANNET_K:.3f}"),
+        plain_calls=len(plain), steps_per_s=f"{1e3 / median_ms:.2f}",
+        rebuilds=json.dumps([{k: (round(v, 3) if isinstance(v, float) else v)
+                              for k, v in r.items()} for r in rebuilds]),
+        work_calls_ms=json.dumps({x[0]: round(x[2], 1) for x in calls if x[3]}),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    before = [s for s in log_steps if s <= rebuild]
+    after = [s for s in log_steps if s > rebuild]
+    finite = all(math.isfinite(m[k]) for m in (m0, m_end) for k in ("psnr", "miou", "total_acc"))
+    graphed = dev.type == "cuda"  # on the host a block of steps is a loop
+    ok = (eager["fwd"] == want["fwd"] and eager["bwd"] == want["bwd"]
+          and captured == {k: (2 * SCANNET_K if graphed else 0) for k in captured}
+          and replays == (SCANNET_STEPS // SCANNET_K if graphed else 0)
+          and np.mean([img[s] for s in log_steps[-2:]]) < np.mean([img[s] for s in log_steps[:2]])
+          and all(term[s] == 0.0 for s in before) and all(term[s] > 0.0 for s in after)
+          and len(rebuilds) == SCANNET_STEPS // rebuild and finite
+          and m_end["psnr"] > m0["psnr"])
+    if not ok:
+        raise AssertionError("the ScanNet run failed a check (see the scannet_fit line)")
+    ref = resume_state(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    resume, resume_s = resume_check(torch, ref, work, "intrinsicnerf_tpu_torch.train_scene",
+                                    cli_args, SCANNET_STEPS + SCANNET_MORE, SCANNET_K, graphed)
+    say("scannet_resume", seconds=f"{resume_s:.1f}",
+        **{k: json.dumps(v) for k, v in resume.items()})
+    return {"cfg_path": cfg_path, "launches": total, "eager": eager, "replays": replays,
+            "median_ms": median_ms, "m0": m0, "m_end": m_end, "fit_s": fit_s}
+
+
+def scene_all_images_phase(torch, np, dev, card, room_dir):
+    """``scene_all_images``: the Replica config with ``render.no_batching:
+    false`` on the scene phases' room: GRAPH_K eager steps twice from one
+    snapshot and as one replay (``graph_phase``); one batch's pairs drawn
+    from several images, each neighbour from its pixel's image (the same
+    camera centre); then ALL_IMAGES_STEPS steps of the CLI, over which the
+    loss falls."""
+    from intrinsicnerf_tpu_torch import train_scene
+    from intrinsicnerf_tpu_torch.train.step import create_train_state, make_train_step
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_all_images")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    cfg_path = scene_yaml(CONFIG, os.path.join(work, "all_images.yaml"), {
+        "experiment.dataset_dir": room_dir, "experiment.save_dir": os.path.join(work, "run"),
+        "render.no_batching": False, "train.N_iters": ALL_IMAGES_STEPS,
+        "train.steps_per_call": SCANNET_K, "logging.step_log_tfb": CLI_LOG,
+        "logging.step_log_print": CLI_LOG, "logging.step_save_ckpt": 10 ** 9,
+        "logging.step_vis_train": 10 ** 9, "logging.step_val": 10 ** 9})
+    split = ["--total_frames", str(SCENE_FRAMES), "--split_step", str(SCENE_SPLIT)]
+    args = train_scene.parse_args(["--config_file", cfg_path, "--device", dev.type, *split])
+    from intrinsicnerf_tpu_torch.config import from_yaml
+
+    cfg = from_yaml(cfg_path)
+    bundle = train_scene.prepare_bundle(cfg, train_scene.build_dataset(cfg, args), dev)
+    mcfg = dataclasses.replace(cfg.mlp, num_semantic_classes=bundle.num_valid_classes)
+    sample_fn = train_scene.all_images_sample_fn(cfg, bundle)
+    state = create_train_state(mcfg, cfg.train, device=dev,
+                               generator=torch.Generator().manual_seed(40))
+    step_fn = make_train_step(mcfg, cfg.render, cfg.train, bundle.h, bundle.w,
+                              sample_fn=sample_fn)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    table = one_class_table(np, dev, 42, n_classes=bundle.num_valid_classes)
+    step_fn(state, bundle.pools, table, 0.1, gen)  # Adam's state made
+    graph = graph_phase(torch, np, step_fn, state, bundle.pools, table, 0.1, gen, card,
+                        phase="all_images_graph")
+    n = cfg.train.n_rays
+    batch = sample_fn(gen.manual_seed(43), bundle.pools, state.step_t)
+    origins = batch.rays[:, 0:3]
+    n_images = len(torch.unique(origins[:n], dim=0))
+    pairs_same_image = torch.equal(origins[:n], origins[n:])
+    del state, step_fn, table
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    _, _, trainer = train_scene.build_trainer(args)
+    with trainer:
+        trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eager, captured, total, replays = run_launches(trainer)
+    sc = read_scalars(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv"))
+    img = sc["Train/Loss/img_fine"]
+    log_steps = sorted(img)
+    say("scene_all_images", images_in_a_batch=n_images, train_views=bundle.pools.rgb.shape[0],
+        neighbours_share_their_image=pairs_same_image, graph_bitwise=graph["eager_bitwise"],
+        cli_steps=ALL_IMAGES_STEPS, seconds=f"{fit_s:.1f}", launches=json.dumps(eager),
+        replays=replays, launches_with_replays=json.dumps(total),
+        img_fine=json.dumps({s: round(img[s], 5) for s in log_steps}))
+    graphed = dev.type == "cuda"  # a capture warms up with one eager step
+    loss_fell = np.mean([img[s] for s in log_steps[-2:]]) < np.mean([img[s] for s in log_steps[:2]])
+    if not (n_images > 1 and pairs_same_image and loss_fell
+            and total["bwd"] == 2 * ALL_IMAGES_STEPS + (2 if graphed else 0)
+            and replays == (ALL_IMAGES_STEPS // SCANNET_K if graphed else 0)):
+        raise AssertionError(f"the all-images run: {n_images} images a batch, pairs in one image "
+                             f"{pairs_same_image}, launches {total}, losses {img}")
+    return {"launches": total, "graph": graph, "images_in_a_batch": n_images}
+
+
+def replica_nyu_phase(torch, np, dev, card, room_dir):
+    """``replica_nyu``: the scene phases' room in the Replica-NYU layout
+    (``write_replica_nyu_from_replica``: NYU-13 ground truth, "CNN" labels
+    with 10% of the pixels flipped), NYU_STEPS steps of the CLI on the CNN
+    labels (``nyu_mode: nyu13``), then an evaluation against the ground
+    truth; the written label images carry the NYU-13 palette."""
+    import shutil
+
+    from intrinsicnerf_tpu_torch import train_scene
+    from intrinsicnerf_tpu_torch.tools.synthetic_replica import write_replica_nyu_from_replica
+    from intrinsicnerf_tpu_torch.utils.image import imread, nyu13_colour_code
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_replica_nyu")
+    shutil.rmtree(work, ignore_errors=True)
+    nyu_dir = os.path.join(work, "data")
+    write_replica_nyu_from_replica(room_dir, nyu_dir)
+    cfg_path = scene_yaml(CONFIG, os.path.join(work, "replica_nyu.yaml"), {
+        "experiment.dataset_type": "replica_nyu_cnn", "experiment.nyu_mode": "nyu13",
+        "experiment.dataset_dir": nyu_dir, "experiment.save_dir": os.path.join(work, "run"),
+        "train.N_iters": NYU_STEPS, "train.steps_per_call": SCANNET_K,
+        "logging.step_log_tfb": CLI_LOG, "logging.step_log_print": CLI_LOG,
+        "logging.step_save_ckpt": 10 ** 9, "logging.step_vis_train": 10 ** 9,
+        "logging.step_val": NYU_STEPS})
+    zero_launches()
+    t0 = time.perf_counter()
+    cfg, bundle, trainer = train_scene.build_trainer(train_scene.parse_args(
+        ["--config_file", cfg_path, "--device", dev.type, "--total_frames", str(SCENE_FRAMES),
+         "--split_step", str(SCENE_SPLIT)]))
+    with trainer:
+        trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    eager, captured, total, replays = run_launches(trainer)
+    sc = read_scalars(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv"))
+    m_end = {k[5:]: round(v[NYU_STEPS], 4) for k, v in sc.items()
+             if k.startswith("Test/") and NYU_STEPS in v}
+    palette = {tuple(c) for c in (np.asarray(nyu13_colour_code) * 255).astype(np.uint8)}
+    test_dir = os.path.join(cfg.experiment.save_dir, "test_render", f"step_{NYU_STEPS:06d}")
+    colours = set()
+    for i in range(bundle.rays_test.shape[0]):
+        vis = imread(os.path.join(test_dir, f"vis_label_{i:03d}.png"))
+        colours |= {tuple(c) for c in np.unique(vis.reshape(-1, 3), axis=0)}
+    say("replica_nyu", steps=NYU_STEPS, seconds=f"{fit_s:.1f}", classes=bundle.num_valid_classes,
+        names=json.dumps(bundle.class_names), launches=json.dumps(eager), replays=replays,
+        launches_with_replays=json.dumps(total), eval_vs_gt=json.dumps(m_end),
+        label_colours=len(colours), colours_in_nyu13_palette=colours <= palette)
+    if not (colours and colours <= palette and bundle.class_names[0] == "void"
+            and len(bundle.class_names) == 14
+            and total["bwd"] == 2 * NYU_STEPS + (2 if dev.type == "cuda" else 0)
+            and all(math.isfinite(m_end[k]) for k in ("psnr", "miou", "total_acc"))):
+        raise AssertionError(f"the Replica-NYU run: colours {sorted(colours - palette)[:5]} off "
+                             f"the palette, launches {total}, eval {m_end}")
+    return {"launches": total, "eval": m_end}
+
+
+def degradations_phase(torch, np, dev, card, room_dir):
+    """``degradations``: each of the five label-degradation flags through
+    the scene CLI's trainer for DEGRADE_STEPS steps on the scene phases'
+    room; its pools on the card hold the degraded labels (pixels changed
+    or voided against the clean labels, frames without supervision)."""
+    import shutil
+
+    from intrinsicnerf_tpu_torch import train_scene
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_degradations")
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["--device", dev.type, "--total_frames", str(SCENE_FRAMES), "--split_step",
+            str(SCENE_SPLIT)]
+    clean = None
+    out = {}
+    for name, flags in DEGRADATIONS.items():
+        cfg_path = scene_yaml(CONFIG, os.path.join(work, f"{name}.yaml"), {
+            "experiment.dataset_dir": room_dir, "experiment.save_dir": os.path.join(work, name),
+            "train.N_iters": DEGRADE_STEPS, "logging.step_log_tfb": DEGRADE_STEPS,
+            "logging.step_log_print": DEGRADE_STEPS, "logging.step_save_ckpt": 10 ** 9,
+            "logging.step_vis_train": 10 ** 9, "logging.step_val": 10 ** 9})
+        args = train_scene.parse_args(["--config_file", cfg_path, *base, *flags])
+        if clean is None:
+            from intrinsicnerf_tpu_torch.config import from_yaml
+
+            plain_args = train_scene.parse_args(["--config_file", cfg_path, *base])
+            data = train_scene.build_dataset(from_yaml(cfg_path), plain_args)
+            clean = torch.from_numpy(data.train_samples["semantic_remap"].reshape(
+                len(data.train_ids), -1)).to(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        cfg, bundle, trainer = train_scene.build_trainer(args)
+        labels, mask_ids = bundle.pools.semantic, bundle.pools.mask_ids
+        counts = {"changed": int((labels != clean).sum()),
+                  "voided": int(((labels == 0) & (clean != 0)).sum()),
+                  "unsupervised_frames": int((mask_ids == 0).sum()), "pixels": labels.numel()}
+        with trainer:
+            trainer.fit(progress=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        eager = run_launches()[0]
+        sc = read_scalars(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv"))
+        last = {k[11:]: round(v[DEGRADE_STEPS], 5) for k, v in sc.items()
+                if k.startswith("Train/Loss/") and DEGRADE_STEPS in v}
+        say("degradations", flag=name, args=json.dumps(flags), seconds=f"{secs:.1f}",
+            counts=json.dumps(counts), launches=json.dumps(eager), last=json.dumps(last))
+        degraded = (counts["unsupervised_frames"] > 0 if name == "sparse_views"
+                    else counts["changed"] > 0)
+        if name == "label_propagation":
+            degraded = counts["voided"] > 0
+        if not (degraded and eager["bwd"] == 2 * DEGRADE_STEPS and last
+                and all(math.isfinite(v) for v in last.values())):
+            raise AssertionError(f"--{name}: labels {counts}, launches {eager}, losses {last}")
+        out[name] = {"counts": counts, "launches": eager}
+        del trainer, bundle
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- objects
@@ -1083,15 +1771,19 @@ def object_mlp_config(cfg):
     return dataclasses.replace(cfg.mlp, num_semantic_classes=0, enable_semantic=False)
 
 
-def one_class_table(np, dev, seed):
-    """A seeded one-class palette (an object's table), 2,048 anchors."""
+def one_class_table(np, dev, seed, n_classes=1):
+    """A seeded palette of ``n_classes`` classes (an object's table: one),
+    8 centres and 2,048 anchors per class."""
     from intrinsicnerf_tpu_torch.cluster.assign import map_drgb, table_from_numpy
 
     rng = np.random.default_rng(seed)
-    centers = rng.uniform(0.05, 1.0, size=(8, 3)).astype(np.float32)
-    links = rng.integers(0, 8, size=2048)
-    anchors = map_drgb(centers[links]) + rng.normal(size=(2048, 3)).astype(np.float32) * 0.02
-    return table_from_numpy([(anchors, links, centers)], 2048, device=dev)
+    per_class = []
+    for _ in range(n_classes):
+        centers = rng.uniform(0.05, 1.0, size=(8, 3)).astype(np.float32)
+        links = rng.integers(0, 8, size=2048)
+        anchors = map_drgb(centers[links]) + rng.normal(size=(2048, 3)).astype(np.float32) * 0.02
+        per_class.append((anchors, links, centers))
+    return table_from_numpy(per_class, 2048, device=dev)
 
 
 def object_kernel_checks(torch, np, model, mcfg, rays, rcfg, card):
@@ -1420,13 +2112,14 @@ def object_view_phase(torch, np, dev, card, od, st):
             "kernel1_share": k1 / busy_ms, "busy_share": busy_ms / wall_ms}
 
 
-# the second process of object_fit: the CLI's trainer at the same config,
-# resumed, held to the state the first process left, then trained on
+# the second process of object_fit and scannet_fit: the CLI's trainer (of
+# the CLI module named) at the same arguments, resumed, held to the state
+# the first process left, then trained on
 _RESUME_RUNNER = """
-import json, sys, torch
-from intrinsicnerf_tpu_torch.train_object import build_trainer, parse_args
-cfg_path, ref_path, n_iters, device = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
-_, _, trainer = build_trainer(parse_args(["--config", cfg_path, "--device", device]))
+import importlib, json, sys, torch
+cli = importlib.import_module(sys.argv[1])
+cli_args, ref_path, n_iters = json.loads(sys.argv[2]), sys.argv[3], int(sys.argv[4])
+_, _, trainer = cli.build_trainer(cli.parse_args(cli_args))
 ref = torch.load(ref_path, weights_only=False)
 def same(a, b):
     if torch.is_tensor(a):
@@ -1559,27 +2252,13 @@ def object_fit_phase(torch, np, dev, card, od):
         raise AssertionError("the object run failed a check (see the object_fit line)")
 
     # ---- a second process resumes exactly and trains on ----
-    st = trainer.state
-    ref = {"step": OBJ_STEPS,
-           "params": [p.detach().cpu() for m in (st.model_coarse, st.model_fine)
-                      for p in m.parameters()],
-           "adam": copy.deepcopy(st.optimizer.state_dict()["state"]),
-           "table": [t.cpu() for t in trainer.table[:4]], "anneal": [trainer.w_c, trainer.b_f],
-           "generator": trainer.generator.get_state()}
-    ref_path = os.path.join(work, "state_at_fit_end.pt")
-    torch.save(ref, ref_path)
-    del trainer, st
+    ref = resume_state(trainer)
+    del trainer
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = run_port(["-c", _RESUME_RUNNER, od["cfg_path"], ref_path, str(OBJ_STEPS + OBJ_MORE),
-                    dev.type])
-    resume = json.loads(out.strip().splitlines()[-1])
-    resume_s = time.perf_counter() - t0
+    resume, resume_s = resume_check(
+        torch, ref, work, "intrinsicnerf_tpu_torch.train_object",
+        ["--config", od["cfg_path"], "--device", dev.type], OBJ_STEPS + OBJ_MORE, OBJ_K, graphed)
     say("object_resume", seconds=f"{resume_s:.1f}", **{k: json.dumps(v) for k, v in resume.items()})
-    if not (all(resume["exact"].values()) and resume["global_step"] == OBJ_STEPS + OBJ_MORE
-            and resume["replays"] == (OBJ_MORE // OBJ_K if dev.type == "cuda" else 0)
-            and math.isfinite(resume["last_total"])):
-        raise AssertionError(f"the object resume failed: {resume}")
 
     # ---- --render_only --render_test in a third ----
     t0 = time.perf_counter()
@@ -1668,25 +2347,139 @@ def object_llff_phase(torch, np, dev, card, od):
 
 def object_cube_phase(torch, np, dev, card):
     """``object_cube``: ``tools/validate_convergence.py`` at its defaults
-    (3,000 steps, 64x64, 60 views) through kernels 1 and 2; the held-out
-    PSNR must exceed 20."""
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    (3,000 steps, 64x64, 60 views, 10 steps per call: graph replays of
+    the same steps, at the device's pace) through kernels 1 and 2; the
+    held-out PSNR must exceed 20."""
     from intrinsicnerf_tpu_torch.tools import validate_convergence as vc
 
-    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
-                "image": fm.fwd_weight_image}
-    for c in counters.values():
-        c.launches = c.captured = 0
+    zero_launches()
     result = vc.run(device=dev, save_dir=os.path.join(ROOT, "logs", "chip_smoke_cube"))
-    launches = {k: c.launches for k, c in counters.items()}
+    eager, captured, _, _ = run_launches()
+    launches = {k: eager[k] + result["replays"] * captured[k] for k in eager}
     say("object_cube", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in result.items()}, launches=json.dumps(launches),
+        eager_launches=json.dumps(eager), captured=json.dumps(captured),
         floor=vc.PSNR_FLOOR, card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    graphed = dev.type == "cuda"  # a capture warms up with one eager step
     if not (result["psnr"] > vc.PSNR_FLOOR and result["fused"]
-            and launches["bwd"] == 2 * result["steps"]):
+            and result["replays"] == (result["steps"] // vc.STEPS_PER_CALL if graphed else 0)
+            and launches["bwd"] == 2 * result["steps"] + (2 if graphed else 0)):
         raise AssertionError(f"the cube check failed: {result}, launches {launches}")
     return {**result, "launches": launches}
 
+
+def ply_colours(np, path):
+    """The uchar vertex colours of a binary PLY written by ``write_ply``."""
+    raw = open(path, "rb").read()
+    end = raw.index(b"end_header\n") + len(b"end_header\n")
+    header = raw[:end].decode().splitlines()
+    props = [ln.split()[1:] for ln in header if ln.startswith("property") and "list" not in ln]
+    n_vert = int(next(ln.split()[-1] for ln in header if ln.startswith("element vertex")))
+    dtype = np.dtype([(name, "<f4" if t == "float" else "u1") for t, name in props])
+    rec = np.frombuffer(raw[end:end + dtype.itemsize * n_vert], dtype=dtype)
+    return np.stack([rec[c] for c in ("red", "green", "blue")], axis=1)
+
+
+def mesh_phase(torch, np, dev, card, fit_cfg_path, obj_cfg_path):
+    """``mesh``: the port's ``extract_mesh`` CLI on the ScanNet fit's
+    checkpoint at MESH_GRID^3: kernel 1 launched exactly once per 131,072
+    grid points and twice per 4,096-ray chunk of the vertex-colour render;
+    a 131,072-point slice of the grid's occupancy against the plain
+    version on the host; the PLY read back (vertex and face counts,
+    colours); the query's, the marching's and the render's times, the
+    query beside its bound.  Then an object mesh from the object fit's
+    checkpoint at OBJ_MESH_GRID^3.  A fit of a few hundred steps has a
+    soft density, so the level is half the largest occupancy of a
+    MESH_PROBE^3 probe of the same bounds, at most the CLI's 0.45."""
+    from intrinsicnerf_tpu_torch import extract_mesh
+    from intrinsicnerf_tpu_torch.geometry import mesh as gm
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    out = {}
+    for name, args, grid in (
+            ("scene", ["--config_file", fit_cfg_path], MESH_GRID),
+            ("object", ["--config", obj_cfg_path], OBJ_MESH_GRID)):
+        path = os.path.join(ROOT, "logs", f"chip_smoke_mesh_{name}.ply")
+        cli = [*args, "--grid_dim", str(grid), "--device", dev.type, "--out", path]
+
+        # before the counted run: the level from a coarse probe, and the
+        # grid's occupancy on a slice, the card against the plain version
+        cfg, trainer = extract_mesh.build_trainer(extract_mesh.parse_args(cli))
+        with trainer:
+            trainer.maybe_resume()
+            model, mcfg = trainer.state.model_fine, trainer.mcfg
+            origins = trainer.bundle.rays_test[:, 0, 0:3].cpu().numpy()
+        span = max(np.ptp(origins, axis=0).max(), 1.0) * 2.5
+        corners = origins.mean(0) + span / 2 * np.array(
+            [[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)])
+        transform, extents = gm.oriented_bounds(corners)
+        voxel = (cfg.depth_range[1] - cfg.depth_range[0]) / cfg.render.n_importance
+        probe, _ = gm.query_density_grid(
+            model, mcfg, gm.grid_within_bound([-1.0, 1.0], extents, transform, MESH_PROBE)[0],
+            voxel)
+        level = min(0.45, 0.5 * float(probe.max()))
+        pts, _ = gm.grid_within_bound([-1.0, 1.0], extents, transform, grid)
+        mid = (len(pts) // 2) // gm.QUERY_CHUNK * gm.QUERY_CHUNK
+        sl = pts[mid:mid + gm.QUERY_CHUNK]
+        occ_k, _ = gm.query_density_grid(model, mcfg, sl, voxel)
+        occ_p, _ = gm.query_density_grid(copy.deepcopy(model).to("cpu"), mcfg, sl, voxel)
+        err = float(np.abs(occ_k - occ_p).max())
+        macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+        ops = model.fused_operands(mcfg)
+        pts_dev = torch.as_tensor(pts[:gm.QUERY_CHUNK], device=dev)
+        in8 = fm.build_in8(pts_dev[:, None], torch.zeros_like(pts_dev))
+
+        def query_kernels():  # the grid's kernel-1 calls alone
+            for s in range(0, len(pts), gm.QUERY_CHUNK):
+                fm.fused_mlp_forward(ops, in8[:min(gm.QUERY_CHUNK, len(pts) - s)])
+
+        kernel_ms = cuda_ms(query_kernels, 2, torch)
+        flops, nbytes = fused_work(len(pts), macs, ops.wbuf.numel(), ops.bbuf.numel())
+        bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+        del trainer, model, ops, pts_dev, in8
+        torch.cuda.empty_cache()
+
+        # the CLI, its launches counted
+        times = {}
+        zero_launches()
+        t0 = time.perf_counter()
+        extract_mesh.main([*cli, "--level", f"{level:.6g}"], timings=times)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        eager = run_launches()[0]
+        verts, faces = gm.read_ply(path)
+        colours = ply_colours(np, path)
+        grid_calls = math.ceil(grid ** 3 / gm.QUERY_CHUNK)
+        render_calls = 2 * math.ceil(times["render_rays"] / gm.RENDER_CHUNK)
+        want = grid_calls + render_calls
+        row = {"grid": grid, "points": len(pts), "level": level, "launches": eager,
+               "want": want, "vertices": len(verts), "faces": len(faces),
+               "query_ms": 1e3 * times["query_s"], "query_kernel_ms": kernel_ms,
+               "bound_ms": bound_ms, "march_ms": 1e3 * times["march_s"],
+               "render_ms": 1e3 * times["render_s"], "render_rays": times["render_rays"],
+               "occupancy_max_abs_err": err, "macs": macs}
+        say("mesh", model=name, grid=f"{grid}^3", points=len(pts), seconds=f"{total_s:.1f}",
+            level=f"{level:.6g}", probe_max_occupancy=f"{float(probe.max()):.4g}",
+            launches=json.dumps(eager), want_fwd=want,
+            calls=json.dumps({"grid": grid_calls, "render": render_calls}),
+            vertices=len(verts), faces=len(faces),
+            colours=json.dumps([int(colours.min()), int(colours.max()),
+                                round(float(colours.mean()), 2)]),
+            query_ms=f"{row['query_ms']:.1f}", query_kernel_ms=f"{kernel_ms:.2f}",
+            query_bound_ms=f"{bound_ms:.2f}", march_ms=f"{row['march_ms']:.1f}",
+            marching=times["mesh_backend"], render_ms=f"{row['render_ms']:.1f}",
+            write_ms=f"{1e3 * times['write_s']:.1f}",
+            occupancy_slice_max_abs_err=f"{err:.3g}", tol=KERNEL_TOL,
+            ply=os.path.relpath(path, ROOT), card=json.dumps(card),
+            clocks=json.dumps(smi(CLOCKS)))
+        if not (eager["fwd"] == want and len(verts) == times["render_rays"] and len(faces) > 0
+                and faces.max() < len(verts) and np.isfinite(verts).all()
+                and len(colours) == len(verts) and colours.max() > 0 and err < KERNEL_TOL):
+            raise AssertionError(f"the {name} mesh: launches {eager} (want {want}), "
+                                 f"{len(verts)} vertices, {len(faces)} faces, occupancy {err}")
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
 
 def bench_phase(torch, card):
     """``tools/bench.py`` at one step per call and at GRAPH_K, in this
@@ -1962,6 +2755,15 @@ def main() -> int:
     scene = scene_phases(torch, np, dev, card)
     scene_k = scene_phases(torch, np, dev, card, SCENE_K, train["graph"]["eager_bitwise"], scene)
     bench_phase(torch, card)
+    room = scene_k["data_dir"]
+    sd = scannet_data_phase(torch, np, dev, card, room)
+    sst = scannet_step_phase(torch, np, dev, card, sd)
+    del sd["bundle"]
+    torch.cuda.empty_cache()
+    sfit = scannet_fit_phase(torch, np, dev, card, sd)
+    allim = scene_all_images_phase(torch, np, dev, card, room)
+    nyu = replica_nyu_phase(torch, np, dev, card, room)
+    degr = degradations_phase(torch, np, dev, card, room)
     od = object_data_phase(torch, np, dev, card)
     ost = object_step_phase(torch, np, dev, card, od)
     ograph = object_graph_phase(torch, np, dev, card, od, ost)
@@ -1971,9 +2773,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     ofit = object_fit_phase(torch, np, dev, card, od)
     object_llff_phase(torch, np, dev, card, od)
+    obj_cfg_path = od["cfg_path"]
     del od
     torch.cuda.empty_cache()
     ocube = object_cube_phase(torch, np, dev, card)
+    mesh = mesh_phase(torch, np, dev, card, sfit["cfg_path"], obj_cfg_path)
+
+    # the other scene data's paths: launches per run, and kernels 1 and 2 at
+    # each semantic width beside their bounds at the network's own work
+    def widths(part):
+        return {c: {call: sst["kernels"][c][call][part] for call in ("coarse", "fine")}
+                for c in sst["kernels"]}
+
+    def scene_data(part):
+        return {"launches_scannet_step_phase": sst["launches"][part],
+                "launches_scannet_fit": sfit["launches"][part],
+                "launches_all_images_cli": allim["launches"][part],
+                "launches_replica_nyu_cli": nyu["launches"][part],
+                "launches_degradations": {k: v["launches"][part] for k, v in degr.items()},
+                "launches_mesh": {k: v["launches"][part] for k, v in mesh.items()}}
 
     t = timing["coarse_chunk"]
     b = train["bwd_timing"]["fine_step"]
@@ -2013,6 +2831,15 @@ def main() -> int:
         "launches_object_cube": ocube["launches"]["fwd"],
         "object_step": {k: okern[k]["fwd"] for k in ("coarse", "fine")},
         "object_view": {"median_ms": oview["median_ms"], "bound_ms": oview["bound_ms"]},
+        # the other scene data (ScanNet C = the scan's, NYU-40, NYU-13) and the mesh grid
+        "semantic_widths": widths("fwd"),
+        "max_abs_err_semantic_widths": max(v["max_fwd_err"] for v in sst["kernels"].values()),
+        "mesh_grid": {k: {f: v[f] for f in ("points", "query_kernel_ms", "query_ms",
+                                             "bound_ms", "occupancy_max_abs_err")}
+                      for k, v in mesh.items()},
+        "scannet_view": sst["view"],
+        "launches_scannet_view": sst["view"]["launches"],
+        **scene_data("fwd"),
     }, {
         "name": "fused_mlp_fwd_image",
         "route": "cuda",
@@ -2028,6 +2855,7 @@ def main() -> int:
         "bound_by": image["bound_by"],
         "library_ms": None,  # no single PyTorch call lays out the slabs
         "launches_object_fit": ofit["launches"]["image"],
+        **scene_data("image"),
     }, {
         "name": "fused_mlp_bwd",
         "route": "cuda",
@@ -2051,6 +2879,9 @@ def main() -> int:
         "launches_object_fit": ofit["launches"]["bwd"],
         "launches_object_cube": ocube["launches"]["bwd"],
         "object_step": {k: okern[k]["bwd"] for k in ("coarse", "fine")},  # 131,072 / 393,216
+        "semantic_widths": widths("bwd"),
+        "max_abs_err_semantic_widths": max(v["max_bwd_err"] for v in sst["kernels"].values()),
+        **{k: v for k, v in scene_data("bwd").items() if k != "launches_mesh"},
     }, {
         "name": "fwd_probe",
         "route": "cuda",

@@ -8,6 +8,13 @@ neighbours (the pairing contract of ``compute_intrinsic_losses``).  The
 draws come from a ``torch.Generator``; ``gather_ray_pairs`` takes them
 explicitly so any source of indices can feed it.
 
+``render.no_batching: false`` draws each ray's image on its own
+(``sample_ray_pairs_all_images``, port of the JAX function of that name):
+the neighbours stay in their pixel's image, and the labels of images
+without semantic supervision are voided per ray.  Its draws
+(``draw_all_images_indices``) and its gather
+(``gather_ray_pairs_all_images``) are split the same way.
+
 The object pipeline's sampler (``sample_ray_pairs_from_poses``, port of
 the JAX function of that name) builds the rays of the drawn pixels from
 the image's pose instead of reading a ray pool, restricts the pixels to
@@ -101,6 +108,77 @@ def sample_ray_pairs(
     draws = draw_pair_indices(generator, rays_pool.shape[0], h, w, n_rays, rays_pool.device)
     return gather_ray_pairs(rays_pool, rgb_pool, h, w, *draws, depth_pool=depth_pool,
                             sem_pool=sem_pool, mask_ids=mask_ids)
+
+
+def draw_all_images_indices(generator: torch.Generator, num_img: int, h: int, w: int,
+                            n_rays: int, device=None):
+    """(imgs [N], idx_hw [N], bias_h [N], bias_w [N]) drawn from
+    ``generator``: an image and a pixel per ray, and neighbour offsets."""
+
+    def randint(low, high):
+        return torch.randint(low, high, (n_rays,), generator=generator, device=device)
+
+    return randint(0, num_img), randint(0, h * w), randint(-1, 2), randint(-1, 2)
+
+
+def gather_ray_pairs_all_images(
+    rays_pool: torch.Tensor,  # [num_img, H*W, 11]
+    rgb_pool: torch.Tensor,  # [num_img, H*W, 3]
+    h: int,
+    w: int,
+    imgs: torch.Tensor,  # [N] image per ray
+    idx_hw: torch.Tensor,  # [N] flat pixel indices
+    bias_h: torch.Tensor,  # [N] neighbour row offsets in {-1, 0, 1}
+    bias_w: torch.Tensor,  # [N] neighbour column offsets
+    depth_pool: Optional[torch.Tensor] = None,  # [num_img, H*W]
+    sem_pool: Optional[torch.Tensor] = None,  # [num_img, H*W]
+    mask_ids: Optional[torch.Tensor] = None,  # [num_img] semantic-loss mask
+) -> RayBatch:
+    """The paired batch for the given draws, each ray from its own image:
+    pixels first, then their neighbours (clamped to the frame, in the
+    same image).  Gathers from the flattened ``[num_img * H*W, ...]``
+    pools with one ``[2N]`` index, so nothing is read back to the host;
+    rays of images with ``mask_ids == 0`` get the void label 0."""
+    idx_h, idx_w = idx_hw // w, idx_hw % w
+    nei_h = torch.clamp(idx_h + bias_h, 0, h - 1)
+    nei_w = torch.clamp(idx_w + bias_w, 0, w - 1)
+    imgs2 = torch.cat([imgs, imgs])
+    flat_idx = imgs2 * (h * w) + torch.cat([idx_hw, nei_h * w + nei_w])  # [2N]
+
+    def gather(pool):
+        return pool.reshape(-1, *pool.shape[2:])[flat_idx]
+
+    semantic = gather(sem_pool) if sem_pool is not None else None
+    if semantic is not None and mask_ids is not None:
+        semantic = torch.where(mask_ids[imgs2] > 0, semantic, torch.zeros_like(semantic))
+    return RayBatch(
+        rays=gather(rays_pool),
+        rgb=gather(rgb_pool),
+        depth=gather(depth_pool) if depth_pool is not None else None,
+        semantic=semantic,
+        sem_flag=torch.ones((), dtype=torch.float32, device=rays_pool.device),
+        image_idx=imgs[0],
+    )
+
+
+def sample_ray_pairs_all_images(
+    generator: torch.Generator,
+    rays_pool: torch.Tensor,
+    rgb_pool: torch.Tensor,
+    h: int,
+    w: int,
+    n_rays: int,
+    depth_pool: Optional[torch.Tensor] = None,
+    sem_pool: Optional[torch.Tensor] = None,
+    mask_ids: Optional[torch.Tensor] = None,
+) -> RayBatch:
+    """``2 * n_rays`` paired rays, each pair from an image drawn uniformly
+    over the whole training set (the ``no_batching: false`` mode), drawn
+    from ``generator`` on the pools' device."""
+    draws = draw_all_images_indices(generator, rays_pool.shape[0], h, w, n_rays,
+                                    rays_pool.device)
+    return gather_ray_pairs_all_images(rays_pool, rgb_pool, h, w, *draws, depth_pool=depth_pool,
+                                       sem_pool=sem_pool, mask_ids=mask_ids)
 
 
 def _crop_half(size: int, frac: float) -> int:

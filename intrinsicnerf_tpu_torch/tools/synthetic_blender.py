@@ -31,7 +31,7 @@ def write_synthetic_blender(out_dir: str, width: int = 64, height: int = 64, tra
                             val: int = 1, test: int = 5) -> str:
     """Write the object at ``width x height`` with the given view counts
     into ``out_dir``; returns the tool's report line."""
-    return run_with_imwrite(TOOL, [out_dir, "--width", width, "--height", height, "--train",
+    return run_with_imwrite(TOOL, [os.path.abspath(out_dir), "--width", width, "--height", height, "--train",
                                    train, "--val", val, "--test", test], timeout=1800).strip()
 
 

@@ -1,6 +1,7 @@
 """Image utilities for writing rendered views (numpy; copied from
 ``intrinsicnerf_tpu/utils/image.py`` so the port keeps the original file
-naming and colours), and PNG reading and writing through OpenCV in RGB
+naming and colours, the NYU-13/34/40 palettes and class names included),
+and PNG reading and writing through OpenCV in RGB
 order, as ``imageio`` reads and writes them for the JAX package."""
 
 from __future__ import annotations
@@ -32,6 +33,74 @@ def label_colormap(n: int = 256) -> np.ndarray:
             c >>= 3
         cmap[i] = [r, g, b]
     return cmap
+
+
+# NYUv2 13-class color code (reference image_utils.py:158-175)
+nyu13_colour_code = np.array(
+    [
+        (0, 0, 0),
+        (0, 0, 1),
+        (0.9137, 0.3490, 0.1882),
+        (0, 0.8549, 0),
+        (0.5843, 0, 0.9412),
+        (0.8706, 0.9451, 0.0941),
+        (1.0000, 0.8078, 0.8078),
+        (0, 0.8784, 0.8980),
+        (0.4157, 0.5333, 0.8000),
+        (0.4588, 0.1137, 0.1608),
+        (0.9412, 0.1373, 0.9216),
+        (0, 0.6549, 0.6118),
+        (0.9765, 0.5451, 0),
+        (0.8824, 0.8980, 0.7608),
+    ]
+)
+
+nyu13_class_names = [
+    "void",
+    "bed", "books", "ceiling", "chair", "floor",
+    "furniture", "objects", "painting/picture", "sofa", "table",
+    "TV", "wall", "window",
+]
+
+# NYUv2 40-class palette (standard ScanNet/NYU colors; reference
+# image_utils.py:229-277); index 0 = void
+nyu40_colour_code = np.array(
+    [
+        (0, 0, 0),
+        (174, 199, 232), (152, 223, 138), (31, 119, 180), (255, 187, 120),
+        (188, 189, 34), (140, 86, 75), (255, 152, 150), (214, 39, 40),
+        (197, 176, 213), (148, 103, 189), (196, 156, 148), (23, 190, 207),
+        (178, 76, 76), (247, 182, 210), (66, 188, 102), (219, 219, 141),
+        (140, 57, 197), (202, 185, 52), (51, 176, 203), (200, 54, 131),
+        (92, 193, 61), (78, 71, 183), (172, 114, 82), (255, 127, 14),
+        (91, 163, 138), (153, 98, 156), (140, 153, 101), (158, 218, 229),
+        (100, 125, 154), (178, 127, 135), (120, 185, 128), (146, 111, 194),
+        (44, 160, 44), (112, 128, 144), (96, 207, 209), (227, 119, 194),
+        (213, 92, 176), (94, 106, 211), (82, 84, 163), (100, 85, 144),
+    ],
+    dtype=np.uint8,
+)
+
+# NYUv2 34-class palette: the 40-class palette minus the six classes the
+# CNN-label experiments drop (bookshelf, dresser, mirror, shower curtain,
+# white board, person — reference image_utils.py:175-221)
+_NYU34_DROPPED_NYU40_IDS = (10, 17, 19, 28, 30, 31)
+nyu34_colour_code = np.asarray(
+    [nyu40_colour_code[i] for i in range(41) if i not in _NYU34_DROPPED_NYU40_IDS],
+    dtype=np.uint8,
+)
+
+nyu34_class_names = [
+    "void",
+    "wall", "floor", "cabinet", "bed", "chair",
+    "sofa", "table", "door", "window",
+    "picture", "counter", "blinds", "desk", "shelves",
+    "curtain", "pillow", "floor",
+    "clothes", "ceiling", "books", "fridge", "tv",
+    "paper", "towel", "box",
+    "night stand", "toilet", "sink", "lamp",
+    "bath tub", "bag", "other struct", "other furntr", "other prop",
+]
 
 
 def depth2rgb(

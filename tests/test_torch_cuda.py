@@ -491,3 +491,111 @@ def test_graphed_object_steps_cross_the_precrop_boundary(object_model):
     assert int(state.step_t) == state.step == start + GRAPH_K
     assert _agree(graphed, first, exact)
     assert not _agree(graphed, _run(state, snap, gen, eager(endless)), False)
+
+
+# ---- the other scene data: NYU widths, pixels across all images, mesh -----
+
+
+@pytest.mark.parametrize("c", [40, 13])
+@pytest.mark.parametrize("n", [65_536, 196_608])
+def test_kernels_at_nyu_widths(card, c, n):
+    """Kernels 1 and 2 at the NYU-40 and NYU-13 semantic widths (ScanNet,
+    Replica-NYU) at the step's coarse and fine calls: kernel 1 per output
+    slice, the padding columns exactly 0; kernel 2 per block (the output
+    block's gradient covers columns 8 to 8 + C); both bitwise across
+    launches."""
+    cfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=c,
+                    compute_dtype=torch.bfloat16, use_fused_kernel=True)
+    m = IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(c))
+    ops = m.fused_operands(cfg)
+    in8, gen = _in8(n, c + n)
+    got = fm.fused_mlp_forward(ops, in8)
+    again = fm.fused_mlp_forward(ops, in8)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+    for a, b in ((0, 1), (1, 4), (4, 5), (5, 8), (8, 8 + c)):
+        x, y = got[:, a:b].float(), ref[:, a:b].float()
+        assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
+    assert torch.equal(got[:, 8 + c:], torch.zeros_like(got[:, 8 + c:]))
+    g = (got.float() - torch.rand(got.shape, device="cuda", generator=gen)) / n
+    g[:, 8 + c:] = 0.0
+    g = g.to(torch.bfloat16)
+    bwd = fm.fused_mlp_backward(ops, in8, g)
+    bwd2 = fm.fused_mlp_backward(ops, in8, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
+    bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    keys = [k for k in bref if float((bref[k] * masks[k]).abs().max()) > 0]
+    assert {"w_m1", "b_m1", "w_m2", "b_m2"} <= set(keys)
+    assert float(masks["w_m2"][:, 8:8 + c].min()) == 1.0
+    for k in keys:
+        cos, rel = _cos_rel(bwd[k] * masks[k], bref[k] * masks[k])
+        assert cos > 0.999 and rel <= 1e-2, (k, cos, rel)
+
+
+def test_graphed_all_images_steps_equal_eager_steps(model):
+    """K steps drawing each pair's image over the whole training set (the
+    ``no_batching: false`` sampler), as one replay, equal the same K eager
+    steps from the same state (bitwise where two eager runs are)."""
+    from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs_all_images
+
+    cfg, _ = model
+    h, w, n_img = 24, 32, 3
+    c2w = torch.eye(4, device="cuda").repeat(n_img, 1, 1)
+    c2w[:, 2, 3] = torch.tensor([-1.0, -1.3, -1.6])
+    rays = create_rays(c2w, h, w, 16.0, 16.0, 15.5, 11.5, 0.1, 10.0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pools = DataPools(rays=rays, rgb=torch.rand(n_img, h * w, 3, device="cuda", generator=gen),
+                      depth=torch.rand(n_img, h * w, device="cuda", generator=gen) + 1.0,
+                      semantic=torch.randint(0, C + 1, (n_img, h * w), device="cuda",
+                                             generator=gen),
+                      mask_ids=torch.tensor([1, 0, 1], device="cuda"))
+    tcfg = TrainConfig(n_rays=128)
+
+    def sample_fn(generator, p, step):
+        return sample_ray_pairs_all_images(generator, p.rays, p.rgb, h, w, tcfg.n_rays,
+                                           depth_pool=p.depth, sem_pool=p.semantic,
+                                           mask_ids=p.mask_ids)
+
+    state = create_train_state(cfg, tcfg, device="cuda")
+    step = make_train_step(cfg, RenderConfig(perturb=1.0, raw_noise_std=1.0), tcfg, h, w,
+                           sample_fn=sample_fn)
+    table = empty_cluster_table(C, 64, device="cuda")
+    w_c = torch.tensor(0.1, device="cuda")
+    step(state, pools, table, w_c, gen)
+    snap = snapshot_state(state, gen)
+
+    def eager():
+        for _ in range(GRAPH_K):
+            rep = step(state, pools, table, w_c, gen)
+        return rep
+
+    first, second = _run(state, snap, gen, eager), _run(state, snap, gen, eager)
+    exact = _agree(first, second, True)
+    multi = make_multi_step(step, GRAPH_K)
+    assert _agree(_run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen)), first,
+                  exact)
+    assert multi.replays == 1 and all(torch.isfinite(v) for v in first[0])
+
+
+def test_density_grid_query_goes_through_kernel_1(model):
+    """The mesh's grid query on the card: one kernel-1 launch per chunk,
+    occupancy within 2e-2 of the same query through the plain version on
+    the host (kernel 1's bound on sigma, carried through
+    ``1 - exp(-relu(sigma) * voxel)``, whose slope is at most ``voxel``)."""
+    import numpy as np
+
+    from intrinsicnerf_tpu_torch.geometry.mesh import query_density_grid
+
+    cfg, m = model
+    pts = np.random.default_rng(6).uniform(-2, 2, size=(300_000, 3)).astype(np.float32)
+    before = fm.fused_mlp_forward.launches
+    occ, sem = query_density_grid(m, cfg, pts, 0.05, chunk=131_072)
+    assert fm.fused_mlp_forward.launches == before + 3
+    host = IntrinsicMLP(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    occ_p, _ = query_density_grid(host, cfg, pts[:20_000], 0.05, chunk=131_072)
+    assert occ.shape == (300_000,) and sem.shape == (300_000,)
+    assert np.abs(occ[:20_000] - occ_p).max() < 2e-2 and np.isfinite(occ).all()

@@ -292,21 +292,16 @@ def test_scene_cli_end_to_end(tiny_replica, tmp_path):
 
 
 @pytest.mark.parametrize("flag,queue", [
-    (["--sparse_views"], "queue 6"), (["--pixel_denoising"], "queue 6"),
-    (["--region_denoising"], "queue 6"), (["--super_resolution"], "queue 6"),
-    (["--label_propagation"], "queue 6"), (["--data_parallel"], "queue 7"),
-    (["--coordinator", "localhost:1234"], "queue 7")])
+    (["--data_parallel"], "queue 1, item 7"),
+    (["--coordinator", "localhost:1234"], "queue 1, item 7"),
+    (["--num_processes", "2"], "queue 1, item 7"), (["--process_id", "0"], "queue 1, item 7"),
+    # this directory has no semantic_instance maps
+    (["--region_denoising", "--total_frames", str(N_FRAMES), "--split_step", str(SPLIT)],
+     "semantic_instance")])
 def test_cli_refuses_what_is_not_ported(tiny_replica, tmp_path, flag, queue):
     path = _write_cfg(tmp_path, _cfg_dict(tiny_replica, tmp_path / "run"))
     with pytest.raises(SystemExit, match=queue):
         train_scene.main(["--config_file", path, "--device", "cpu", *flag])
-
-
-def test_cli_refuses_scannet(tiny_replica, tmp_path):
-    d = _cfg_dict(tiny_replica, tmp_path / "run")
-    d["experiment"]["dataset_type"] = "scannet"
-    with pytest.raises(SystemExit, match="queue 6"):
-        train_scene.main(["--config_file", _write_cfg(tmp_path, d), "--device", "cpu"])
 
 
 def test_resume_takes_the_palette_no_newer_than_the_checkpoint(tiny_replica, tmp_path, capsys):

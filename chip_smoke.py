@@ -66,8 +66,7 @@ weights:
   per call with its rebuilds and evaluations, a resume in a second
   process, ``--render_only --render_test``, the blender_intrinsic loader,
   LLFF in NDC on five of its views, and the cube check of
-  ``tools/validate_convergence.py`` at 10 steps per call (held-out PSNR
-  > 20);
+  ``tools/validate_convergence.py`` (held-out PSNR > 20);
 - mesh extraction (``extract_mesh``, the CLI twin) from the ScanNet
   run's checkpoint on a 256^3 grid (kernel 1 once per 131,072 points,
   twice per 4,096-ray chunk of the vertex-colour render; a slice of the
@@ -108,6 +107,9 @@ KERNEL_TOL = 2e-2
 # sigma moves some importance samples along their ray, so a per-ray max
 # would measure that resampling, not the kernel
 VIEW_TOL = 1e-2
+# the plain view's mean opacity on the subset must exceed this, so that
+# two empty views cannot agree
+VIEW_ACC_FLOOR = 0.02
 # kernel 2 vs plain over the real parameter slots, overall and per block:
 # the gradient bounds of tests/test_fused_mlp.py
 BWD_COS, BWD_REL = 0.999, 1e-2
@@ -1109,32 +1111,41 @@ def run_launches(trainer=None):
     return eager, captured, {k: eager[k] + replays * captured[k] for k in counters}, replays
 
 
-def semantic_kernel_checks(torch, np, c, rays, rcfg, card, seed, phase="nyu_kernels_vs_plain"):
-    """Kernels 1 and 2 at ``c`` semantic classes (seeded weights) at the
-    scene step's coarse and fine calls (``rays`` at 64 and 192 samples),
-    against their plain versions: kernel 1 per output slice within
-    KERNEL_TOL and its padding columns exactly 0, kernel 2 per block (the
-    output block's columns 8 to 8 + c included) within the gradient
-    bounds, both bitwise across two launches.  Times, and bounds at the
-    network's own multiply-adds (its ``nn.Linear`` weights)."""
-    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
+def semantic_model(torch, c, dev, seed):
+    """The scene network (8x256, the skip, view directions, the fused
+    kernels) at ``c`` semantic classes from seeded weights, and its config."""
     from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
-    from intrinsicnerf_tpu_torch.tools import bwd_passes
 
     mcfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=c,
                      compute_dtype=torch.bfloat16, use_fused_kernel=True)
-    model = IntrinsicMLP(mcfg, device=rays.device, generator=torch.Generator().manual_seed(seed))
+    return IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(seed)), mcfg
+
+
+def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
+    """Kernels 1 and 2 on ``model``'s weights at a step's coarse and fine
+    calls (``rays`` at n_coarse and n_coarse + n_importance samples)
+    against their plain versions: kernel 1 per output slice within
+    KERNEL_TOL, its columns past 8 + C exactly 0; kernel 2 within its
+    bounds overall and per block, each bitwise across two launches.  At
+    C > 0 the semantic blocks (the output block's columns 8 to 8 + C
+    included) are among the blocks held; at C = 0 (an object) their
+    gradient is exactly 0.  Times, and bounds at the network's own
+    multiply-adds (its ``nn.Linear`` weights)."""
+    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+
+    c = mcfg.num_semantic_classes if mcfg.enable_semantic else 0
+    sem_blocks = ("w_m1", "b_m1", "w_m2", "b_m2")
     macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
     bwd_macs = sum(bwd_passes.backward_macs(model).values())
     ops = model.fused_operands(mcfg)
     masks = fm.packed_grad_masks(dict(model.named_parameters()), mcfg)
-    gen = torch.Generator(device=rays.device).manual_seed(seed + 1)
+    gen = torch.Generator(device=rays.device).manual_seed(seed)
     slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
-              "semantic": (8, 8 + c)}
+              **({"semantic": (8, 8 + c)} if c else {})}
     out = {"c": c, "macs": macs, "bwd_macs": bwd_macs, "max_fwd_err": 0.0, "max_bwd_err": 0.0}
-    calls = (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance))
-    for label, n_samples in calls:
+    for label, n_samples in (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance)):
         z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples)
         in8 = fm.build_in8(rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None], rays[:, 8:11])
         n = in8.shape[0]
@@ -1142,12 +1153,11 @@ def semantic_kernel_checks(torch, np, c, rays, rcfg, card, seed, phase="nyu_kern
         again = fm.fused_mlp_forward(ops, in8)
         torch.cuda.synchronize()
         fwd_bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
-        pad_zero = bool((got[:, 8 + c:] == 0).all())
+        zero_cols = bool((got[:, 8 + c:] == 0).all())
         ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
         errs = {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
                 / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
-        out["max_fwd_err"] = max(out["max_fwd_err"], (got[:, :8 + c].float()
-                                                      - ref[:, :8 + c].float()).abs().max().item())
+        fwd_err = (got[:, :8 + c].float() - ref[:, :8 + c].float()).abs().max().item()
         g = loss_cotangent(got, 8 + c, gen, torch)
         bwd = fm.fused_mlp_backward(ops, in8, g)
         bwd2 = fm.fused_mlp_backward(ops, in8, g)
@@ -1155,53 +1165,94 @@ def semantic_kernel_checks(torch, np, c, rays, rcfg, card, seed, phase="nyu_kern
         bwd_bitwise = all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
         bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
         (cos, rel), per = grad_agreement(bwd, bref, masks, torch)
-        out["max_bwd_err"] = max(out["max_bwd_err"], max(
-            float(((bwd[k] - bref[k]) * masks[k]).abs().max()) for k in bwd))
+        bwd_err = max(float(((bwd[k] - bref[k]) * masks[k]).abs().max()) for k in bwd)
+        if c:
+            sem_ok = set(sem_blocks) <= set(per)
+            sem = {k: [round(per[k][0], 7), float(f"{per[k][1]:.3g}")] for k in sem_blocks}
+        else:
+            # no gradient through the zero semantic blocks, and the mask
+            # projection gives the shared output bias's none of it (b_m2)
+            sem = max([float(bwd[k].abs().max()) for k in sem_blocks[:3]]
+                      + [float((bwd[k] * masks[k]).abs().max()) for k in sem_blocks])
+            sem_ok = sem == 0.0
         f_flops, f_bytes = fused_work(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
         b_flops = 2.0 * bwd_macs * n
         b_bytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
-
-        def bound(flops, nbytes):
+        bounds = {}
+        for part, (flops, nbytes) in (("fwd", (f_flops, f_bytes)), ("bwd", (b_flops, b_bytes))):
             by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by
-
-        (f_bound, f_by), (b_bound, b_by) = bound(f_flops, f_bytes), bound(b_flops, b_bytes)
-        row = {"points": n,
-               "fwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch),
-                           plain_ms=cuda_ms(lambda: fm.fused_mlp_forward_plain(
-                               ops.packed, ops.pe, in8), 2, torch),
-                           bound_ms=f_bound, bound_by=f_by),
-               "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
-                           plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
-                               ops.packed, ops.pe, in8, g), 2, torch), bound_ms=b_bound,
-                           bound_by=b_by)}
+            bounds[part] = (1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by)
+        row = {
+            "points": n,
+            "fwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch),
+                        plain_ms=cuda_ms(lambda: fm.fused_mlp_forward_plain(ops.packed, ops.pe,
+                                                                            in8), 2, torch),
+                        bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+                        max_abs_err=fwd_err),
+            "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
+                        plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
+                            ops.packed, ops.pe, in8, g), 2, torch),
+                        bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
+                        max_abs_err=bwd_err)}
         out[label] = row
+        out["max_fwd_err"] = max(out["max_fwd_err"], fwd_err)
+        out["max_bwd_err"] = max(out["max_bwd_err"], bwd_err)
         worst = min(per.items(), key=lambda kv: kv[1][0])
         say(phase, classes=c, call=label, points=n, fwd_bitwise_repeat=fwd_bitwise,
             fwd_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
-            padding_columns_zero=pad_zero, bwd_bitwise_repeat=bwd_bitwise,
-            bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}",
-            semantic_blocks=json.dumps({k: [round(per[k][0], 7), float(f"{per[k][1]:.3g}")]
-                                        for k in ("w_m1", "b_m1", "w_m2", "b_m2") if k in per}),
+            columns_past_8_plus_c_zero=zero_cols, bwd_bitwise_repeat=bwd_bitwise,
+            bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}", semantic_blocks=json.dumps(sem),
             worst_block_cos=json.dumps([worst[0], round(worst[1][0], 7)]),
             tol=json.dumps({"fwd": KERNEL_TOL, "cos": BWD_COS, "rel": BWD_REL}),
             macs_per_point=json.dumps({"fwd": macs, "bwd": bwd_macs}),
-            fwd_ms=f"{row['fwd']['ms']:.4f}", fwd_plain_ms=f"{row['fwd']['plain_ms']:.4f}",
-            fwd_bound_ms=f"{f_bound:.4f}", bwd_ms=f"{row['bwd']['ms']:.4f}",
-            bwd_plain_ms=f"{row['bwd']['plain_ms']:.4f}", bwd_bound_ms=f"{b_bound:.4f}",
-            card=json.dumps(card))
-        ok = (fwd_bitwise and pad_zero and all(e < KERNEL_TOL for e in errs.values())
-              and bwd_bitwise and cos > BWD_COS and rel <= BWD_REL
-              and {"w_m1", "b_m1", "w_m2", "b_m2"} <= set(per)
+            **{f"{part}_{k}": f"{row[part][k]:.4f}" for part in ("fwd", "bwd")
+               for k in ("ms", "plain_ms", "bound_ms")}, card=json.dumps(card))
+        ok = (fwd_bitwise and zero_cols and all(e < KERNEL_TOL for e in errs.values())
+              and bwd_bitwise and sem_ok and cos > BWD_COS and rel <= BWD_REL
               and all(cc > BWD_COS and r <= BWD_REL for cc, r in per.values())
               and bool(torch.isfinite(got.float()).all()))
         if not ok:
             raise AssertionError(f"kernels 1 and 2 disagree with their plain versions at C = {c}, "
-                                 f"the {label} call: {errs} {(cos, rel)} {per}")
+                                 f"the {label} call: {errs} {(cos, rel)} {per} {sem}")
         del in8, got, again, ref, g, bwd, bwd2, bref
-    del model, ops
     torch.cuda.empty_cache()
     return out
+
+
+def view_vs_plain(torch, np, mc, mf, mcfg, rcfg, rays, out, seed, phase):
+    """``out`` (a view rendered through the kernels) against the plain
+    versions on the host on SUBSET of its rays (``rays [n, 11]``, seeded):
+    the mean |d| / max(|plain|, 1) of rgb, depth and albedo, and of the
+    semantic logits (the subset rendered on the card) where the model has
+    them, each within VIEW_TOL.  The plain render must have content: some
+    colour, depth and opacity, so that two empty views cannot agree."""
+    from intrinsicnerf_tpu_torch.render.pipeline import render_rays_chunked
+
+    idx = torch.randperm(rays.shape[0], generator=torch.Generator().manual_seed(seed))[:SUBSET]
+    sub = rays[idx.to(rays.device)]
+    with torch.no_grad():
+        ref = render_rays_chunked(copy.deepcopy(mc).to("cpu"), copy.deepcopy(mf).to("cpu"), mcfg,
+                                  sub.cpu(), rcfg, SUBSET).fine
+        kern = (render_rays_chunked(mc, mf, mcfg, sub, rcfg, SUBSET).fine
+                if mcfg.enable_semantic else None)
+    flat = idx.numpy()
+    pairs = {"rgb": (out["rgb"].reshape(-1, 3)[flat], ref.rgb.numpy()),
+             "depth": (out["depth"].reshape(-1)[flat], ref.depth.numpy()),
+             "albedo": (out["albedo"].reshape(-1, 3)[flat], ref.albedo.numpy())}
+    if kern is not None:
+        pairs["sem_logits"] = (kern.sem_logits.float().cpu().numpy(), ref.sem_logits.numpy())
+    errs = {k: float(np.mean(np.abs(a - b)) / max(np.abs(b).max(), 1.0))
+            for k, (a, b) in pairs.items()}
+    content = {"rgb_max": float(ref.rgb.max()), "depth_max": float(ref.depth.max()),
+               "acc_mean": float(ref.acc.mean())}
+    say(phase, rays=SUBSET, mean_rel_err=json.dumps(errs), tol=VIEW_TOL,
+        plain_content=json.dumps({k: round(v, 5) for k, v in content.items()}),
+        content_floor=json.dumps({"acc_mean": VIEW_ACC_FLOOR}))
+    if not (all(e <= VIEW_TOL for e in errs.values()) and content["rgb_max"] > 0.0
+            and content["depth_max"] > 0.0 and content["acc_mean"] > VIEW_ACC_FLOOR):
+        raise AssertionError(f"{phase}: the view against the plain version {errs}, "
+                             f"the plain view's content {content}")
+    return errs
 
 
 def scannet_data_phase(torch, np, dev, card, room_dir):
@@ -1261,20 +1312,18 @@ def scannet_step_phase(torch, np, dev, card, sd):
     64 + 128 samples, the scan's C classes, depth on) 3 + 20 times eagerly,
     its kernels by name in a profiled step, a 64-pair slice against the
     plain versions on the host, kernels 1 and 2 at the step's calls at
-    this C and at C = 40 and 13 against their plain versions, GRAPH_K
-    steps as one replay against eager steps, and one 324x243 view."""
+    this C and at C = 40 and 13 against their plain versions, and GRAPH_K
+    steps as one replay against eager steps."""
     from intrinsicnerf_tpu_torch.data.samplers import RayBatch
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
-    from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise, render_rays_chunked
+    from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
     from intrinsicnerf_tpu_torch.tools import bwd_passes
     from intrinsicnerf_tpu_torch.train.step import create_train_state, make_train_step
-    from intrinsicnerf_tpu_torch.train.trainer import render_views
 
     cfg, bundle = sd["cfg"], sd["bundle"]
     pools = bundle.pools
     c = bundle.num_valid_classes
     mcfg = dataclasses.replace(cfg.mlp, num_semantic_classes=c)
-    rcfg, tcfg, chunk = cfg.render, cfg.train, cfg.chunk
+    rcfg, tcfg = cfg.render, cfg.train
     h, w = bundle.h, bundle.w
     state = create_train_state(mcfg, tcfg, device=dev, generator=torch.Generator().manual_seed(30))
     step_fn = make_train_step(mcfg, rcfg, tcfg, h, w)
@@ -1342,15 +1391,34 @@ def scannet_step_phase(torch, np, dev, card, sd):
                  phase="scannet_step_vs_plain")
 
     # kernels 1 and 2 at the step's calls: this C, then NYU-40 and NYU-13
-    kernels = {cc: semantic_kernel_checks(torch, np, cc, big.rays, rcfg, card, 35 + cc)
-               for cc in (c, *NYU_WIDTHS)}
+    kernels = {}
+    for cc in (c, *NYU_WIDTHS):
+        model, cc_cfg = semantic_model(torch, cc, dev, 35 + cc)
+        kernels[cc] = kernel_checks(torch, np, model, cc_cfg, big.rays, rcfg, card, 36 + cc,
+                                    "nyu_kernels_vs_plain")
+        del model
 
     # K steps per call: eager against one CUDA graph replay
     graph = graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card,
                         phase="scannet_graph")
 
-    # one 324x243 test view (two full chunks and a short one)
-    mc, mf = state.model_coarse, state.model_fine
+    del state, step_fn, table
+    torch.cuda.empty_cache()
+    return {"launches": launches, "median_ms": median, "bound_ms": bound_ms,
+            "host_ms": float(np.median(host_ms)), "kernels": kernels, "graph": graph, "c": c}
+
+
+def scannet_view(torch, np, dev, card, trainer):
+    """``scannet_view``: one 324x243 test view (two full chunks and a
+    short one) through ``render_views`` of the ScanNet fit's trained
+    weights, loaded just before it; kernel 1 twice per chunk and one
+    weight image per model; the median of 5 views beside its bound; the
+    view against the plain versions on the host on a subset of its rays."""
+    from intrinsicnerf_tpu_torch.train.trainer import render_views
+
+    cfg, bundle, mcfg = trainer.cfg, trainer.bundle, trainer.mcfg
+    rcfg, chunk, h, w = cfg.render, cfg.chunk, bundle.h, bundle.w
+    mc, mf = trainer.state.model_coarse, trainer.state.model_fine
     rays = bundle.rays_test[:1]
     n_view = rays.shape[1]
 
@@ -1366,7 +1434,7 @@ def scannet_step_phase(torch, np, dev, card, sd):
     out = view()
     torch.cuda.synchronize()
     times = [1e3 * (time.perf_counter() - t0)]
-    view_launches = run_launches()[0]
+    launches = run_launches()[0]
     chunks = math.ceil(n_view / chunk)
     for _ in range(4):
         t0 = time.perf_counter()
@@ -1374,34 +1442,21 @@ def scannet_step_phase(torch, np, dev, card, sd):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     view_ms = float(np.median(times))
-    view_points = n_view * (2 * rcfg.n_coarse + rcfg.n_importance)
-    view_bound = 1e3 * 2.0 * macs * view_points / PEAK_BF16_FLOPS
-    idx = torch.randperm(n_view, generator=torch.Generator().manual_seed(36))[:SUBSET]
-    with torch.no_grad():
-        ref = render_rays_chunked(copy.deepcopy(mc).to("cpu"), copy.deepcopy(mf).to("cpu"), mcfg,
-                                  rays[0, idx.to(dev)].cpu(), rcfg, SUBSET).fine
-    flat = idx.numpy()
-    got = {"rgb": out["rgb"].reshape(-1, 3)[flat], "depth": out["depth"].reshape(-1)[flat],
-           "albedo": out["albedo"].reshape(-1, 3)[flat]}
-    errs = {k: float(np.mean(np.abs(v - getattr(ref, k).numpy()))
-                     / max(np.abs(getattr(ref, k).numpy()).max(), 1.0)) for k, v in got.items()}
+    macs = sum(m.weight.numel() for m in mf.modules() if isinstance(m, torch.nn.Linear))
+    view_bound = 1e3 * 2.0 * macs * n_view * (2 * rcfg.n_coarse + rcfg.n_importance) \
+        / PEAK_BF16_FLOPS
     shapes_ok = all(out[k].shape[:2] == (h, w) and np.isfinite(out[k]).all()
                     for k in ("rgb", "depth", "albedo", "sem_label"))
     say("scannet_view", view=f"{h}x{w}", rays=n_view, chunk=chunk, chunks=chunks,
-        launches=json.dumps(view_launches), ms_per_view=json.dumps([round(x, 2) for x in times]),
+        weights=f"the fit at step {trainer.global_step}", launches=json.dumps(launches),
+        ms_per_view=json.dumps([round(x, 2) for x in times]),
         median_ms_per_view=f"{view_ms:.2f}", rays_per_s=f"{n_view / view_ms * 1e3:.0f}",
-        bound_ms_per_view=f"{view_bound:.2f}", vs_plain_mean_rel_err=json.dumps(errs),
-        tol=VIEW_TOL, card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
-    if (view_launches != {"fwd": 2 * chunks, "bwd": 0, "image": 2} or not shapes_ok
-            or not all(e <= VIEW_TOL for e in errs.values())):
-        raise AssertionError(f"the ScanNet view: launches {view_launches}, maps ok {shapes_ok}, "
-                             f"against the plain version {errs}")
-    del state, step_fn, table
-    torch.cuda.empty_cache()
-    return {"launches": launches, "median_ms": median, "bound_ms": bound_ms,
-            "host_ms": float(np.median(host_ms)), "kernels": kernels, "graph": graph,
-            "view": {"median_ms": view_ms, "bound_ms": view_bound,
-                     "launches": view_launches["fwd"]}, "c": c}
+        bound_ms_per_view=f"{view_bound:.2f}", card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    if launches != {"fwd": 2 * chunks, "bwd": 0, "image": 2} or not shapes_ok:
+        raise AssertionError(f"the ScanNet view: launches {launches}, maps ok {shapes_ok}")
+    view_vs_plain(torch, np, mc, mf, mcfg, rcfg, rays[0], out, 36, "scannet_view_vs_plain")
+    return {"median_ms": view_ms, "bound_ms": view_bound, "launches": launches["fwd"]}
 
 
 def resume_state(trainer):
@@ -1513,6 +1568,7 @@ def scannet_fit_phase(torch, np, dev, card, sd):
     if not ok:
         raise AssertionError("the ScanNet run failed a check (see the scannet_fit line)")
     ref = resume_state(trainer)
+    view = scannet_view(torch, np, dev, card, trainer)
     del trainer
     torch.cuda.empty_cache()
     resume, resume_s = resume_check(torch, ref, work, "intrinsicnerf_tpu_torch.train_scene",
@@ -1520,7 +1576,7 @@ def scannet_fit_phase(torch, np, dev, card, sd):
     say("scannet_resume", seconds=f"{resume_s:.1f}",
         **{k: json.dumps(v) for k, v in resume.items()})
     return {"cfg_path": cfg_path, "launches": total, "eager": eager, "replays": replays,
-            "median_ms": median_ms, "m0": m0, "m_end": m_end, "fit_s": fit_s}
+            "median_ms": median_ms, "m0": m0, "m_end": m_end, "fit_s": fit_s, "view": view}
 
 
 def scene_all_images_phase(torch, np, dev, card, room_dir):
@@ -1575,7 +1631,7 @@ def scene_all_images_phase(torch, np, dev, card, room_dir):
         trainer.fit(progress=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    eager, captured, total, replays = run_launches(trainer)
+    eager, _, total, replays = run_launches(trainer)
     sc = read_scalars(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv"))
     img = sc["Train/Loss/img_fine"]
     log_steps = sorted(img)
@@ -1626,7 +1682,7 @@ def replica_nyu_phase(torch, np, dev, card, room_dir):
         trainer.fit(progress=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    eager, captured, total, replays = run_launches(trainer)
+    eager, _, total, replays = run_launches(trainer)
     sc = read_scalars(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv"))
     m_end = {k[5:]: round(v[NYU_STEPS], 4) for k, v in sc.items()
              if k.startswith("Test/") and NYU_STEPS in v}
@@ -1786,97 +1842,6 @@ def one_class_table(np, dev, seed, n_classes=1):
     return table_from_numpy(per_class, 2048, device=dev)
 
 
-def object_kernel_checks(torch, np, model, mcfg, rays, rcfg, card):
-    """Kernels 1 and 2 at the object step's coarse and fine calls (the
-    batch's rays at 64 and 192 samples: 131,072 and 393,216 points)
-    against their plain versions: kernel 1 per output slice within
-    KERNEL_TOL with its semantic and padding columns exactly 0, kernel 2
-    within its bounds per block, its zero semantic blocks exactly 0, each
-    bitwise across two launches.  Times and bounds at the object
-    network's own multiply-adds."""
-    from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
-    from intrinsicnerf_tpu_torch.tools import bwd_passes
-
-    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
-    work = bwd_passes.backward_macs(model)
-    bwd_macs = sum(work.values())
-    ops = model.fused_operands(mcfg)
-    masks = fm.packed_grad_masks(dict(model.named_parameters()), mcfg)
-    gen = torch.Generator(device=rays.device).manual_seed(23)
-    out = {"macs": macs, "bwd_macs": bwd_macs}
-    slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8)}
-    for label, n_samples in (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance)):
-        z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples)
-        in8 = fm.build_in8(rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None], rays[:, 8:11])
-        n = in8.shape[0]
-        got = fm.fused_mlp_forward(ops, in8)
-        again = fm.fused_mlp_forward(ops, in8)
-        torch.cuda.synchronize()
-        fwd_bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
-        sem_zero = bool((got[:, 8:] == 0).all())
-        ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
-        errs = {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
-                / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
-        fwd_err = (got[:, :8].float() - ref[:, :8].float()).abs().max().item()
-        g = loss_cotangent(got, 8, gen, torch)
-        bwd = fm.fused_mlp_backward(ops, in8, g)
-        bwd2 = fm.fused_mlp_backward(ops, in8, g)
-        torch.cuda.synchronize()
-        bwd_bitwise = all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
-        # the zero semantic blocks: no gradient through them, and the mask
-        # projection gives the shared output bias's none of it (b_m2)
-        sem_grad = max([float(bwd[k].abs().max()) for k in ("w_m1", "b_m1", "w_m2")]
-                       + [float((bwd[k] * masks[k]).abs().max())
-                          for k in ("w_m1", "b_m1", "w_m2", "b_m2")])
-        bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
-        (cos, rel), per = grad_agreement(bwd, bref, masks, torch)
-        bwd_err = max(float(((bwd[k] - bref[k]) * masks[k]).abs().max()) for k in bwd)
-        f_flops, f_bytes = fused_work(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
-        b_flops = 2.0 * bwd_macs * n
-        b_bytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
-
-        def bound(flops, nbytes):
-            by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-            return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by
-
-        f_bound, f_by = bound(f_flops, f_bytes)
-        b_bound, b_by = bound(b_flops, b_bytes)
-        row = {
-            "points": n,
-            "fwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch),
-                        plain_ms=cuda_ms(lambda: fm.fused_mlp_forward_plain(ops.packed, ops.pe,
-                                                                            in8), 2, torch),
-                        bound_ms=f_bound, bound_by=f_by, max_abs_err=fwd_err),
-            "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
-                        plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
-                            ops.packed, ops.pe, in8, g), 2, torch),
-                        bound_ms=b_bound, bound_by=b_by, max_abs_err=bwd_err)}
-        out[label] = row
-        worst = min(per.items(), key=lambda kv: kv[1][0])
-        say("object_kernels_vs_plain", call=label, points=n, fwd_bitwise_repeat=fwd_bitwise,
-            fwd_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
-            semantic_columns_zero=sem_zero, bwd_bitwise_repeat=bwd_bitwise,
-            bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}",
-            worst_block_cos=json.dumps([worst[0], round(worst[1][0], 7)]),
-            semantic_block_grad_max=sem_grad,
-            tol=json.dumps({"fwd": KERNEL_TOL, "cos": BWD_COS, "rel": BWD_REL}),
-            fwd_ms=f"{row['fwd']['ms']:.4f}", fwd_plain_ms=f"{row['fwd']['plain_ms']:.4f}",
-            fwd_bound_ms=f"{f_bound:.4f}", bwd_ms=f"{row['bwd']['ms']:.4f}",
-            bwd_plain_ms=f"{row['bwd']['plain_ms']:.4f}", bwd_bound_ms=f"{b_bound:.4f}",
-            card=json.dumps(card))
-        ok = (fwd_bitwise and sem_zero and all(e < KERNEL_TOL for e in errs.values())
-              and bwd_bitwise and sem_grad == 0.0 and cos > BWD_COS and rel <= BWD_REL
-              and all(c > BWD_COS and r <= BWD_REL for c, r in per.values())
-              and bool(torch.isfinite(got.float()).all()))
-        if not ok:
-            raise AssertionError(f"kernels 1 and 2 disagree with their plain versions at the "
-                                 f"object's {label} call: {errs} {(cos, rel)} {per}")
-        del in8, got, again, ref, g, bwd, bwd2, bref
-    torch.cuda.empty_cache()
-    return out
-
-
 def object_step_phase(torch, np, dev, card, od):
     """``object_step``: the lego step (1,024 pairs from the pose sampler,
     64 + 128 samples, the semantic head off) 3 + 20 times eagerly, its
@@ -1956,7 +1921,8 @@ def object_step_phase(torch, np, dev, card, od):
     draws = draw_train_noise(2 * SLICE_PAIRS, rcfg, gen.manual_seed(25), dev)
     step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
                  phase="object_step_vs_plain")
-    kernels = object_kernel_checks(torch, np, model, mcfg, big.rays, rcfg, card)
+    kernels = kernel_checks(torch, np, model, mcfg, big.rays, rcfg, card, 23,
+                            "object_kernels_vs_plain")
     return {"state": state, "step_fn": step_fn, "sample_fn": sample_fn, "gen": gen,
             "table": table, "mcfg": mcfg, "launches": launches, "median_ms": median,
             "host_ms": float(np.median(host_ms)), "bound_ms": bound_ms, "kernels": kernels}
@@ -2043,7 +2009,6 @@ def object_view_phase(torch, np, dev, card, od, st):
     the median of 5 views, kernel 1's share of a profiled view, and the
     view's bound at the object network's multiply-adds."""
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
-    from intrinsicnerf_tpu_torch.render.pipeline import render_rays_chunked
     from intrinsicnerf_tpu_torch.train.trainer import render_views
 
     cfg, bundle = od["cfg"], od["bundle"]
@@ -2086,28 +2051,17 @@ def object_view_phase(torch, np, dev, card, od, st):
     bound_ms = 1e3 * 2.0 * macs * points / PEAK_BF16_FLOPS
     wall_ms, busy_ms, by_name = profile_window(view, torch)
     k1 = sum(v for k, v in by_name.items() if "fused_mlp_fwd_kernel" in k)
-    # against the plain version on the host, on a seeded subset of the view's rays
-    idx = torch.randperm(n_rays, generator=torch.Generator().manual_seed(26))[:SUBSET]
-    with torch.no_grad():
-        ref = render_rays_chunked(copy.deepcopy(mc).to("cpu"), copy.deepcopy(mf).to("cpu"), mcfg,
-                                  rays[0, idx.to(dev)].cpu(), rcfg, SUBSET).fine
-    flat = idx.numpy()
-    got = {"rgb": out["rgb"].reshape(-1, 3)[flat], "depth": out["depth"].reshape(-1)[flat],
-           "albedo": out["albedo"].reshape(-1, 3)[flat]}
-    errs = {k: float(np.mean(np.abs(v - getattr(ref, k).numpy()))
-                     / max(np.abs(getattr(ref, k).numpy()).max(), 1.0)) for k, v in got.items()}
     say("object_view", view=f"{h}x{w}", rays=n_rays, chunk=chunk, chunks=chunks,
         launches=json.dumps(launches), ms_per_view=json.dumps([round(x, 2) for x in times]),
         median_ms_per_view=f"{median:.2f}", rays_per_s=f"{n_rays / median * 1e3:.0f}",
         bound_ms_per_view=f"{bound_ms:.2f}", macs_per_point=macs,
         profiled_wall_ms=f"{wall_ms:.2f}", device_busy_ms=f"{busy_ms:.2f}",
         busy_share=f"{busy_ms / wall_ms:.3f}", kernel1_ms=f"{k1:.2f}",
-        kernel1_share=f"{k1 / busy_ms:.3f}", vs_plain_mean_rel_err=json.dumps(errs),
-        tol=VIEW_TOL, top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
-        clocks=json.dumps(smi(CLOCKS)))
-    if not all(e <= VIEW_TOL for e in errs.values()) or k1 <= 0.0:
-        raise AssertionError(f"the object view disagrees with the plain version: {errs} "
-                             f"(kernel 1 {k1} ms)")
+        kernel1_share=f"{k1 / busy_ms:.3f}", top_kernels_ms=json.dumps(top(by_name)),
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if k1 <= 0.0:
+        raise AssertionError(f"kernel 1 not found among the profiled view's kernels {sorted(by_name)}")
+    view_vs_plain(torch, np, mc, mf, mcfg, rcfg, rays[0], out, 26, "object_view_vs_plain")
     return {"median_ms": median, "bound_ms": bound_ms, "launches": launches[0],
             "kernel1_share": k1 / busy_ms, "busy_share": busy_ms / wall_ms}
 
@@ -2347,23 +2301,18 @@ def object_llff_phase(torch, np, dev, card, od):
 
 def object_cube_phase(torch, np, dev, card):
     """``object_cube``: ``tools/validate_convergence.py`` at its defaults
-    (3,000 steps, 64x64, 60 views, 10 steps per call: graph replays of
-    the same steps, at the device's pace) through kernels 1 and 2; the
-    held-out PSNR must exceed 20."""
+    (3,000 steps, 64x64, 60 views) through kernels 1 and 2; the held-out
+    PSNR must exceed 20."""
     from intrinsicnerf_tpu_torch.tools import validate_convergence as vc
 
     zero_launches()
     result = vc.run(device=dev, save_dir=os.path.join(ROOT, "logs", "chip_smoke_cube"))
-    eager, captured, _, _ = run_launches()
-    launches = {k: eager[k] + result["replays"] * captured[k] for k in eager}
+    launches = run_launches()[0]
     say("object_cube", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in result.items()}, launches=json.dumps(launches),
-        eager_launches=json.dumps(eager), captured=json.dumps(captured),
         floor=vc.PSNR_FLOOR, card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
-    graphed = dev.type == "cuda"  # a capture warms up with one eager step
     if not (result["psnr"] > vc.PSNR_FLOOR and result["fused"]
-            and result["replays"] == (result["steps"] // vc.STEPS_PER_CALL if graphed else 0)
-            and launches["bwd"] == 2 * result["steps"] + (2 if graphed else 0)):
+            and launches["bwd"] == 2 * result["steps"]):
         raise AssertionError(f"the cube check failed: {result}, launches {launches}")
     return {**result, "launches": launches}
 
@@ -2388,7 +2337,9 @@ def mesh_phase(torch, np, dev, card, fit_cfg_path, obj_cfg_path):
     version on the host; the PLY read back (vertex and face counts,
     colours); the query's, the marching's and the render's times, the
     query beside its bound.  Then an object mesh from the object fit's
-    checkpoint at OBJ_MESH_GRID^3.  A fit of a few hundred steps has a
+    checkpoint at OBJ_MESH_GRID^3.  The slice held is the grid's query
+    chunk with the most occupancies above the level, within KERNEL_TOL of
+    its largest occupancy.  A fit of a few hundred steps has a
     soft density, so the level is half the largest occupancy of a
     MESH_PROBE^3 probe of the same bounds, at most the CLI's 0.45."""
     from intrinsicnerf_tpu_torch import extract_mesh
@@ -2419,11 +2370,17 @@ def mesh_phase(torch, np, dev, card, fit_cfg_path, obj_cfg_path):
             voxel)
         level = min(0.45, 0.5 * float(probe.max()))
         pts, _ = gm.grid_within_bound([-1.0, 1.0], extents, transform, grid)
-        mid = (len(pts) // 2) // gm.QUERY_CHUNK * gm.QUERY_CHUNK
-        sl = pts[mid:mid + gm.QUERY_CHUNK]
-        occ_k, _ = gm.query_density_grid(model, mcfg, sl, voxel)
-        occ_p, _ = gm.query_density_grid(copy.deepcopy(model).to("cpu"), mcfg, sl, voxel)
+        # the grid's query chunk with the most occupancies above the level
+        occ, _ = gm.query_density_grid(model, mcfg, pts, voxel)
+        above = [int((occ[s:s + gm.QUERY_CHUNK] > level).sum())
+                 for s in range(0, len(pts), gm.QUERY_CHUNK)]
+        s0 = int(np.argmax(above)) * gm.QUERY_CHUNK
+        occ_k = occ[s0:s0 + gm.QUERY_CHUNK]
+        occ_p, _ = gm.query_density_grid(copy.deepcopy(model).to("cpu"), mcfg,
+                                         pts[s0:s0 + gm.QUERY_CHUNK], voxel)
+        del occ
         err = float(np.abs(occ_k - occ_p).max())
+        slice_max, slice_above = float(occ_p.max()), int((occ_p > level).sum())
         macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
         ops = model.fused_operands(mcfg)
         pts_dev = torch.as_tensor(pts[:gm.QUERY_CHUNK], device=dev)
@@ -2469,14 +2426,18 @@ def mesh_phase(torch, np, dev, card, fit_cfg_path, obj_cfg_path):
             query_bound_ms=f"{bound_ms:.2f}", march_ms=f"{row['march_ms']:.1f}",
             marching=times["mesh_backend"], render_ms=f"{row['render_ms']:.1f}",
             write_ms=f"{1e3 * times['write_s']:.1f}",
-            occupancy_slice_max_abs_err=f"{err:.3g}", tol=KERNEL_TOL,
+            occupancy_slice=json.dumps({"first_point": s0, "above_level": slice_above,
+                                        "max": round(slice_max, 5), "max_abs_err": err}),
+            tol=f"{KERNEL_TOL} x the slice's max",
             ply=os.path.relpath(path, ROOT), card=json.dumps(card),
             clocks=json.dumps(smi(CLOCKS)))
         if not (eager["fwd"] == want and len(verts) == times["render_rays"] and len(faces) > 0
                 and faces.max() < len(verts) and np.isfinite(verts).all()
-                and len(colours) == len(verts) and colours.max() > 0 and err < KERNEL_TOL):
+                and len(colours) == len(verts) and colours.max() > 0 and slice_above > 0
+                and err <= KERNEL_TOL * slice_max):
             raise AssertionError(f"the {name} mesh: launches {eager} (want {want}), "
-                                 f"{len(verts)} vertices, {len(faces)} faces, occupancy {err}")
+                                 f"{len(verts)} vertices, {len(faces)} faces, occupancy slice "
+                                 f"{slice_above} above the level, max {slice_max}, error {err}")
         out[name] = row
         torch.cuda.empty_cache()
     return out
@@ -2715,26 +2676,7 @@ def main() -> int:
     del padded
 
     # the view against the plain version on a seeded subset of its rays
-    idx = torch.randperm(n_rays, generator=torch.Generator().manual_seed(3))[:SUBSET]
-    sub = rays[0, idx.to(dev)]
-    with torch.no_grad():
-        kern = render_rays_chunked(model_c, model_f, mcfg, sub, rcfg, SUBSET).fine
-        host_c = copy.deepcopy(model_c).to("cpu")
-        host_f = copy.deepcopy(model_f).to("cpu")
-        ref = render_rays_chunked(host_c, host_f, mcfg, sub.cpu(), rcfg, SUBSET).fine
-    flat = idx.numpy()
-    pairs = {
-        "rgb": (view["rgb"].reshape(-1, 3)[flat], ref.rgb.numpy()),
-        "depth": (view["depth"].reshape(-1)[flat], ref.depth.numpy()),
-        "albedo": (view["albedo"].reshape(-1, 3)[flat], ref.albedo.numpy()),
-        "sem_logits": (kern.sem_logits.float().cpu().numpy(), ref.sem_logits.numpy()),
-    }
-    errs = {}
-    for k, (a, b) in pairs.items():
-        errs[k] = float(np.mean(np.abs(a - b)) / max(np.abs(b).max(), 1.0))
-    say("view_vs_plain", rays=SUBSET, mean_rel_err=json.dumps(errs), tol=VIEW_TOL)
-    if not all(e <= VIEW_TOL for e in errs.values()):
-        raise AssertionError(f"rendered view disagrees with the plain version: {errs}")
+    view_vs_plain(torch, np, model_c, model_f, mcfg, rcfg, rays[0], view, 3, "view_vs_plain")
 
     # where a view's device time goes: one more view under the profiler
     wall_ms, busy_ms, by_name = profile_window(
@@ -2837,8 +2779,8 @@ def main() -> int:
         "mesh_grid": {k: {f: v[f] for f in ("points", "query_kernel_ms", "query_ms",
                                              "bound_ms", "occupancy_max_abs_err")}
                       for k, v in mesh.items()},
-        "scannet_view": sst["view"],
-        "launches_scannet_view": sst["view"]["launches"],
+        "scannet_view": sfit["view"],
+        "launches_scannet_view": sfit["view"]["launches"],
         **scene_data("fwd"),
     }, {
         "name": "fused_mlp_fwd_image",

@@ -18,8 +18,6 @@ run (neither dataset is in the repository):
   seeded share of pixels flipped).
 
     python -m intrinsicnerf_tpu_torch.tools.synthetic_replica OUT_DIR --frames 60
-    python -m intrinsicnerf_tpu_torch.tools.synthetic_replica OUT_DIR --scannet SCAN_DIR
-    python -m intrinsicnerf_tpu_torch.tools.synthetic_replica OUT_DIR --replica_nyu NYU_DIR
 """
 
 from __future__ import annotations
@@ -81,6 +79,8 @@ ROOM_TO_SCANNET = {1: (1, "wall", 1), 2: (2, "floor", 2), 3: (41, "ceiling", 22)
 ROOM_TO_NYU13 = np.array([0, 12, 5, 3, 6, 6, 10, 7, 7, 7, 8], np.uint8)
 ROOM_TO_NYU34 = np.array([0, 1, 2, 19, 3, 33, 7, 32, 34, 29, 10], np.uint8)
 SCANNET_SIZE = (1296, 968)  # a ScanNet colour frame, width x height
+NYU_FLIP = 0.1  # the share of pixels the "CNN" labels get wrong
+NYU_FLIP_SEED = 0
 
 
 def _frames(src: str):
@@ -142,17 +142,17 @@ def write_scannet_from_replica(src: str, out: str, scene_name: str = "scene0000_
     return len(frames)
 
 
-def write_replica_nyu_from_replica(src: str, out: str, flip: float = 0.1, seed: int = 0) -> int:
+def write_replica_nyu_from_replica(src: str, out: str) -> int:
     """Write the Replica-layout room in ``src`` in the Replica-NYU layout in
     ``out``: ``rgb/``, ``depth/`` and ``traj_w_c.txt`` copied; the ground
     truth as ``semantic_class_nyu13_remap/`` and
     ``semantic_class_nyu40_remap_nyu34/``; "CNN" predictions as
     ``CNN_semantic_class_nyu13/`` and ``CNN_semantic_class_nyu34/``: the
-    ground truth with a ``flip`` share of its pixels (seeded) set to a
-    random class.  Returns the number of frames."""
+    ground truth with a ``NYU_FLIP`` share of its pixels (seeded) set to
+    a random class.  Returns the number of frames."""
     from intrinsicnerf_tpu_torch.utils.image import imread, imwrite
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(NYU_FLIP_SEED)
     for sub in ("rgb", "depth"):
         shutil.copytree(os.path.join(src, sub), os.path.join(out, sub), dirs_exist_ok=True)
     shutil.copy(os.path.join(src, "traj_w_c.txt"), os.path.join(out, "traj_w_c.txt"))
@@ -165,7 +165,7 @@ def write_replica_nyu_from_replica(src: str, out: str, flip: float = 0.1, seed: 
         for f in frames:
             gt = table[imread(os.path.join(src, "semantic_class", f"semantic_class_{f}.png"))]
             cnn = gt.copy()
-            flipped = rng.random(gt.shape) < flip
+            flipped = rng.random(gt.shape) < NYU_FLIP
             cnn[flipped] = rng.integers(1, n_cls + 1, size=int(flipped.sum()))
             imwrite(os.path.join(out, gt_dir, f"semantic_class_{f}.png"), gt)
             imwrite(os.path.join(out, cnn_dir, f"semantic_class_{f}.png"), cnn)
@@ -178,19 +178,8 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--width", type=int, default=160)
     ap.add_argument("--height", type=int, default=120)
-    ap.add_argument("--scannet", metavar="SCAN_DIR", default=None,
-                    help="also write the room as a ScanNet scan into SCAN_DIR")
-    ap.add_argument("--scene_name", default="scene0000_00")
-    ap.add_argument("--replica_nyu", metavar="NYU_DIR", default=None,
-                    help="also write the room in the Replica-NYU layout into NYU_DIR")
     args = ap.parse_args(argv)
     print(write_synthetic_replica(args.out_dir, args.frames, args.width, args.height))
-    if args.scannet:
-        n = write_scannet_from_replica(args.out_dir, args.scannet, args.scene_name)
-        print(f"wrote {n} frames as ScanNet scan {args.scene_name} to {args.scannet}")
-    if args.replica_nyu:
-        n = write_replica_nyu_from_replica(args.out_dir, args.replica_nyu)
-        print(f"wrote {n} frames in the Replica-NYU layout to {args.replica_nyu}")
     return 0
 
 

@@ -9,10 +9,6 @@ On the card the MLP runs through the fused kernels (kernel 1 forward,
 kernel 2 backward); ``--device cpu`` runs their plain versions.
 
     python -m intrinsicnerf_tpu_torch.tools.validate_convergence [--steps 3000] [--res 64]
-
-The steps run in blocks of ``STEPS_PER_CALL``: on the card each block is
-one CUDA graph replay (the same steps as one per call, bitwise, at the
-device's pace rather than the host's); on the CPU a loop.
 """
 
 from __future__ import annotations
@@ -28,7 +24,6 @@ from intrinsicnerf_tpu_torch.core.rays import camera_ray_dirs, rays_to_world
 from intrinsicnerf_tpu_torch.data.blender import BlenderData, pose_spherical, spherical_render_poses
 
 PSNR_FLOOR = 20.0
-STEPS_PER_CALL = 10
 FACE_ALBEDO = {0: (0.85, 0.25, 0.2), 1: (0.2, 0.7, 0.3), 2: (0.25, 0.35, 0.85)}
 
 
@@ -84,7 +79,7 @@ def cube_config(steps: int, n_coarse: int, n_importance: int, fused: bool,
         render=RenderConfig(n_coarse=n_coarse, n_importance=n_importance, perturb=1.0,
                             raw_noise_std=0.0, white_bkgd=True),
         train=TrainConfig(n_rays=512, lrate=5e-4, lrate_decay=250e3, n_iters=steps,
-                          mask_mode="mask", steps_per_call=STEPS_PER_CALL),
+                          mask_mode="mask"),
         logging=LoggingConfig(step_log_tfb=500, step_save_ckpt=10**9, step_vis_train=10**9,
                               step_val=10**9),
         depth_range=(2.0, 6.0),
@@ -102,8 +97,7 @@ def cube_data(views: int, res: int, n_test: int = 2) -> BlenderData:
 
 def run(steps=3000, res=64, views=60, n_coarse=64, n_importance=64, device="cuda",
         save_dir="logs/validate_cube") -> dict:
-    """Train on the cube and return the held-out PSNR, the rate and the
-    graph replays made (none on the CPU)."""
+    """Train on the cube and return the held-out PSNR and the rate."""
     from intrinsicnerf_tpu_torch.core.metrics import psnr_np
     from intrinsicnerf_tpu_torch.train.prepare import prepare_blender_bundle
     from intrinsicnerf_tpu_torch.train.trainer import Trainer, make_object_sample_fn
@@ -118,7 +112,6 @@ def run(steps=3000, res=64, views=60, n_coarse=64, n_importance=64, device="cuda
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
-        replays = trainer.multi_step.replays if trainer.multi_step is not None else 0
         print(f"{steps} steps in {dt:.1f}s = {steps / dt:.1f} steps/s")
         gt = bundle.test_gt["image"]
         psnrs, accs = [], []
@@ -127,8 +120,7 @@ def run(steps=3000, res=64, views=60, n_coarse=64, n_importance=64, device="cuda
             accs.append(float(view["acc"].mean()))
     return {"psnr": float(np.mean(psnrs)), "steps": steps, "steps_per_s": steps / dt,
             "seconds": dt, "mean_acc": float(np.mean(accs)),
-            "fused": cfg.mlp.use_fused_kernel, "steps_per_call": STEPS_PER_CALL,
-            "replays": replays}
+            "fused": cfg.mlp.use_fused_kernel}
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,11 @@ weights:
   the plain versions on the host; then ``make_multi_step``: 8 steps
   captured as one CUDA graph and replayed, against 8 eager steps from
   the same state and generator (bitwise where two eager runs are),
-  kernels 1 and 2 found by name 16 times each in a profiled replay;
+  kernels 1 and 2 found by name 16 times each in a profiled replay; the
+  packed training state (``PackedMLP``, what the step trains here)
+  against the unpacked one from one seed, 8 graphed steps each held
+  bitwise after every step, and both states' replays split by kernel
+  name (kernel 1, its image, kernel 2, the rest by kind);
 - the forward probe (kernel 3, ``tools/fwd_probe.py``): its build's
   registers and spills (none allowed), its weight image bitwise, every
   case of its sweep (each variant, tile, layer count and output type),
@@ -41,7 +45,9 @@ weights:
   step, the parameters, the Adam state and the palette exactly and
   train on; once one step per call, once ``steps_per_call`` 10 (blocks
   of 10 steps as graph replays, the cadences landing as before, and a
-  replay after the last rebuild reading the new table);
+  replay after the last rebuild reading the new table); the editing
+  session (``tools/editing.py``) on the second run's last rebuild, its
+  cluster search on the card equal to the host's;
 - the bench (``tools/bench.py``) at 1 and 8 steps per call;
 - the other scene data on the same room: written as a ScanNet scan
   (1296x968 frames) and loaded at ``configs/scene/scannet_template.yaml``
@@ -62,7 +68,8 @@ weights:
   ``half_res``): the step (its kernels by name, a slice against the
   host, kernels 1 and 2 at its 131,072 / 393,216-point calls against
   their plain versions), 8 steps as one graph replay across the end of
-  the precrop warm-up, a 400x400 view, the CLI twin for 600 steps at 10
+  the precrop warm-up, the packed state against the unpacked one there
+  as on the Replica step, a 400x400 view, the CLI twin for 600 steps at 10
   per call with its rebuilds and evaluations, a resume in a second
   process, ``--render_only --render_test``, the blender_intrinsic loader,
   LLFF in NDC on five of its views, and the cube check of
@@ -138,6 +145,14 @@ SCENE_K = 10  # the graphed scene run's steps per call: divides 50, 200, 400 and
 # not bitwise: the JAX scan test's bounds (tests/test_train_step.py)
 GRAPH_TOTAL_RTOL, GRAPH_PARAM_ATOL, GRAPH_PARAM_RTOL = 1e-6, 1e-6, 1e-5
 SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
+# the packed training state against the unpacked one: graphed steps held
+# bitwise after each, then both paths' replays profiled by kernel name
+PACKED_STEPS = 8
+# the device time outside kernels 1 and 2, by what launched it: kernel
+# name substrings (a graph replay shows kernels, not host ops)
+REST_KINDS = (("adam", ("multi_tensor_apply", "adam", "Adam")),
+              ("pack_cat", ("CatArrayBatchedCopy",)), ("fill", ("FillFunctor",)),
+              ("copy_cast", ("copy_kernel", "bfloat16_copy", "direct_copy")))
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 # the object pipeline: configs/object/lego.txt on the synthetic object at
 # 800x800 (24 train, 1 val, 5 test views; half_res makes the views 400x400)
@@ -204,6 +219,12 @@ def cuda_ms(fn, iters: int, torch) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def network_macs(model) -> int:
+    """Multiply-adds per point of the network's own layers (its reference
+    state_dict's weights, in either layout)."""
+    return sum(v.numel() for k, v in model.state_dict().items() if k.endswith(".weight"))
 
 
 def fused_work(n_points: int, macs_per_point: int, n_weights: int, n_bias: int):
@@ -440,7 +461,97 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
     del multi
     torch.cuda.empty_cache()
     return {"eager_bitwise": eager_bitwise, "eager_ms": eager_ms, "graph_ms": graph_ms,
-            "busy_share": busy_ms / wall_ms, "replay_kernels": {n: int(v) for n, v in found.items()}}
+            "busy_share": busy_ms / wall_ms, "replay_kernels": {n: int(v) for n, v in found.items()},
+            "kernel1_ms": k1_ms / n_steps, "kernel2_ms": k2_ms / n_steps,
+            "image_ms": sum(v for name, v in by_name.items() if "fwd_wimg_kernel" in name) / n_steps,
+            "other_ms": sum(other.values()) / n_steps,
+            "other_by_kind": rest_by_kind(other, n_steps)}
+
+
+def rest_by_kind(other, n_steps):
+    """Device ms per step of the kernels outside kernels 1 and 2, by
+    REST_KINDS (the rest under ``other``)."""
+    out = {kind: 0.0 for kind, _ in REST_KINDS}
+    out["other"] = 0.0
+    for name, v in other.items():
+        kind = next((k for k, subs in REST_KINDS if any(x in name for x in subs)), "other")
+        out[kind] += v / n_steps
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, seed, phase,
+                 start=0):
+    """``phase``: the packed training state (``PackedMLP``, what
+    ``create_train_state`` makes here) against the unpacked one
+    (``IntrinsicMLP``), both from one seeded generator, the same draws and
+    generator state: PACKED_STEPS graphed steps each (a one-step graph
+    replayed once per step), the loss terms, the unpacked weights and
+    Adam's unpacked moments held bitwise after every step, the first step
+    and tensor that part named if any do.  Then both states' K-step
+    replays profiled by kernel name in the same call (``graph_phase``):
+    kernels 1 and 2 and the rest, by kind."""
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
+    from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
+    from intrinsicnerf_tpu_torch.train.step import create_train_state, make_multi_step
+
+    w_c_t = torch.tensor(w_c, dtype=torch.float32, device=dev)
+    states, runs = {}, {}
+    for packed in (True, False):
+        st = create_train_state(mcfg, tcfg, device=dev, packed=packed,
+                                generator=torch.Generator().manual_seed(seed))
+        if isinstance(st.model_fine, PackedMLP) != packed:
+            raise AssertionError(f"create_train_state(packed={packed}) made {st.model_fine}")
+        st.step = start
+        st.step_t.fill_(start)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        multi = make_multi_step(step_fn, 1)
+        after = []
+        for _ in range(PACKED_STEPS):
+            rep = torch.stack(list(multi(st, pools, table, w_c_t, gen)))
+            after.append(copy.deepcopy((rep, [m.state_dict() for m in (st.model_coarse,
+                                                                      st.model_fine)],
+                                           optimizer_state_dict(st)["state"])))
+        torch.cuda.synchronize()
+        states[packed], runs[packed] = (st, gen), after
+        del multi
+
+    def first_part():
+        for i, ((rp, wp, ap), (ru, wu, au)) in enumerate(zip(runs[True], runs[False])):
+            if not torch.equal(rp, ru):
+                return [i + 1, "loss terms", float((rp - ru).abs().max())]
+            for level, sp, su in zip(("coarse", "fine"), wp, wu):
+                for k in su:
+                    if not torch.equal(sp[k], su[k]):
+                        return [i + 1, f"{level} {k}", float((sp[k] - su[k]).abs().max())]
+            for j in au:
+                for n in ("exp_avg", "exp_avg_sq"):
+                    if not torch.equal(ap[j][n], au[j][n]):
+                        return [i + 1, f"adam {j} {n}", float((ap[j][n] - au[j][n]).abs().max())]
+        return None
+
+    part = first_part()
+    last = runs[True][-1][0]
+    say(phase, steps=PACKED_STEPS, bitwise=part is None, first_part=json.dumps(part),
+        total_after=json.dumps([float(f"{float(r[0][0]):.6g}") for r in runs[True]]),
+        finite=bool(torch.isfinite(last).all()), card=json.dumps(card))
+    del runs
+    graphs = {}
+    for packed, name in ((True, "packed"), (False, "unpacked")):
+        st, gen = states[packed]
+        graphs[name] = graph_phase(torch, np, step_fn, st, pools, table, w_c, gen, card,
+                                   phase=f"{phase}_graph_{name}")
+    split = {name: {k: (round(g[k], 4) if isinstance(g[k], float) else g[k]) for k in (
+        "graph_ms", "eager_ms", "kernel1_ms", "image_ms", "kernel2_ms", "other_ms",
+        "other_by_kind", "busy_share")} for name, g in graphs.items()}
+    say(f"{phase}_split", per_step_ms=json.dumps(split),
+        rest_saved_ms=f"{graphs['unpacked']['other_ms'] - graphs['packed']['other_ms']:.4f}",
+        graph_saved_ms=f"{graphs['unpacked']['graph_ms'] - graphs['packed']['graph_ms']:.4f}",
+        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
+    if part is not None or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"the packed steps part from the unpacked steps at {part}")
+    del states
+    torch.cuda.empty_cache()
+    return {"graphs": graphs}
 
 
 def step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
@@ -647,6 +758,9 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
 
     # K steps per call: eager against one CUDA graph replay
     graph = graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card)
+    # the packed state against the unpacked one, bitwise; both replays' split
+    packed = packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, 8,
+                          "train_packed")
 
     # one fixed batch with fixed draws: the generator is reseeded before each step
     totals = []
@@ -689,7 +803,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         top_kernels_ms=json.dumps(top(by_name)), card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
     return {"bwd_timing": bwd_timing, "bwd_max_err": bwd_max_err, "launches": launches,
-            "fwd_step_ms": fwd_step_ms, "graph": graph}
+            "fwd_step_ms": fwd_step_ms, "graph": graph, "packed": packed}
 
 
 def probe_phases(torch, np, dev, card, build_log):
@@ -1065,7 +1179,51 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
         raise AssertionError(f"the {phase} resume failed: {exact_resume}, {total2} launches")
     return {"launches": total, "eager_launches": eager, "replays": replays,
             "median_ms": median_ms, "table_check": table_check, "params": state_after,
-            "psnr_end": m_end["psnr"], "data_dir": data_dir}
+            "psnr_end": m_end["psnr"], "data_dir": data_dir, "save_dir": save_dir}
+
+
+def edit_phase(torch, np, dev, card, save_dir):
+    """``edit``: the editing session (``tools/editing.py``) on the scene
+    run's last rebuild: its renders and palette, the cluster search on
+    the card.  The cluster ids equal a host session's on every frame, at
+    least two clusters are in use on a frame, and after the same recolour
+    the composed edits agree within 1/255."""
+    from intrinsicnerf_tpu_torch.tools.editing import EditSession
+
+    renders = sorted(d for d in glob.glob(os.path.join(save_dir, "train_render", "step_*"))
+                     if os.path.exists(os.path.join(d, "cluster", "clusters.json")))
+    img_dir = renders[-1]
+    card_s = EditSession(img_dir, os.path.join(img_dir, "cluster"), device=dev)
+    host_s = EditSession(img_dir, os.path.join(img_dir, "cluster"), device="cpu")
+    ids = card_s.frame_ids()
+    load_ms, same_ids, in_use = [], True, []
+    for i in ids:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fc = card_s.load_frame(i)
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+        fh = host_s.load_frame(i)
+        same_ids = same_ids and np.array_equal(fc["cluster"], fh["cluster"])
+        used = fc["cluster"] >= 0
+        in_use.append(len(set(zip(fc["label"][used].tolist(), fc["cluster"][used].tolist()))))
+    # recolour the frame's commonest cluster in both sessions
+    f0 = card_s.load_frame(ids[0])
+    pairs, counts = np.unique(np.stack([f0["label"].ravel(), f0["cluster"].ravel()]), axis=1,
+                              return_counts=True)
+    keep = pairs[1] >= 0
+    sem, cid = (int(x) for x in pairs[:, keep][:, np.argmax(counts[keep])])
+    for sess in (card_s, host_s):
+        sess.set_cluster_color(sem, cid, [0.1, 0.8, 0.3])
+    diff = float(np.abs(card_s.compose(ids[0]) - host_s.compose(ids[0])).max())
+    say("edit", render_dir=json.dumps(os.path.relpath(img_dir, ROOT)), frames=len(ids),
+        cluster_ids_equal_host=same_ids, clusters_in_use=json.dumps(in_use),
+        recoloured=json.dumps([sem, cid]), compose_max_abs_diff=f"{diff:.3g}", tol=f"{1 / 255:.3g}",
+        ms_per_load_frame=f"{float(np.median(load_ms)):.2f}",
+        load_frame_ms=json.dumps([round(x, 2) for x in load_ms]), card=json.dumps(card))
+    if not (same_ids and max(in_use) >= 2 and diff <= 1 / 255):
+        raise AssertionError(f"the edit session on the card: ids equal {same_ids}, clusters in "
+                             f"use {in_use}, compose differs by {diff}")
+    return {"ms_per_load_frame": float(np.median(load_ms)), "frames": len(ids)}
 
 
 # ------------------------------------------------------- the other scene data
@@ -1130,17 +1288,17 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
     C > 0 the semantic blocks (the output block's columns 8 to 8 + C
     included) are among the blocks held; at C = 0 (an object) their
     gradient is exactly 0.  Times, and bounds at the network's own
-    multiply-adds (its ``nn.Linear`` weights)."""
+    multiply-adds (its reference weights)."""
     from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.tools import bwd_passes
 
     c = mcfg.num_semantic_classes if mcfg.enable_semantic else 0
     sem_blocks = ("w_m1", "b_m1", "w_m2", "b_m2")
-    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    macs = network_macs(model)
     bwd_macs = sum(bwd_passes.backward_macs(model).values())
     ops = model.fused_operands(mcfg)
-    masks = fm.packed_grad_masks(dict(model.named_parameters()), mcfg)
+    masks = fm.packed_grad_masks(model.state_dict(), mcfg)
     gen = torch.Generator(device=rays.device).manual_seed(seed)
     slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
               **({"semantic": (8, 8 + c)} if c else {})}
@@ -1358,7 +1516,7 @@ def scannet_step_phase(torch, np, dev, card, sd):
     n_rays = 2 * tcfg.n_rays
     points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)
     model = state.model_fine
-    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    macs = network_macs(model)
     bwd_macs = sum(bwd_passes.backward_macs(model).values())
     bound_ms = 1e3 * 2.0 * (macs + bwd_macs) * points / PEAK_BF16_FLOPS
     say("scannet_step", rays=n_rays, points_each_way=points, classes=c,
@@ -1442,7 +1600,7 @@ def scannet_view(torch, np, dev, card, trainer):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     view_ms = float(np.median(times))
-    macs = sum(m.weight.numel() for m in mf.modules() if isinstance(m, torch.nn.Linear))
+    macs = network_macs(mf)
     view_bound = 1e3 * 2.0 * macs * n_view * (2 * rcfg.n_coarse + rcfg.n_importance) \
         / PEAK_BF16_FLOPS
     shapes_ok = all(out[k].shape[:2] == (h, w) and np.isfinite(out[k]).all()
@@ -1895,7 +2053,7 @@ def object_step_phase(torch, np, dev, card, od):
     n_rays = 2 * tcfg.n_rays
     points = n_rays * (2 * rcfg.n_coarse + rcfg.n_importance)  # coarse + fine, each way
     model = state.model_fine
-    macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+    macs = network_macs(model)
     bwd_macs = sum(bwd_passes.backward_macs(model).values())
     bound_ms = 1e3 * 2.0 * (macs + bwd_macs) * points / PEAK_BF16_FLOPS
     say("object_step", rays=n_rays, points_each_way=points, launches=json.dumps(launches),
@@ -1956,6 +2114,8 @@ def object_graph_phase(torch, np, dev, card, od, st):
     state.step_t.fill_(start)
     graph = graph_phase(torch, np, st["step_fn"], state, pools, table, 0.1, gen, card,
                         phase="object_graph")
+    graph["packed"] = packed_phase(torch, np, dev, card, st["mcfg"], cfg.train, st["step_fn"],
+                                   pools, table, 0.1, 20, "object_packed", start=start)
 
     n = cfg.train.n_rays
     rec = torch.full((2, k, n), -1, dtype=torch.long, device=dev)
@@ -2381,7 +2541,7 @@ def mesh_phase(torch, np, dev, card, fit_cfg_path, obj_cfg_path):
         del occ
         err = float(np.abs(occ_k - occ_p).max())
         slice_max, slice_above = float(occ_p.max()), int((occ_p > level).sum())
-        macs = sum(m.weight.numel() for m in model.modules() if isinstance(m, torch.nn.Linear))
+        macs = network_macs(model)
         ops = model.fused_operands(mcfg)
         pts_dev = torch.as_tensor(pts[:gm.QUERY_CHUNK], device=dev)
         in8 = fm.build_in8(pts_dev[:, None], torch.zeros_like(pts_dev))
@@ -2543,7 +2703,7 @@ def main() -> int:
     del img_plain, img_card
     # the network's multiply-adds per point, and the kernel's in its
     # padded packed layout (the difference is work the kernel wastes)
-    macs = sum(m.weight.numel() for m in model_c.modules() if isinstance(m, torch.nn.Linear))
+    macs = network_macs(model_c)
     padded_macs = ops.wbuf.numel()
     say("work", macs_per_point=macs, padded_macs_per_point=padded_macs,
         padded_share_wasted=f"{1 - macs / padded_macs:.4f}")
@@ -2696,6 +2856,7 @@ def main() -> int:
     probe = probe_phases(torch, np, dev, card, builds[names.index("fwd_probe")][2])
     scene = scene_phases(torch, np, dev, card)
     scene_k = scene_phases(torch, np, dev, card, SCENE_K, train["graph"]["eager_bitwise"], scene)
+    edit_phase(torch, np, dev, card, scene_k["save_dir"])
     bench_phase(torch, card)
     room = scene_k["data_dir"]
     sd = scannet_data_phase(torch, np, dev, card, room)

@@ -14,12 +14,18 @@ Parameter names are the reference state_dict keys (``pts_linears.{i}``,
 ``alpha_linear``, ``semantic_linear.0.0`` ...), so a reference checkpoint
 loads with ``load_state_dict``.  ``nn.Linear`` stores ``[out, in]``; the
 JAX pytree stores ``[in, out]`` (``tools/import_ckpt.py`` converts).
+
+:class:`PackedMLP` holds the same weights in the fused kernels' layout
+(``ops/fused_mlp.py:FlatBlocks``), the packed training state that
+``train/step.py:packs_state`` selects; its ``state_dict`` and
+``load_state_dict`` speak the reference layout all the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from types import SimpleNamespace
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -53,7 +59,54 @@ class MLPConfig:
         return pe_output_dim(self.n_freqs_dir)
 
 
-class IntrinsicMLP(nn.Module):
+def fuses(cfg: MLPConfig) -> bool:
+    """Whether ``cfg`` evaluates through the fused kernels: the reference
+    architecture (D=8, skip 4, viewdirs on) with the PE widths and the
+    classes fitting the packed layout, and ``use_fused_kernel`` set."""
+    return (
+        cfg.use_fused_kernel
+        and cfg.depth == 8
+        and tuple(cfg.skips) == (4,)
+        and cfg.use_viewdirs
+        and cfg.input_ch <= fm.DIR_OFF
+        and cfg.input_ch_views <= fm.IN_W - fm.DIR_OFF
+        and 8 + max(cfg.num_semantic_classes, 1) <= fm.OUT_W
+    )
+
+
+class _FusedCache:
+    """The fused kernel's operands and PE constants, kept per model."""
+
+    def _init_cache(self):
+        self._fused: Optional[fm.FusedOperands] = None
+        self._fused_key: Optional[tuple] = None
+        self._pe: dict = {}
+
+    def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
+        """The fused kernel's operands for the current weights under
+        ``cfg`` (on the card with kernel 1's weight image), packed on the
+        first call and kept until ``cfg`` changes
+        or a parameter is changed in place (an optimizer step,
+        ``load_state_dict``), replaced or moved.  A write through
+        ``.data`` bypasses the version counter and is not seen."""
+        key = (cfg, *((p.data_ptr(), p._version) for p in self.parameters()))
+        if key != self._fused_key:
+            dev = next(self.parameters()).device
+            self._fused = fm.fused_operands(self._fused_params(), cfg, dev)
+            self._fused_key = key
+        return self._fused
+
+    def pe_constants(self, cfg: MLPConfig):
+        """The fused kernel's PE constants for ``cfg`` on the parameters'
+        device, made once (a host-to-device copy per step would stall)."""
+        dev = next(self.parameters()).device
+        key = (cfg.n_freqs_pos, cfg.n_freqs_dir, cfg.pos_scalar_factor, dev)
+        if key not in self._pe:
+            self._pe[key] = fm.pe_constants(cfg, dev)
+        return self._pe[key]
+
+
+class IntrinsicMLP(_FusedCache, nn.Module):
     """Weights of one level (coarse or fine).  Built on ``device``
     (default ``"cuda"``, which raises without a GPU) and initialised
     from ``generator`` with torch's ``U(+-1/sqrt(fan_in))`` Linear init."""
@@ -105,35 +158,114 @@ class IntrinsicMLP(nn.Module):
                     m.weight.uniform_(-bound, bound, generator=g)
                     m.bias.uniform_(-bound, bound, generator=g)
         self.to(dev)
-        self._fused: Optional[fm.FusedOperands] = None
-        self._fused_key: Optional[tuple] = None
-        self._pe: dict = {}
+        self._init_cache()
 
-    def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
-        """The fused kernel's operands for the current weights under
-        ``cfg`` (on the card with kernel 1's weight image), packed on the
-        first call and kept until ``cfg`` changes
-        or a parameter is changed in place (an optimizer step,
-        ``load_state_dict``), replaced or moved.  A write through
-        ``.data`` bypasses the version counter and is not seen."""
-        key = (cfg, *((p.data_ptr(), p._version) for p in self.parameters()))
-        if key != self._fused_key:
-            dev = next(self.parameters()).device
-            self._fused = fm.fused_operands(self.state_dict(), cfg, dev)
-            self._fused_key = key
-        return self._fused
-
-    def pe_constants(self, cfg: MLPConfig):
-        """The fused kernel's PE constants for ``cfg`` on the parameters'
-        device, made once (a host-to-device copy per step would stall)."""
-        dev = next(self.parameters()).device
-        key = (cfg.n_freqs_pos, cfg.n_freqs_dir, cfg.pos_scalar_factor, dev)
-        if key not in self._pe:
-            self._pe[key] = fm.pe_constants(cfg, dev)
-        return self._pe[key]
+    def _fused_params(self):
+        return self.state_dict()
 
     def forward(self, pts_embedded, dirs_embedded, want_endpoint_feat=False):
         return apply_mlp(self, self.cfg, pts_embedded, dirs_embedded, want_endpoint_feat)
+
+
+class PackedMLP(_FusedCache, nn.Module):
+    """Weights of one level as the packed training state: ``weight`` and
+    ``bias`` are the fused kernels' flat fp32 buffers
+    (``fm.FlatBlocks``: every packed block ``[in, out]`` in the kernels'
+    order, the padded slots zero), so a step neither packs nor unpacks,
+    and one optimizer updates two tensors per level.  The initial weights
+    are the pack of an :class:`IntrinsicMLP` made from the same
+    ``generator``, so both layouts start from the same network.
+
+    ``weight_mask`` / ``bias_mask`` mark the real parameter slots
+    (``fm.packed_grad_masks``): the padded slots get gradients from the
+    shared output product, and :meth:`mask_grads` drops them before the
+    update.  ``state_dict`` and ``load_state_dict`` speak the reference
+    layout (``[out, in]`` weights under the reference keys), unpacking and
+    packing, so checkpoints and the weight bridge treat both classes
+    alike."""
+
+    def __init__(self, cfg: MLPConfig, device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not fuses(cfg):
+            raise ValueError("packed state needs a configuration the fused kernels take "
+                             "(models/mlp.py:fuses)")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        ref = IntrinsicMLP(cfg, device="cpu", generator=generator).state_dict()
+        flat = fm.flatten_blocks(fm.pack_weights(ref, cfg))
+        mask = fm.flatten_blocks(fm.packed_grad_masks(ref, cfg))
+        self.weight = nn.Parameter(flat.weight.to(dev))
+        self.bias = nn.Parameter(flat.bias.to(dev))
+        self.register_buffer("weight_mask", mask.weight.to(dev), persistent=False)
+        self.register_buffer("bias_mask", mask.bias.to(dev), persistent=False)
+        self.reference_keys = tuple(ref)  # in IntrinsicMLP's parameter order
+        self._init_cache()
+
+    def flat(self) -> fm.FlatBlocks:
+        return fm.FlatBlocks(self.weight, self.bias)
+
+    def unpack(self, flat: fm.FlatBlocks) -> dict:
+        """Buffers in this layout (the weights, or Adam's moments of them)
+        -> the reference layout."""
+        return fm.unpack_weights(fm.flat_blocks(flat, self.cfg), self.cfg)
+
+    def pack(self, sd) -> fm.FlatBlocks:
+        """Inverse of :meth:`unpack`."""
+        return fm.flatten_blocks(fm.pack_weights(sd, self.cfg))
+
+    def _fused_params(self):
+        return self.flat()
+
+    @torch.no_grad()
+    def mask_grads(self) -> None:
+        """Project the gradients onto the real parameter slots."""
+        self.weight.grad.mul_(self.weight_mask)
+        self.bias.grad.mul_(self.bias_mask)
+
+    def unpacked(self) -> dict:
+        """The weights in the reference layout, differentiable through
+        the buffers."""
+        return self.unpack(self.flat())
+
+    def state_dict(self, *args, **kwargs):
+        """The reference state_dict: ``[out, in]`` weights under the
+        reference keys, copied out of the buffers."""
+        with torch.no_grad():
+            return {k: v.detach().clone() for k, v in self.unpacked().items()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """Pack a reference state_dict into the buffers in place."""
+        missing = sorted(set(self.reference_keys) - set(state_dict))
+        unexpected = sorted(set(state_dict) - set(self.reference_keys))
+        if missing or (strict and unexpected):
+            raise RuntimeError(f"PackedMLP.load_state_dict: missing keys {missing}, "
+                               f"unexpected keys {unexpected}")
+        dev = self.weight.device
+        flat = self.pack({k: state_dict[k].to(dev, torch.float32) for k in self.reference_keys})
+        self.weight.copy_(flat.weight)
+        self.bias.copy_(flat.bias)
+        return nn.modules.module._IncompatibleKeys([], unexpected)
+
+
+MLP = Union[IntrinsicMLP, PackedMLP]  # one level's weights, in either layout
+
+
+def _layers(sd: dict, cfg: MLPConfig) -> SimpleNamespace:
+    """A reference state_dict as the layer attributes :func:`apply_mlp`
+    reads."""
+    def lin(name):
+        return SimpleNamespace(weight=sd[f"{name}.weight"], bias=sd[f"{name}.bias"])
+
+    m = SimpleNamespace(
+        pts_linears=[lin(f"pts_linears.{i}") for i in range(cfg.depth)],
+        alpha_linear=lin("alpha_linear"), albedo_linear1=lin("albedo_linear1"),
+        albedo_linear2=lin("albedo_linear2"), shading_linear1=lin("shading_linear1"),
+        shading_linear2=lin("shading_linear2"), feature_linear=lin("feature_linear"),
+        views_linears=[lin("views_linears.0")], residual_linear=lin("residual_linear"))
+    if cfg.enable_semantic:
+        m.semantic_linear = [[lin("semantic_linear.0.0")], lin("semantic_linear.1")]
+    return m
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -198,7 +330,7 @@ def apply_mlp(
 
 
 def eval_points(
-    model: IntrinsicMLP,
+    model: MLP,
     cfg: MLPConfig,
     pts: torch.Tensor,  # [N, S, 3] world-space sample positions
     viewdirs: Optional[torch.Tensor],  # [N, 3] unit view directions
@@ -206,25 +338,21 @@ def eval_points(
 ) -> RawOutputs:
     """PE + MLP over a ray batch.  The reference architecture (D=8, skip
     4, viewdirs on, PE and classes fitting the packed layout) goes
-    through the fused kernels when ``cfg.use_fused_kernel`` is set: with
-    grad enabled, through a pack of the live parameters that autograd
-    differentiates (kernel 1 forward, kernel 2 backward); without, through
-    the operands the model keeps packed (kernel 1 only)."""
-    if (
-        cfg.use_fused_kernel
-        and not want_endpoint_feat
-        and cfg.depth == 8
-        and tuple(cfg.skips) == (4,)
-        and cfg.use_viewdirs
-        and viewdirs is not None
-        and cfg.input_ch <= fm.DIR_OFF
-        and cfg.input_ch_views <= fm.IN_W - fm.DIR_OFF
-        and 8 + max(cfg.num_semantic_classes, 1) <= fm.OUT_W
-    ):
-        if torch.is_grad_enabled():
-            return fm.fused_eval_points(dict(model.named_parameters()), cfg, pts, viewdirs,
-                                        pe=model.pe_constants(cfg))
-        return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
+    through the fused kernels when ``cfg.use_fused_kernel`` is set
+    (:func:`fuses`): with grad enabled, through the model's packed
+    buffers (a :class:`PackedMLP`) or a pack of its live parameters (an
+    :class:`IntrinsicMLP`), which autograd differentiates (kernel 1
+    forward, kernel 2 backward); without, through the operands the model
+    keeps (kernel 1 only).  Elsewhere a :class:`PackedMLP` is unpacked
+    first, as the JAX ``eval_points`` unpacks packed state."""
+    if fuses(cfg) and not want_endpoint_feat and viewdirs is not None:
+        if not torch.is_grad_enabled():
+            return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
+        params = (model.flat() if isinstance(model, PackedMLP)
+                  else dict(model.named_parameters()))
+        return fm.fused_eval_points(params, cfg, pts, viewdirs, pe=model.pe_constants(cfg))
+    if isinstance(model, PackedMLP):
+        model = _layers(model.unpacked(), model.cfg)
     pe_pts = positional_encoding(pts, cfg.n_freqs_pos, scalar_factor=cfg.pos_scalar_factor)
     pe_dirs = None
     if cfg.use_viewdirs and viewdirs is not None:

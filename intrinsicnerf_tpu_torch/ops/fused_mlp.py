@@ -30,12 +30,20 @@ bf16 cotangent of the packed output, recomputes the forward and returns
 fp32 gradients for all 38 packed blocks; ``fused_mlp_backward`` is its
 wrapper.  The cotangent is bf16 because the output is, as in JAX
 (``fused_mlp.py:57-65``).  The points and the PE constants get no
-gradient, which is exact: NeRF samples are not parameters.  Training
-packs the live parameters (``pack_weights`` is pads and slices only, so
-autograd carries the packed gradients back to the ``nn.Linear``
-parameters) and differentiates through :class:`FusedMLP`.  The backward
-of the pack keeps only the real parameter slots, which is the JAX
-projection ``packed_grad_masks``.
+gradient, which is exact: NeRF samples are not parameters.
+
+Training state comes in two layouts.  The packed one (the twin of the JAX
+``packs_state``) is :class:`FlatBlocks`: the kernels' own flat fp32
+buffers, every weight block in ``_W_ORDER`` and the biases in
+``_B_ORDER`` then the one output-bias row.  :class:`FusedMLPFlat`
+differentiates through them: kernel 1's bf16 weights are one cast of the
+weight buffer, and kernel 2's flat ``dw``/``db`` are the buffers'
+gradients as they stand (the step projects them with the
+:func:`packed_grad_masks` mask).  The unpacked layout keeps the
+``nn.Linear`` parameters: :class:`FusedMLP` takes a pack of the live
+parameters (``pack_weights`` is pads and slices only, so autograd
+carries the packed gradients back to them), and the backward of the pack
+keeps only the real parameter slots, which is the same projection.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
@@ -84,6 +92,7 @@ _B_ORDER = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7",
             "b_a1", "b_s1", "b_f", "b_v", "b_m1")
 _B_OUT = ("b_sig", "b_a2", "b_s2", "b_r", "b_m2")  # summed into one out bias
 W_TOTAL = 835_584  # bf16 weights in the flat buffer at the kernel's width
+B_TOTAL = 2_944  # fp32 biases in the flat buffer at the kernel's width
 # kernel 1's weight image: the blocks in the order its products stream them
 # (csrc/fused_mlp_fwd.cu, SEG_TABLE), each as in/64 K-slabs of 64 rows
 FWD_IMAGE_ORDER = (
@@ -255,6 +264,69 @@ def packed_grad_masks(params: Mapping[str, torch.Tensor], cfg) -> Packed:
     return pack_weights({k: torch.ones_like(v) for k, v in params.items()}, cfg)
 
 
+class FlatBlocks(NamedTuple):
+    """The packed blocks as the kernels' two flat fp32 buffers: the packed
+    training state's layout."""
+
+    weight: torch.Tensor  # every weight block [in, out] row-major, in _W_ORDER
+    bias: torch.Tensor  # _B_ORDER, then the output-bias row the five heads share
+
+
+def block_shapes(width: int) -> Dict[str, Tuple[int, int]]:
+    """``[in, out]`` of each packed block at trunk width ``width`` (a bias
+    block is ``[1, out]``; the output-bias heads are one ``OUT_W`` row in
+    the flat layout)."""
+    w, h = width, width // 2
+    shapes = {"w0": (IN_W, w), "w1": (w, w), "w2": (w, w), "w3": (w, w), "w4": (w, w),
+              "w5x": (IN_W, w), "w5h": (w, w), "w6": (w, w), "w7": (w, w),
+              "w_sig": (w, OUT_W), "w_a1": (w, h), "w_a2": (h, OUT_W), "w_s1": (w, h),
+              "w_s2": (h, OUT_W), "w_f": (w, w), "wv_f": (w, h), "wv_d": (IN_W, h),
+              "w_r": (h, OUT_W), "w_m1": (w, h), "w_m2": (h, OUT_W)}
+    for k in _B_ORDER:
+        shapes[k] = (1, h if k in ("b_a1", "b_s1", "b_v", "b_m1") else w)
+    return shapes
+
+
+def _out_slots(cfg) -> Dict[str, Tuple[int, int]]:
+    """Each output-bias head's columns of the shared output row."""
+    c = cfg.num_semantic_classes if cfg.enable_semantic else 0
+    return {"b_sig": (0, 1), "b_a2": (1, 4), "b_s2": (4, 5), "b_r": (5, 8), "b_m2": (8, 8 + c)}
+
+
+def flatten_blocks(p: Packed) -> FlatBlocks:
+    """Packed blocks -> :class:`FlatBlocks`; the output-bias row is the
+    sum of the five heads' rows, whose slots are disjoint."""
+    b_out = p[_B_OUT[0]]
+    for k in _B_OUT[1:]:
+        b_out = b_out + p[k]
+    return FlatBlocks(torch.cat([p[k].reshape(-1) for k in _W_ORDER]).float(),
+                      torch.cat([p[k].reshape(-1) for k in _B_ORDER]
+                                + [b_out.reshape(-1)]).float())
+
+
+def flat_blocks(flat: FlatBlocks, cfg) -> Packed:
+    """Inverse of :func:`flatten_blocks`: the weight and inner-bias blocks
+    as views of the buffers, and each output-bias head as its own slots of
+    the shared row (zero elsewhere), as :func:`pack_weights` lays it."""
+    shapes = block_shapes(cfg.width)
+    p: Packed = {}
+    for buf, keys in ((flat.weight, _W_ORDER), (flat.bias, _B_ORDER)):
+        i = 0
+        for k in keys:
+            rows, cols = shapes[k]
+            p[k] = buf[i : i + rows * cols].view(rows, cols)
+            i += rows * cols
+        want = i + (OUT_W if buf is flat.bias else 0)
+        if buf.shape != (want,):
+            raise ValueError(f"flat buffer of {tuple(buf.shape)} does not fit width "
+                             f"{cfg.width} ({want} values)")
+    out = flat.bias[-OUT_W:].view(1, OUT_W)
+    for k, (s, e) in _out_slots(cfg).items():
+        p[k] = torch.zeros_like(out)
+        p[k][:, s:e] = out[:, s:e]
+    return {k: p[k] for k in _PACKED_KEYS}
+
+
 def build_in8(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
     """``[N, S, 3]`` pts + ``[N, 3]`` dirs -> packed ``[N*S, 8]`` input
     ``[x, y, z, dx, dy, dz, 1, 0]``.  ``viewdirs`` is required: the
@@ -396,26 +468,13 @@ def fused_mlp_backward_plain(packed: Packed, pe_consts, in8: torch.Tensor,
     return {k: grads[k] for k in _PACKED_KEYS}
 
 
-def kernel_buffers(packed: Packed):
+def kernel_buffers(packed):
     """The kernel's flat operands: all weights as one bf16 buffer (each
     block ``[in, out]`` row-major, in ``_W_ORDER``) and all biases as one
-    fp32 buffer (``_B_ORDER`` then the summed output bias)."""
-    wbuf = torch.cat([packed[k].to(torch.bfloat16).reshape(-1) for k in _W_ORDER])
-    b_out = packed[_B_OUT[0]]
-    for k in _B_OUT[1:]:
-        b_out = b_out + packed[k]
-    bbuf = torch.cat([packed[k].reshape(-1) for k in _B_ORDER] + [b_out.reshape(-1)])
-    return wbuf.contiguous(), bbuf.float().contiguous()
-
-
-def _kernel_block_shapes() -> Dict[str, Tuple[int, int]]:
-    """``[in, out]`` of each packed weight block at the kernel's width."""
-    w, h = KERNEL_WIDTH, KERNEL_WIDTH // 2
-    return {"w0": (IN_W, w), "w1": (w, w), "w2": (w, w), "w3": (w, w), "w4": (w, w),
-            "w5x": (IN_W, w), "w5h": (w, w), "w6": (w, w), "w7": (w, w),
-            "w_sig": (w, OUT_W), "w_a1": (w, h), "w_a2": (h, OUT_W), "w_s1": (w, h),
-            "w_s2": (h, OUT_W), "w_f": (w, w), "wv_f": (w, h), "wv_d": (IN_W, h),
-            "w_r": (h, OUT_W), "w_m1": (w, h), "w_m2": (h, OUT_W)}
+    fp32 buffer (``_B_ORDER`` then the summed output bias), from packed
+    blocks or from :class:`FlatBlocks`, which hold that layout already."""
+    flat = packed if isinstance(packed, FlatBlocks) else flatten_blocks(packed)
+    return flat.weight.detach().to(torch.bfloat16), flat.bias.detach()
 
 
 def swizzled_slabs(block: torch.Tensor) -> torch.Tensor:
@@ -442,7 +501,7 @@ def _count_launch(wrapper) -> None:
 def fwd_weight_image_plain(wbuf: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel 1's weight image: the swizzled
     K-slabs of each block of ``FWD_IMAGE_ORDER`` (W ``[in, out]``)."""
-    shapes = _kernel_block_shapes()
+    shapes = block_shapes(KERNEL_WIDTH)
     blocks, i = {}, 0
     for k in _W_ORDER:
         rows, cols = shapes[k]
@@ -485,7 +544,7 @@ class FusedOperands(NamedTuple):
     """Everything the fused forward reads besides the points, made once
     per set of weights by :func:`fused_operands`."""
 
-    packed: Packed  # fp32 [in, out] blocks: the plain version's operands
+    packed: Optional[Packed]  # fp32 [in, out] blocks: the plain version's operands
     pe: Tuple[torch.Tensor, torch.Tensor]  # pe_mat [8, 128], sin_mask [1, 128]
     wbuf: torch.Tensor  # the kernels' flat bf16 weights
     bbuf: torch.Tensor  # the kernels' flat fp32 biases
@@ -502,21 +561,25 @@ def _image_for(wbuf: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def fused_operands(params, cfg, device) -> FusedOperands:
-    """Pack ``params`` (a model state_dict or an already-packed dict) on
-    their device, build the PE constants on ``device`` and, on the card,
-    kernel 1's weight image."""
-    packed = params if is_packed(params) else pack_weights(params, cfg)
-    wbuf, bbuf = kernel_buffers(packed)
+    """Pack ``params`` (a model state_dict, an already-packed dict or
+    :class:`FlatBlocks`) on their device, build the PE constants on
+    ``device`` and, on the card, kernel 1's weight image."""
+    if isinstance(params, FlatBlocks):
+        packed = flat_blocks(FlatBlocks(params.weight.detach(), params.bias.detach()), cfg)
+        wbuf, bbuf = kernel_buffers(params)
+    else:
+        packed = params if is_packed(params) else pack_weights(params, cfg)
+        wbuf, bbuf = kernel_buffers(packed)
     return FusedOperands(packed, pe_constants(cfg, device), wbuf, bbuf, _image_for(wbuf))
 
 
 def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
     if in8.dtype != torch.float32 or in8.dim() != 2 or in8.shape[1] != IN8_W:
         raise ValueError(f"in8 must be float32 [P, {IN8_W}], got {in8.dtype} {tuple(in8.shape)}")
-    if ops.packed["w1"].shape != (KERNEL_WIDTH, KERNEL_WIDTH):
+    if ops.wbuf.shape != (W_TOTAL,) or ops.bbuf.shape != (B_TOTAL,):
         raise ValueError(
-            f"the CUDA kernel is built for width {KERNEL_WIDTH}, got "
-            f"{tuple(ops.packed['w1'].shape)}"
+            f"the CUDA kernel is built for width {KERNEL_WIDTH} ({W_TOTAL} weights, "
+            f"{B_TOTAL} biases), got {tuple(ops.wbuf.shape)} and {tuple(ops.bbuf.shape)}"
         )
     for t in (*ops.pe, ops.wbuf, ops.bbuf):
         if t.device != in8.device:
@@ -588,15 +651,25 @@ def _unflatten_grads(dw: torch.Tensor, db: torch.Tensor, packed: Packed) -> Pack
     return {k: grads[k] for k in _PACKED_KEYS}
 
 
-def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -> Packed:
-    """fp32 gradients of all packed blocks for the bf16 cotangent ``g``
-    ``[P, 128]`` of the packed output at the points ``in8``.
+def _flatten_grads(grads: Packed):
+    """Inverse of :func:`_unflatten_grads`: the blocks' gradients in
+    kernel 2's flat layouts (the output bias's is any head's, as all five
+    carry it)."""
+    return (torch.cat([grads[k].reshape(-1) for k in _W_ORDER]),
+            torch.cat([grads[k].reshape(-1) for k in _B_ORDER] + [grads[_B_OUT[0]].reshape(-1)]))
+
+
+def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor):
+    """fp32 gradients ``(dw, db)`` of the kernels' flat weight and bias
+    buffers (the layouts of :func:`kernel_buffers`, and so of
+    :class:`FlatBlocks`) for the bf16 cotangent ``g`` ``[P, 128]`` of the
+    packed output at the points ``in8``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 2 (one
     launch, counted in ``fused_mlp_backward.launches``).  Two launches on
     the same inputs give bitwise-equal gradients."""
     if in8.device.type == "cpu":
-        return fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+        return _flatten_grads(fused_mlp_backward_plain(ops.packed, ops.pe, in8, g))
     if in8.device.type != "cuda":
         raise ValueError(f"fused MLP: unsupported device {in8.device}")
     _check_cuda_operands(ops, in8)
@@ -612,7 +685,7 @@ def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -
     dw = new(ops.wbuf.numel(), dtype=torch.float32, device=dev)  # the weight layout
     db = new(ops.bbuf.numel(), dtype=torch.float32, device=dev)  # the bias layout
     if n == 0:
-        return _unflatten_grads(dw, db, ops.packed)
+        return dw, db
     in8, g = in8.contiguous(), g.contiguous()
     pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
     splits = backward_splits(n)
@@ -631,7 +704,15 @@ def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
     _count_launch(fused_mlp_backward)
-    return _unflatten_grads(dw, db, ops.packed)
+    return dw, db
+
+
+def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -> Packed:
+    """:func:`fused_mlp_backward_flat` as one fp32 gradient per packed
+    block (on CPU tensors, the plain version's own blocks)."""
+    if in8.device.type == "cpu":
+        return fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    return _unflatten_grads(*fused_mlp_backward_flat(ops, in8, g), ops.packed)
 
 
 fused_mlp_backward.launches = fused_mlp_backward.captured = 0
@@ -660,18 +741,55 @@ class FusedMLP(torch.autograd.Function):
         return (None, None, None, *(grads[k] for k in _PACKED_KEYS))
 
 
+class FusedMLPFlat(torch.autograd.Function):
+    """The fused MLP on the packed training state: ``(in8, pe_mat,
+    sin_mask, weight, bias, cfg)`` -> ``[P, 128]`` bf16, with ``weight``
+    and ``bias`` the buffers of :class:`FlatBlocks`.  On the card the
+    forward casts ``weight`` to bf16 once and builds kernel 1's image from
+    it, and kernel 2's ``dw``/``db`` are the buffers' gradients as they
+    stand; on CPU tensors the plain versions run on views of the
+    buffers.  Nothing is packed or unpacked."""
+
+    @staticmethod
+    def _operands(in8, pe_mat, sin_mask, weight, bias, cfg, wbuf=None):
+        """Kernel 2's operands (the plain versions' blocks on the host)."""
+        flat = FlatBlocks(weight.detach(), bias.detach())
+        if in8.device.type != "cuda":
+            return FusedOperands(flat_blocks(flat, cfg), (pe_mat, sin_mask), None, None)
+        wbuf = wbuf if wbuf is not None else kernel_buffers(flat)[0]
+        return FusedOperands(None, (pe_mat, sin_mask), wbuf, flat.bias)
+
+    @staticmethod
+    def forward(ctx, in8, pe_mat, sin_mask, weight, bias, cfg):
+        ops = FusedMLPFlat._operands(in8, pe_mat, sin_mask, weight, bias, cfg)
+        ops = ops._replace(wimg=_image_for(ops.wbuf))  # kernel 1's alone
+        ctx.save_for_backward(in8, pe_mat, sin_mask, weight, bias)
+        ctx.cfg, ctx.wbuf = cfg, ops.wbuf
+        return fused_mlp_forward(ops, in8)
+
+    @staticmethod
+    def backward(ctx, g):
+        in8, pe_mat, sin_mask, weight, bias = ctx.saved_tensors
+        ops = FusedMLPFlat._operands(in8, pe_mat, sin_mask, weight, bias, ctx.cfg, ctx.wbuf)
+        dw, db = fused_mlp_backward_flat(ops, in8, g.to(torch.bfloat16))
+        return None, None, None, dw, db, None
+
+
 def fused_mlp_apply(params, cfg, in8: torch.Tensor, pe=None) -> torch.Tensor:
     """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.
 
     ``params`` is ``FusedOperands`` (packed once, no gradient: the serving
-    path), or a model state_dict / ``named_parameters`` dict or an
-    already-packed dict, which is packed here and differentiated through
-    :class:`FusedMLP`.  ``pe`` overrides the PE constants built on
-    ``in8``'s device."""
+    path), :class:`FlatBlocks` (the packed training state, differentiated
+    through :class:`FusedMLPFlat`), or a model state_dict /
+    ``named_parameters`` dict or an already-packed dict, which is packed
+    here and differentiated through :class:`FusedMLP`.  ``pe`` overrides
+    the PE constants built on ``in8``'s device."""
     if isinstance(params, FusedOperands):
         return fused_mlp_forward(params, in8).float()
-    packed = params if is_packed(params) else pack_weights(params, cfg)
     F, m = pe if pe is not None else pe_constants(cfg, in8.device)
+    if isinstance(params, FlatBlocks):
+        return FusedMLPFlat.apply(in8, F, m, params.weight, params.bias, cfg).float()
+    packed = params if is_packed(params) else pack_weights(params, cfg)
     return FusedMLP.apply(in8, F, m, *(packed[k] for k in _PACKED_KEYS)).float()
 
 

@@ -26,7 +26,7 @@ from intrinsicnerf_tpu_torch.core.sampling import (
     sorted_uniforms,
     stratified_z_vals,
 )
-from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig, eval_points
+from intrinsicnerf_tpu_torch.models.mlp import MLP, MLPConfig, eval_points
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +78,8 @@ def _need(x: Optional[torch.Tensor], name: str) -> torch.Tensor:
 
 
 def render_rays(
-    model_coarse: IntrinsicMLP,
-    model_fine: Optional[IntrinsicMLP],
+    model_coarse: MLP,
+    model_fine: Optional[MLP],
     mlp_cfg: MLPConfig,
     rays: torch.Tensor,  # [N, 11] = [o(3), d(3), near, far, viewdir(3)]
     rcfg: RenderConfig,
@@ -138,8 +138,8 @@ def _cat(parts):
 
 
 def render_rays_chunked(
-    model_coarse: IntrinsicMLP,
-    model_fine: Optional[IntrinsicMLP],
+    model_coarse: MLP,
+    model_fine: Optional[MLP],
     mlp_cfg: MLPConfig,
     rays: torch.Tensor,  # [M, 11]; any M
     rcfg: RenderConfig,

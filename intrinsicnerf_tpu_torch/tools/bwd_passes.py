@@ -38,17 +38,18 @@ N_CLASSES = 27
 
 
 def backward_macs(model) -> dict:
-    """Multiply-adds per point of the backward on the network's own layers:
+    """Multiply-adds per point of the backward on the network's own layers
+    (its reference state_dict's weights, in either layout):
     the forward without the five output products, the weight product of
     every layer, the input product of every layer whose input depends on
     parameters (all but the PE-fed w0, w5x and wv_d).  A model without
     the semantic head (the object configurations) counts none of it."""
     cfg = model.cfg
-    lin = {n: m for n, m in model.named_modules() if isinstance(m, torch.nn.Linear)}
-    macs = sum(m.weight.numel() for m in lin.values())
-    out_macs = sum(lin[n].weight.numel() for n in ("alpha_linear", "albedo_linear2",
-                                                    "shading_linear2", "residual_linear",
-                                                    "semantic_linear.1") if n in lin)
+    lin = {k[: -len(".weight")]: v for k, v in model.state_dict().items() if k.endswith(".weight")}
+    macs = sum(w.numel() for w in lin.values())
+    out_macs = sum(lin[n].numel() for n in ("alpha_linear", "albedo_linear2",
+                                            "shading_linear2", "residual_linear",
+                                            "semantic_linear.1") if n in lin)
     pe_macs = 2 * cfg.input_ch * cfg.width + cfg.input_ch_views * (cfg.width // 2)
     return {"fwd_recompute": macs - out_macs, "weight_products": macs,
             "input_products": macs - pe_macs}

@@ -9,8 +9,15 @@ shading head ``test_linear1/2`` and its residual head ``shading_linear``
 The JAX package keeps ``{"trunk": [{"kernel", "bias"}, ...], "sigma":
 ..., ...}`` with ``[in, out]`` kernels; :func:`params_from_jax` and
 :func:`params_to_jax` convert between that tree (as numpy) and a
-state_dict.  This module keeps its own copy of the name maps: the port
-imports nothing of the JAX package.
+state_dict.  Its packed state (the kernels' 38 padded blocks, kept where
+the JAX ``packs_state`` holds) maps straight onto the port's packed
+training state (``models/mlp.py:PackedMLP``, the kernels' flat buffers)
+with :func:`packed_from_jax` and back with :func:`packed_to_jax`; no
+unpacking in between.  :func:`load_reference_state` loads a reference
+checkpoint into a training state of either layout (a packed one packs
+it, as the JAX ``import_reference_checkpoint`` does).  This module keeps
+its own copy of the name maps: the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from intrinsicnerf_tpu_torch import resolve_device
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
 # JAX pytree head name -> reference / port module name
 HEADS = {
@@ -146,3 +154,34 @@ def params_to_jax(module: torch.nn.Module) -> Dict[str, Any]:
         if f"{name}.weight" in sd:
             tree[head] = get(name)
     return tree
+
+
+def packed_from_jax(tree: Dict[str, Any], device="cuda") -> fm.FlatBlocks:
+    """A JAX packed-state tree (the 38 blocks of its ``pack_weights``, as
+    numpy) -> the port's packed buffers on ``device``, for
+    ``PackedMLP.weight`` / ``.bias``."""
+    dev = resolve_device(device)
+    flat = fm.flatten_blocks({k: torch.from_numpy(np.array(v, np.float32)) for k, v in tree.items()})
+    return fm.FlatBlocks(flat.weight.to(dev), flat.bias.to(dev))
+
+
+def packed_to_jax(model) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`packed_from_jax`: a ``PackedMLP`` -> the JAX
+    packed tree of numpy blocks."""
+    blocks = fm.flat_blocks(fm.FlatBlocks(model.weight.detach(), model.bias.detach()), model.cfg)
+    return {k: _np(v) for k, v in blocks.items()}
+
+
+def load_reference_state(path: str, state) -> int:
+    """Load a reference ``.ckpt``/``.tar`` (or a port checkpoint) into the
+    models of a training state of either layout (a ``PackedMLP`` packs
+    the weights), set its step counts to the file's ``global_step`` and
+    return it.  Adam's moments are not read, as the JAX
+    ``import_reference_checkpoint`` reads none."""
+    step, sd_c, sd_f = load_reference_checkpoint(path)
+    state.model_coarse.load_state_dict(to_port_state_dict(sd_c))
+    if state.model_fine is not None and sd_f is not None:
+        state.model_fine.load_state_dict(to_port_state_dict(sd_f))
+    state.step = step
+    state.step_t.fill_(step)
+    return step

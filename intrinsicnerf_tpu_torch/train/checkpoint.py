@@ -9,6 +9,13 @@ so ``import_reference_ckpt.py`` brings a port run into the JAX package.
 It adds ``generator_state``, the training draws' generator, so that a
 resumed run draws what the uninterrupted run would have.
 
+A packed training state (``models/mlp.py:PackedMLP``) is written in the
+same layout: its models' ``state_dict`` is the reference one, and Adam's
+moments are unpacked the same way into the per-parameter entries the
+unpacked path's Adam keeps (their padded slots are zero, so nothing is
+lost).  A restore into packed state packs them again, so a file loads
+into either layout and a packed resume stays exact.
+
 The optimizer's state dict carries Adam's moments and each parameter's
 step count, so a restore resumes bias correction exactly; the learning
 rate the step sets by hand is recomputed from ``global_step`` (the file
@@ -29,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.train.step import TrainState
 
 MAX_TO_KEEP = 5  # checkpoints kept per run, as the JAX package keeps
@@ -62,6 +71,51 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _models(state: TrainState) -> list:
+    return [m for m in (state.model_coarse, state.model_fine) if m is not None]
+
+
+def optimizer_state_dict(state: TrainState) -> dict:
+    """Adam's state dict in the unpacked layout: one entry per reference
+    parameter of each model in turn, a packed model's moments unpacked."""
+    opt_sd = state.optimizer.state_dict()
+    if not isinstance(state.model_coarse, PackedMLP):
+        return opt_sd
+    adam_of = state.optimizer.state
+    out, i = {}, 0
+    for m in _models(state):
+        adam = adam_of.get(m.weight)
+        moments = {n: m.unpack(fm.FlatBlocks(adam[n], adam_of[m.bias][n])) for n in _MOMENTS
+                   } if adam else None
+        for key in m.reference_keys:
+            if moments is not None:
+                out[i] = {"step": adam["step"].clone(), **{n: moments[n][key] for n in _MOMENTS}}
+            i += 1
+    (group,) = opt_sd["param_groups"]
+    return {"state": out, "param_groups": [{**group, "params": list(range(i))}]}
+
+
+def _packed_optimizer_state_dict(state: TrainState, opt_sd: dict) -> dict:
+    """Inverse of :func:`optimizer_state_dict`: the unpacked layout's
+    entries packed into each packed model's two buffers."""
+    out, i, j = {}, 0, 0
+    for m in _models(state):
+        keys = m.reference_keys
+        first = opt_sd["state"].get(i)
+        if first is not None:
+            flat = {n: m.pack({k: opt_sd["state"][i + q][n] for q, k in enumerate(keys)})
+                    for n in _MOMENTS}
+            for buf, name in ((j, "weight"), (j + 1, "bias")):
+                out[buf] = {"step": first["step"].clone(),  # Adam counts each in place
+                            **{n: getattr(flat[n], name) for n in _MOMENTS}}
+        i, j = i + len(keys), j + 2
+    (group,) = opt_sd["param_groups"]
+    return {"state": out, "param_groups": [{**group, "params": list(range(j))}]}
+
+
 def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> dict:
     """The checkpoint dict of ``state``, on the host."""
     ckpt = {
@@ -69,7 +123,7 @@ def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> 
         "network_coarse_state_dict": state.model_coarse.state_dict(),
         "network_fine_state_dict": (state.model_fine.state_dict()
                                     if state.model_fine is not None else None),
-        "optimizer_state_dict": state.optimizer.state_dict(),
+        "optimizer_state_dict": optimizer_state_dict(state),
     }
     if generator is not None:
         ckpt["generator_state"] = generator.get_state()
@@ -90,6 +144,8 @@ def restore_into(state: TrainState, ckpt: dict,
     # Adam places its step counts by the loaded groups' ``capturable``:
     # keep this optimizer's, so a host run's file resumes on the card
     opt_sd = ckpt["optimizer_state_dict"]
+    if isinstance(state.model_coarse, PackedMLP):
+        opt_sd = _packed_optimizer_state_dict(state, opt_sd)
     groups = [{**saved, "capturable": own["capturable"]}
               for saved, own in zip(opt_sd["param_groups"], state.optimizer.param_groups)]
     state.optimizer.load_state_dict({**opt_sd, "param_groups": groups})

@@ -12,14 +12,17 @@ Port of ``intrinsicnerf_tpu/train/step.py:make_train_step``:
 - Adam (b1 0.9, b2 0.999, eps 1e-8, as optax's) over both levels with
   the exponentially decayed LR read at the pre-update step.
 
-The JAX step is a pure function over packed state with a 0/1 gradient
-mask on the padded packed slots.  Here the state is the two
-``IntrinsicMLP``s (reference state_dict keys) and one
-``torch.optim.Adam``; the fused path packs the live parameters each
-call, and the backward of that pack drops the padded slots, so Adam on
-the ``nn.Linear`` parameters is the JAX Adam on the masked packed state
-(whose masked slots keep zero moments and never move).  All random draws
-come from the ``torch.Generator`` handed to the step.
+The state is the coarse and fine models and one ``torch.optim.Adam``.
+Where :func:`packs_state` holds (the fused kernels take the
+configuration), the models are ``PackedMLP``s, the twin of the JAX
+packed state: Adam updates the kernels' flat weight and bias buffers,
+and the step multiplies their gradients by the 0/1 mask of the real
+parameter slots (``ops/fused_mlp.py:packed_grad_masks``) before the
+update, as the JAX step does, so the padded slots keep zero moments and
+never move.  Elsewhere they are ``IntrinsicMLP``s with the reference
+``nn.Linear`` parameters.  Adam being elementwise, both layouts take the
+same steps from the same weights.  All random draws come from the
+``torch.Generator`` handed to the step.
 
 Everything the step reads that changes from step to step lives on the
 device: the step count (``TrainState.step_t``), from which the step
@@ -45,7 +48,7 @@ from intrinsicnerf_tpu_torch.core.losses import (
     semantic_cross_entropy,
 )
 from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs
-from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+from intrinsicnerf_tpu_torch.models.mlp import MLP, IntrinsicMLP, MLPConfig, PackedMLP, fuses
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, draw_train_noise, render_rays
 from intrinsicnerf_tpu_torch.train.schedules import loss_weight_schedule, make_lr_schedule
 
@@ -83,8 +86,8 @@ class TrainState:
     which the step reads and advances."""
 
     step: int
-    model_coarse: IntrinsicMLP
-    model_fine: Optional[IntrinsicMLP]
+    model_coarse: MLP
+    model_fine: Optional[MLP]
     optimizer: torch.optim.Adam
     step_t: Optional[torch.Tensor] = None
 
@@ -130,23 +133,34 @@ class LossReport(NamedTuple):
     reflect_cluster: torch.Tensor
 
 
+def packs_state(mcfg: MLPConfig) -> bool:
+    """Whether the training state stores kernel-packed weights: where the
+    fused kernels take the configuration (``models/mlp.py:fuses``, the
+    eligibility ``eval_points`` applies), as the JAX ``packs_state``."""
+    return fuses(mcfg)
+
+
 def create_train_state(
     mcfg: MLPConfig,
     tcfg: TrainConfig,
     device="cuda",
     generator: Optional[torch.Generator] = None,
     with_fine: bool = True,
+    packed: Optional[bool] = None,
 ) -> TrainState:
     """Coarse and fine models initialised from ``generator`` (a CPU
     generator; default seed 0) on ``device`` (default ``"cuda"``, which
-    raises without a GPU), and one Adam over both.  On the card Adam is
-    ``capturable`` (its step counts and LR stay on the device, so a CUDA
-    graph can hold its update); the host's Adam does not take that
-    option."""
+    raises without a GPU), and one Adam over both.  The models are
+    ``PackedMLP``s where ``packed`` (default :func:`packs_state`) holds,
+    else ``IntrinsicMLP``s; one generator gives the same weights in both.
+    On the card Adam is ``capturable`` (its step counts and LR stay on the
+    device, so a CUDA graph can hold its update); the host's Adam does
+    not take that option."""
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
-    model_c = IntrinsicMLP(mcfg, device=dev, generator=g)
-    model_f = IntrinsicMLP(mcfg, device=dev, generator=g) if with_fine else None
+    model = PackedMLP if (packs_state(mcfg) if packed is None else packed) else IntrinsicMLP
+    model_c = model(mcfg, device=dev, generator=g)
+    model_f = model(mcfg, device=dev, generator=g) if with_fine else None
     params = list(model_c.parameters()) + (list(model_f.parameters()) if with_fine else [])
     opt = torch.optim.Adam(params, lr=tcfg.lrate, betas=(0.9, 0.999), eps=1e-8,
                            capturable=dev.type == "cuda")
@@ -201,7 +215,8 @@ def make_train_step(
 ):
     """The step ``step_fn(state, pools, table, w_c, generator) ->
     LossReport``.  It updates ``state`` in place, leaves this step's
-    gradients in the parameters' ``.grad``, and returns the loss terms
+    gradients in the parameters' ``.grad`` (masked, on packed state), and
+    returns the loss terms
     as detached 0-dim tensors on the device (no host sync).  ``w_c`` is
     a number or a 0-dim float32 tensor on the device; the LR and the
     loss-weight switches are read from ``state.step_t``.
@@ -279,6 +294,9 @@ def make_train_step(
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         total.backward()
+        for model in (state.model_coarse, state.model_fine):
+            if isinstance(model, PackedMLP):
+                model.mask_grads()
         lr = lr_schedule(step_t)  # the pre-update count, as optax reads it
         if lr.device.type == "cpu":
             lr = float(lr)  # the host's Adam takes a number

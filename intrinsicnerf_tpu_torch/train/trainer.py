@@ -57,14 +57,14 @@ from intrinsicnerf_tpu_torch.core.losses import semantic_entropy
 from intrinsicnerf_tpu_torch.core.metrics import (
     calculate_depth_metrics, calculate_segmentation_metrics, psnr_np)
 from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs_from_poses
-from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+from intrinsicnerf_tpu_torch.models.mlp import MLP, MLPConfig
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays, render_rays_chunked
 from intrinsicnerf_tpu_torch.tools.video import generate_all
 from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
 from intrinsicnerf_tpu_torch.train.logging_utils import ProfilerTrace, TBLogger
 from intrinsicnerf_tpu_torch.train.schedules import cluster_anneal
 from intrinsicnerf_tpu_torch.train.step import (
-    DataPools, TrainState, create_train_state, make_multi_step, make_train_step)
+    DataPools, TrainState, create_train_state, make_multi_step, make_train_step, packs_state)
 from intrinsicnerf_tpu_torch.utils.image import (
     depth2rgb, imwrite, label_colormap, plot_semantic_legend, to8b)
 
@@ -115,8 +115,8 @@ def _host(x: torch.Tensor, *shape) -> np.ndarray:
 
 
 def render_views(
-    model_c: IntrinsicMLP,
-    model_f: Optional[IntrinsicMLP],
+    model_c: MLP,
+    model_f: Optional[MLP],
     mcfg: MLPConfig,
     rcfg: RenderConfig,
     rays_all,  # [N, H*W, 11] tensor or array
@@ -196,9 +196,11 @@ class Trainer:
             cfg.mlp, num_semantic_classes=bundle.num_valid_classes)
         if bundle.num_valid_classes == 0:
             self.mcfg = dataclasses.replace(self.mcfg, enable_semantic=False)
-        fused = self.mcfg.use_fused_kernel and (self.mcfg.depth, self.mcfg.width) == (8, 256)
-        print("MLP compute path: " + ("fused CUDA kernels (kernel 1 forward, kernel 2 backward)"
-                                      if fused else "plain PyTorch layers"))
+        print("MLP compute path: " + (
+            "fused CUDA kernels (kernel 1 forward, kernel 2 backward; packed training state)"
+            if packs_state(self.mcfg) else "plain PyTorch layers" + (
+                " (use_fused_kernel set but architecture ineligible)"
+                if self.mcfg.use_fused_kernel else "")))
 
         self.state: TrainState = create_train_state(
             self.mcfg, cfg.train, device=self.device,

@@ -33,8 +33,12 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   the same K steps run eagerly from the same state and generator state:
   bitwise where two eager runs are bitwise, else the JAX scan test's
   bounds (``tests/test_train_step.py``: the total within rtol 1e-6, every
-  parameter within atol 1e-6 + rtol 1e-5); the generator's state equal.
+  parameter within atol 1e-6 + rtol 1e-5); the generator's state equal;
+- the packed training state against the unpacked one, from one generator,
+  over graphed steps: bitwise.
 """
+
+import copy
 
 import pytest
 import torch
@@ -491,6 +495,54 @@ def test_graphed_object_steps_cross_the_precrop_boundary(object_model):
     assert int(state.step_t) == state.step == start + GRAPH_K
     assert _agree(graphed, first, exact)
     assert not _agree(graphed, _run(state, snap, gen, eager(endless)), False)
+
+
+
+@pytest.mark.parametrize("classes", [C, 0], ids=["scene", "object"])
+def test_graphed_packed_steps_equal_unpacked_steps(card, classes):
+    """The packed training state and the unpacked one, made from one
+    generator, each taking GRAPH_K graphed steps (one replay each) on the
+    same draws: bitwise equal losses, unpacked weights and Adam moments
+    after every step (Adam is elementwise; the padded slots carry zero
+    gradients and moments)."""
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
+    from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
+
+    cfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=classes > 0,
+                    num_semantic_classes=classes, compute_dtype=torch.bfloat16,
+                    use_fused_kernel=True)
+    h, w = 24, 32
+    c2w = torch.eye(4, device="cuda").repeat(2, 1, 1)
+    c2w[:, 2, 3] = torch.tensor([-1.0, -1.3])
+    rays = create_rays(c2w, h, w, 16.0, 16.0, 15.5, 11.5, 0.1, 10.0)
+    g0 = torch.Generator(device="cuda").manual_seed(3)
+    sem = (torch.randint(0, classes + 1, (2, h * w), device="cuda", generator=g0) if classes
+           else (torch.rand(2, h * w, device="cuda", generator=g0) > 0.3).float())
+    pools = DataPools(rays=rays, rgb=torch.rand(2, h * w, 3, device="cuda", generator=g0),
+                      semantic=sem, mask_ids=torch.ones(2, dtype=torch.int32, device="cuda"))
+    tcfg = TrainConfig(n_rays=128, mask_mode="label" if classes else "mask")
+    step = make_train_step(cfg, RenderConfig(perturb=1.0, raw_noise_std=1.0), tcfg, h, w)
+    table = empty_cluster_table(max(classes, 1), 64, device="cuda")
+    w_c = torch.tensor(0.1, device="cuda")
+    runs = []
+    for packed in (True, False):
+        state = create_train_state(cfg, tcfg, device="cuda", packed=packed,
+                                   generator=torch.Generator().manual_seed(4))
+        assert isinstance(state.model_fine, PackedMLP) == packed
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        multi = make_multi_step(step, 1)
+        after = []
+        for _ in range(GRAPH_K):
+            rep = torch.stack(list(multi(state, pools, table, w_c, gen)))
+            after.append(copy.deepcopy((rep, [m.state_dict() for m in (state.model_coarse,
+                                                                         state.model_fine)],
+                                        optimizer_state_dict(state)["state"])))
+        runs.append(after)
+    for i, ((rp, wp, ap), (ru, wu, au)) in enumerate(zip(*runs)):
+        assert torch.equal(rp, ru), (i, rp, ru)
+        for sp, su in zip(wp, wu):
+            assert all(torch.equal(sp[k], su[k]) for k in su), i
+        assert all(torch.equal(ap[j][n], au[j][n]) for j in au for n in ("exp_avg", "exp_avg_sq"))
 
 
 # ---- the other scene data: NYU widths, pixels across all images, mesh -----

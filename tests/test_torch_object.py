@@ -31,7 +31,6 @@ from intrinsicnerf_tpu.cluster import assign as ja
 from intrinsicnerf_tpu.data import samplers as js
 from intrinsicnerf_tpu.data.blender import pose_spherical
 from intrinsicnerf_tpu.models import mlp as jm
-from intrinsicnerf_tpu.ops import fused_mlp as jf
 from intrinsicnerf_tpu.render import pipeline as jp
 from intrinsicnerf_tpu.tools import import_ckpt as jimport
 from intrinsicnerf_tpu.train import prepare as jprep
@@ -41,11 +40,10 @@ from intrinsicnerf_tpu_torch.cluster import assign as ta
 from intrinsicnerf_tpu_torch.data import samplers as ts
 from intrinsicnerf_tpu_torch.models import mlp as tm
 from intrinsicnerf_tpu_torch.render import pipeline as tp
-from intrinsicnerf_tpu_torch.tools.import_ckpt import params_from_jax
 from intrinsicnerf_tpu_torch.train import step as tstep
 from intrinsicnerf_tpu_torch.train.trainer import SceneBundle, make_object_sample_fn
 from intrinsicnerf_tpu_torch.utils.image import imwrite
-from test_torch_train import _capture, _lift_sigma
+from test_torch_train import _capture, _level_grads, _lift_sigma, _load_jax
 
 H, W = 10, 12
 
@@ -110,9 +108,7 @@ def _object_step(jcfg, tcfg_m, n_pairs, n_samples, seed):
     state_t = tstep.create_train_state(tcfg_m, tt, device="cpu")
     for model, pj in ((state_t.model_coarse, state_j.params_coarse),
                       (state_t.model_fine, state_j.params_fine)):
-        if jf.is_packed(pj):
-            pj = jf.unpack_weights(pj, jcfg)
-        model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu"))
+        _load_jax(model, pj, jcfg)
     step_t = tstep.make_train_step(tcfg_m, tp.RenderConfig(**rkw), tt, H, W,
                                    sample_fn=lambda g, p, s: tbatch)
     rep_t = step_t(state_t, None, table_t, 0.5, torch.Generator().manual_seed(0))
@@ -120,15 +116,10 @@ def _object_step(jcfg, tcfg_m, n_pairs, n_samples, seed):
     grads = []
     for model, gj in ((state_t.model_coarse, new_j.opt_state["coarse"]),
                       (state_t.model_fine, new_j.opt_state["fine"])):
-        if jf.is_packed(gj):
-            gj = jf.unpack_weights(gj, jcfg)
-        ref = params_from_jax(jax.tree_util.tree_map(np.asarray, gj), "cpu")
-        got = {k: p.grad for k, p in model.named_parameters()}
-        assert sorted(got) == sorted(ref)
-        assert not any("semantic" in k for k in got)  # the head is off
-        assert all(got[k].abs().max() > 0 for k in got), "a parameter got no gradient"
-        grads.append((np.concatenate([got[k].numpy().ravel() for k in sorted(got)]),
-                      np.concatenate([ref[k].numpy().ravel() for k in sorted(got)])))
+        got, ref, named = _level_grads(model, gj, jcfg)
+        assert not any("semantic" in k for k in named)  # the head is off
+        assert all(named[k].abs().max() > 0 for k in named), "a parameter got no gradient"
+        grads.append((got, ref))
     assert float(rep_t.semantic) == 0.0 and float(rep_t.reflect_cluster) > 0
     return rep_j, rep_t, grads
 

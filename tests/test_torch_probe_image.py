@@ -80,13 +80,28 @@ def test_tiles_match_the_kernels_dispatch():
     assert re.search(r"constexpr int STAGE_BYTES = 64 \* W \* 2;", src)
 
 
-def test_cpu_operands_need_no_image():
+def test_cpu_operands_need_no_image(monkeypatch):
+    """CPU operands carry no weight image, and the wrapper hands CPU
+    tensors to the plain version and returns its result itself (held by
+    identity through a spy, not by computing the plain version a second
+    time: two fp32 matmul runs need not agree to the bit)."""
     in8, ops = fp.probe_inputs(3, n=200, bias_scale=0.1, device="cpu")
     assert ops.wimg is None
+    plain, calls = fp.fwd_probe_plain, []
+
+    def spy(*args):
+        calls.append((args, plain(*args)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(fp, "fwd_probe_plain", spy)
     before = fp.fwd_probe.launches
     for variant in fp.VARIANTS:
         got = fp.fwd_probe(in8, ops, variant, 128, torch.float32)
-        assert torch.equal(got, fp.fwd_probe_plain(in8, ops, variant, torch.float32))
+        (a_in8, a_ops, a_variant, a_dtype), out = calls[-1]
+        assert got is out and a_in8 is in8 and a_ops is ops
+        assert (a_variant, a_dtype) == (variant, torch.float32)
+        assert got.dtype == torch.float32 and got.shape == (200, fp.OUT_W)
+    assert len(calls) == len(fp.VARIANTS)
     assert fp.fwd_probe.launches == before  # the plain version counts no launch
 
 

@@ -14,8 +14,10 @@ Tolerances:
 - one whole training step from identical state and batch, perturb 0 and
   no sigma noise, so neither side draws:
   - fused at width 256 (JAX: Pallas in interpret mode; port: the kernels'
-    plain versions): loss terms within 1e-3 relative, per-level gradient
-    cosine > 0.999 (the bf16 roundings agree, the fp32 sums do not);
+    plain versions), both on packed state: loss terms within 1e-3
+    relative, per-level cosine > 0.999 between the masked packed
+    gradients (the bf16 roundings agree, the fp32 sums do not), exactly
+    zero on the padded slots in both;
   - unfused at width 32 in fp32: loss terms atol 1e-5, gradients
     rtol 1e-4 with an absolute floor of 1e-4 times the level's largest
     gradient (elements near zero carry summation-order noise of that
@@ -52,7 +54,8 @@ from intrinsicnerf_tpu_torch.core.sampling import sorted_uniforms
 from intrinsicnerf_tpu_torch.data import samplers as tsamp
 from intrinsicnerf_tpu_torch.models import mlp as tm
 from intrinsicnerf_tpu_torch.render import pipeline as tp
-from intrinsicnerf_tpu_torch.tools.import_ckpt import params_from_jax
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+from intrinsicnerf_tpu_torch.tools.import_ckpt import packed_from_jax, params_from_jax
 from intrinsicnerf_tpu_torch.train import schedules as tsch
 from intrinsicnerf_tpu_torch.train import step as tstep
 
@@ -399,11 +402,10 @@ def _step_case(jcfg, tcfg_m, rcfg_kw, tcfg_kw, n_pairs, classes, semantic_mask, 
     new_j, rep_j = step_j(state_j, None, table_j, jnp.float32(0.5), jax.random.key(1))
 
     state_t = tstep.create_train_state(tcfg_m, tt, device="cpu")
+    assert isinstance(state_t.model_fine, tm.PackedMLP) == jf.is_packed(state_j.params_fine)
     for model, pj in ((state_t.model_coarse, state_j.params_coarse),
                       (state_t.model_fine, state_j.params_fine)):
-        if jf.is_packed(pj):
-            pj = jf.unpack_weights(pj, jcfg)
-        model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, pj), "cpu"))
+        _load_jax(model, pj, jcfg)
     step_t = tstep.make_train_step(tcfg_m, rcfg_t, tt, h, w, sample_fn=lambda g, p, s: tbatch)
     rep_t = step_t(state_t, None, table_t, 0.5, torch.Generator().manual_seed(0))
     assert state_t.step == 1 and int(new_j.step) == 1
@@ -411,15 +413,45 @@ def _step_case(jcfg, tcfg_m, rcfg_kw, tcfg_kw, n_pairs, classes, semantic_mask, 
     grads = []
     for model, gj in ((state_t.model_coarse, new_j.opt_state["coarse"]),
                       (state_t.model_fine, new_j.opt_state["fine"])):
-        if jf.is_packed(gj):
-            gj = jf.unpack_weights(gj, jcfg)
-        ref = params_from_jax(jax.tree_util.tree_map(np.asarray, gj), "cpu")
-        got = {k: p.grad for k, p in model.named_parameters()}
-        assert sorted(got) == sorted(ref)
-        assert all(got[k].abs().max() > 0 for k in got), "a parameter got no gradient"
-        grads.append((np.concatenate([got[k].numpy().ravel() for k in sorted(got)]),
-                      np.concatenate([ref[k].numpy().ravel() for k in sorted(got)])))
+        got, ref, named = _level_grads(model, gj, jcfg)
+        assert all(named[k].abs().max() > 0 for k in named), "a parameter got no gradient"
+        grads.append((got, ref))
     return rep_j, rep_t, grads
+
+
+def _load_jax(model, pj, jcfg):
+    """A JAX level's weights into the port's model: packed state straight
+    into packed state (``packed_from_jax``), else through the reference
+    layout."""
+    pj = jax.tree_util.tree_map(np.asarray, pj)
+    if isinstance(model, tm.PackedMLP):
+        flat = packed_from_jax(pj, "cpu")
+        with torch.no_grad():
+            model.weight.copy_(flat.weight)
+            model.bias.copy_(flat.bias)
+        return
+    model.load_state_dict(params_from_jax(jf.unpack_weights(pj, jcfg) if jf.is_packed(pj)
+                                          else pj, "cpu"))
+
+
+def _level_grads(model, gj, jcfg):
+    """(port, JAX) gradients of one level as flat arrays, and the port's
+    by reference parameter name.  On packed state these are the masked
+    packed buffers against JAX's masked packed gradients, directly, each
+    exactly zero on the padded slots."""
+    gj = jax.tree_util.tree_map(np.asarray, gj)
+    if isinstance(model, tm.PackedMLP):
+        ref = packed_from_jax(gj, "cpu")
+        got = torch.cat([model.weight.grad, model.bias.grad]).numpy()
+        ref = torch.cat([ref.weight, ref.bias]).numpy()
+        pad = torch.cat([model.weight_mask, model.bias_mask]).numpy() == 0
+        assert not got[pad].any() and not ref[pad].any()
+        return got, ref, model.unpack(fm.FlatBlocks(model.weight.grad, model.bias.grad))
+    ref = params_from_jax(jf.unpack_weights(gj, jcfg) if jf.is_packed(gj) else gj, "cpu")
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert sorted(got) == sorted(ref)
+    return (np.concatenate([got[k].numpy().ravel() for k in sorted(got)]),
+            np.concatenate([ref[k].numpy().ravel() for k in sorted(got)]), got)
 
 
 def test_train_step_fused_matches_jax():

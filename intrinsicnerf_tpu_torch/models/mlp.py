@@ -182,7 +182,7 @@ class PackedMLP(_FusedCache, nn.Module):
     update.  ``state_dict`` and ``load_state_dict`` speak the reference
     layout (``[out, in]`` weights under the reference keys), unpacking and
     packing, so checkpoints and the weight bridge treat both classes
-    alike."""
+    alike, also as a submodule."""
 
     def __init__(self, cfg: MLPConfig, device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -227,25 +227,33 @@ class PackedMLP(_FusedCache, nn.Module):
         the buffers."""
         return self.unpack(self.flat())
 
-    def state_dict(self, *args, **kwargs):
-        """The reference state_dict: ``[out, in]`` weights under the
-        reference keys, copied out of the buffers."""
-        with torch.no_grad():
-            return {k: v.detach().clone() for k, v in self.unpacked().items()}
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        """The reference entries under ``prefix``: ``[out, in]`` weights
+        copied out of the buffers (differentiable through them with
+        ``keep_vars``)."""
+        with torch.set_grad_enabled(keep_vars and torch.is_grad_enabled()):
+            sd = self.unpacked()
+        for k, v in sd.items():
+            destination[prefix + k] = v if keep_vars else v.detach().clone()
 
     @torch.no_grad()
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        """Pack a reference state_dict into the buffers in place."""
-        missing = sorted(set(self.reference_keys) - set(state_dict))
-        unexpected = sorted(set(state_dict) - set(self.reference_keys))
-        if missing or (strict and unexpected):
-            raise RuntimeError(f"PackedMLP.load_state_dict: missing keys {missing}, "
-                               f"unexpected keys {unexpected}")
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict,
+                              missing_keys, unexpected_keys, error_msgs):
+        """Pack the reference entries under ``prefix`` into the buffers in
+        place; an entry left out (``strict=False``) keeps its value."""
+        sd = self.unpacked()
+        for k in self.reference_keys:
+            if prefix + k in state_dict:
+                sd[k] = state_dict[prefix + k]
+            else:
+                missing_keys.append(prefix + k)
+        if strict:
+            unexpected_keys.extend(k for k in state_dict if k.startswith(prefix)
+                                   and k[len(prefix):] not in self.reference_keys)
         dev = self.weight.device
-        flat = self.pack({k: state_dict[k].to(dev, torch.float32) for k in self.reference_keys})
+        flat = self.pack({k: v.to(dev, torch.float32) for k, v in sd.items()})
         self.weight.copy_(flat.weight)
         self.bias.copy_(flat.bias)
-        return nn.modules.module._IncompatibleKeys([], unexpected)
 
 
 MLP = Union[IntrinsicMLP, PackedMLP]  # one level's weights, in either layout

@@ -32,18 +32,19 @@ wrapper.  The cotangent is bf16 because the output is, as in JAX
 (``fused_mlp.py:57-65``).  The points and the PE constants get no
 gradient, which is exact: NeRF samples are not parameters.
 
-Training state comes in two layouts.  The packed one (the twin of the JAX
-``packs_state``) is :class:`FlatBlocks`: the kernels' own flat fp32
-buffers, every weight block in ``_W_ORDER`` and the biases in
-``_B_ORDER`` then the one output-bias row.  :class:`FusedMLPFlat`
-differentiates through them: kernel 1's bf16 weights are one cast of the
-weight buffer, and kernel 2's flat ``dw``/``db`` are the buffers'
-gradients as they stand (the step projects them with the
-:func:`packed_grad_masks` mask).  The unpacked layout keeps the
-``nn.Linear`` parameters: :class:`FusedMLP` takes a pack of the live
-parameters (``pack_weights`` is pads and slices only, so autograd
-carries the packed gradients back to them), and the backward of the pack
-keeps only the real parameter slots, which is the same projection.
+:class:`FusedMLP` differentiates through :class:`FlatBlocks`, the
+kernels' own flat fp32 buffers: every weight block in ``_W_ORDER`` and
+the biases in ``_B_ORDER`` then the one output-bias row.  Kernel 1's
+bf16 weights are one cast of the weight buffer, and kernel 2's flat
+``dw``/``db`` are the buffers' gradients as they stand.  The packed
+training state (the twin of the JAX ``packs_state``) holds these
+buffers, and the step projects their gradients with the
+:func:`packed_grad_masks` mask.  The unpacked state keeps the
+``nn.Linear`` parameters, which :func:`fused_mlp_apply` packs and
+flattens (pads, slices, a concat and the sum of the five output-bias
+rows), so autograd carries the flat gradients back to them, and the
+backward of the pack keeps only the real parameter slots, which is the
+same projection.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
@@ -327,6 +328,15 @@ def flat_blocks(flat: FlatBlocks, cfg) -> Packed:
     return {k: p[k] for k in _PACKED_KEYS}
 
 
+def _flat(params, cfg) -> FlatBlocks:
+    """``params`` (:class:`FlatBlocks`, an already-packed dict, or a model
+    state_dict / ``named_parameters`` dict) as :class:`FlatBlocks`,
+    differentiable through the pack."""
+    if isinstance(params, FlatBlocks):
+        return params
+    return flatten_blocks(params if is_packed(params) else pack_weights(params, cfg))
+
+
 def build_in8(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
     """``[N, S, 3]`` pts + ``[N, 3]`` dirs -> packed ``[N*S, 8]`` input
     ``[x, y, z, dx, dy, dz, 1, 0]``.  ``viewdirs`` is required: the
@@ -564,13 +574,11 @@ def fused_operands(params, cfg, device) -> FusedOperands:
     """Pack ``params`` (a model state_dict, an already-packed dict or
     :class:`FlatBlocks`) on their device, build the PE constants on
     ``device`` and, on the card, kernel 1's weight image."""
-    if isinstance(params, FlatBlocks):
-        packed = flat_blocks(FlatBlocks(params.weight.detach(), params.bias.detach()), cfg)
-        wbuf, bbuf = kernel_buffers(params)
-    else:
-        packed = params if is_packed(params) else pack_weights(params, cfg)
-        wbuf, bbuf = kernel_buffers(packed)
-    return FusedOperands(packed, pe_constants(cfg, device), wbuf, bbuf, _image_for(wbuf))
+    flat = _flat(params, cfg)
+    flat = FlatBlocks(flat.weight.detach(), flat.bias.detach())
+    wbuf, bbuf = kernel_buffers(flat)
+    return FusedOperands(flat_blocks(flat, cfg), pe_constants(cfg, device), wbuf, bbuf,
+                         _image_for(wbuf))
 
 
 def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
@@ -709,9 +717,7 @@ def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tens
 
 def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -> Packed:
     """:func:`fused_mlp_backward_flat` as one fp32 gradient per packed
-    block (on CPU tensors, the plain version's own blocks)."""
-    if in8.device.type == "cpu":
-        return fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    block, for the checks of kernel 2 against its plain version."""
     return _unflatten_grads(*fused_mlp_backward_flat(ops, in8, g), ops.packed)
 
 
@@ -719,36 +725,13 @@ fused_mlp_backward.launches = fused_mlp_backward.captured = 0
 
 
 class FusedMLP(torch.autograd.Function):
-    """The fused MLP with its gradient: ``(in8, pe_mat, sin_mask, *blocks)``
-    -> ``[P, 128]`` bf16, the blocks in ``_PACKED_KEYS`` order.  Forward
-    runs kernel 1 and backward kernel 2 (their plain versions on CPU
-    tensors); the backward returns gradients for the packed blocks only."""
-
-    @staticmethod
-    def forward(ctx, in8, pe_mat, sin_mask, *blocks):
-        packed = dict(zip(_PACKED_KEYS, blocks))
-        bufs = kernel_buffers(packed) if in8.device.type == "cuda" else (None, None)
-        ops = FusedOperands(packed, (pe_mat, sin_mask), *bufs, _image_for(bufs[0]))
-        ctx.save_for_backward(in8, pe_mat, sin_mask, *blocks)
-        ctx.bufs = bufs
-        return fused_mlp_forward(ops, in8)
-
-    @staticmethod
-    def backward(ctx, g):
-        in8, pe_mat, sin_mask, *blocks = ctx.saved_tensors
-        ops = FusedOperands(dict(zip(_PACKED_KEYS, blocks)), (pe_mat, sin_mask), *ctx.bufs)
-        grads = fused_mlp_backward(ops, in8, g.to(torch.bfloat16))
-        return (None, None, None, *(grads[k] for k in _PACKED_KEYS))
-
-
-class FusedMLPFlat(torch.autograd.Function):
-    """The fused MLP on the packed training state: ``(in8, pe_mat,
-    sin_mask, weight, bias, cfg)`` -> ``[P, 128]`` bf16, with ``weight``
-    and ``bias`` the buffers of :class:`FlatBlocks`.  On the card the
-    forward casts ``weight`` to bf16 once and builds kernel 1's image from
-    it, and kernel 2's ``dw``/``db`` are the buffers' gradients as they
-    stand; on CPU tensors the plain versions run on views of the
-    buffers.  Nothing is packed or unpacked."""
+    """The fused MLP with its gradient: ``(in8, pe_mat, sin_mask, weight,
+    bias, cfg)`` -> ``[P, 128]`` bf16, with ``weight`` and ``bias`` the
+    buffers of :class:`FlatBlocks`.  On the card the forward casts
+    ``weight`` to bf16 once and builds kernel 1's image from it, and
+    kernel 2's ``dw``/``db`` are the buffers' gradients as they stand; on
+    CPU tensors the plain versions run on views of the buffers.  The
+    points and the PE constants get no gradient."""
 
     @staticmethod
     def _operands(in8, pe_mat, sin_mask, weight, bias, cfg, wbuf=None):
@@ -761,7 +744,7 @@ class FusedMLPFlat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, in8, pe_mat, sin_mask, weight, bias, cfg):
-        ops = FusedMLPFlat._operands(in8, pe_mat, sin_mask, weight, bias, cfg)
+        ops = FusedMLP._operands(in8, pe_mat, sin_mask, weight, bias, cfg)
         ops = ops._replace(wimg=_image_for(ops.wbuf))  # kernel 1's alone
         ctx.save_for_backward(in8, pe_mat, sin_mask, weight, bias)
         ctx.cfg, ctx.wbuf = cfg, ops.wbuf
@@ -770,7 +753,7 @@ class FusedMLPFlat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         in8, pe_mat, sin_mask, weight, bias = ctx.saved_tensors
-        ops = FusedMLPFlat._operands(in8, pe_mat, sin_mask, weight, bias, ctx.cfg, ctx.wbuf)
+        ops = FusedMLP._operands(in8, pe_mat, sin_mask, weight, bias, ctx.cfg, ctx.wbuf)
         dw, db = fused_mlp_backward_flat(ops, in8, g.to(torch.bfloat16))
         return None, None, None, dw, db, None
 
@@ -779,18 +762,16 @@ def fused_mlp_apply(params, cfg, in8: torch.Tensor, pe=None) -> torch.Tensor:
     """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.
 
     ``params`` is ``FusedOperands`` (packed once, no gradient: the serving
-    path), :class:`FlatBlocks` (the packed training state, differentiated
-    through :class:`FusedMLPFlat`), or a model state_dict /
-    ``named_parameters`` dict or an already-packed dict, which is packed
-    here and differentiated through :class:`FusedMLP`.  ``pe`` overrides
-    the PE constants built on ``in8``'s device."""
+    path), or anything :func:`fused_operands` takes, differentiated
+    through :class:`FusedMLP`: the packed training state's
+    :class:`FlatBlocks` as they are, a state_dict / ``named_parameters``
+    dict or an already-packed dict packed and flattened here.  ``pe``
+    overrides the PE constants built on ``in8``'s device."""
     if isinstance(params, FusedOperands):
         return fused_mlp_forward(params, in8).float()
     F, m = pe if pe is not None else pe_constants(cfg, in8.device)
-    if isinstance(params, FlatBlocks):
-        return FusedMLPFlat.apply(in8, F, m, params.weight, params.bias, cfg).float()
-    packed = params if is_packed(params) else pack_weights(params, cfg)
-    return FusedMLP.apply(in8, F, m, *(packed[k] for k in _PACKED_KEYS)).float()
+    flat = _flat(params, cfg)
+    return FusedMLP.apply(in8, F, m, flat.weight, flat.bias, cfg).float()
 
 
 def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor,

@@ -13,9 +13,10 @@ state_dict.  Its packed state (the kernels' 38 padded blocks, kept where
 the JAX ``packs_state`` holds) maps straight onto the port's packed
 training state (``models/mlp.py:PackedMLP``, the kernels' flat buffers)
 with :func:`packed_from_jax` and back with :func:`packed_to_jax`; no
-unpacking in between.  :func:`load_reference_state` loads a reference
-checkpoint into a training state of either layout (a packed one packs
-it, as the JAX ``import_reference_checkpoint`` does).  This module keeps
+unpacking in between.  A reference checkpoint read by
+:func:`load_reference_checkpoint` loads into either layout with
+``load_state_dict`` (a ``PackedMLP`` packs it, as the JAX
+``import_reference_checkpoint`` does).  This module keeps
 its own copy of the name maps: the port imports nothing of the JAX
 package.
 """
@@ -171,17 +172,3 @@ def packed_to_jax(model) -> Dict[str, np.ndarray]:
     blocks = fm.flat_blocks(fm.FlatBlocks(model.weight.detach(), model.bias.detach()), model.cfg)
     return {k: _np(v) for k, v in blocks.items()}
 
-
-def load_reference_state(path: str, state) -> int:
-    """Load a reference ``.ckpt``/``.tar`` (or a port checkpoint) into the
-    models of a training state of either layout (a ``PackedMLP`` packs
-    the weights), set its step counts to the file's ``global_step`` and
-    return it.  Adam's moments are not read, as the JAX
-    ``import_reference_checkpoint`` reads none."""
-    step, sd_c, sd_f = load_reference_checkpoint(path)
-    state.model_coarse.load_state_dict(to_port_state_dict(sd_c))
-    if state.model_fine is not None and sd_f is not None:
-        state.model_fine.load_state_dict(to_port_state_dict(sd_f))
-    state.step = step
-    state.step_t.fill_(step)
-    return step

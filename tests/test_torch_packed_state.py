@@ -261,6 +261,29 @@ def test_bridge_carries_jax_packed_state_both_ways():
         assert torch.equal(sd[k], ref[k]), k
 
 
+def test_packed_state_dict_as_a_submodule():
+    """Nested in another module, a ``PackedMLP`` gives its reference
+    entries under the parent's prefix and loads them back; with
+    ``strict=False`` a missing entry keeps its value, and both a missing
+    and an unexpected entry are reported."""
+    parent = torch.nn.ModuleDict({"net": tm.PackedMLP(MCFG, device="cpu")})
+    want = tm.IntrinsicMLP(MCFG, "cpu", generator=torch.Generator().manual_seed(9)).state_dict()
+    sd = parent.state_dict()
+    assert sorted(sd) == sorted(f"net.{k}" for k in want)
+    before = parent["net"].state_dict()["alpha_linear.bias"].clone()
+    partial = {f"net.{k}": v for k, v in want.items() if k != "alpha_linear.bias"}
+    with pytest.raises(RuntimeError, match="Missing key"):
+        parent.load_state_dict(partial)
+    res = parent.load_state_dict({**partial, "net.extra": before}, strict=False)
+    assert res.missing_keys == ["net.alpha_linear.bias"] and res.unexpected_keys == ["net.extra"]
+    got = parent["net"].state_dict()
+    for k, v in want.items():
+        assert torch.equal(got[k], before if k == "alpha_linear.bias" else v), k
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        parent.load_state_dict({**sd, "net.extra": before})
+    assert parent.state_dict(keep_vars=True)["net.pts_linears.0.weight"].requires_grad
+
+
 def test_packed_and_unpacked_models_evaluate_alike():
     """The serving operands, the unfused path (a packed model unpacked
     first) and its gradient, from one generator in both layouts."""
@@ -341,9 +364,12 @@ def test_packed_checkpoint_loads_unpacked_and_into_jax(tmp_path):
         mine = tic.packed_to_jax(m)
         for k, v in pj.items():
             np.testing.assert_array_equal(np.asarray(v), mine[k], err_msg=k)
-    # and the port's importer packs it into a fresh packed state
+    # and the port's reader and load_state_dict pack it into a fresh packed state
     fresh = tstep.create_train_state(MCFG, tcfg, device="cpu")
-    assert tic.load_reference_state(path, fresh) == 3 and int(fresh.step_t) == 3
+    step, sd_c, sd_f = tic.load_reference_checkpoint(path)
+    assert step == 3
+    fresh.model_coarse.load_state_dict(tic.to_port_state_dict(sd_c))
+    fresh.model_fine.load_state_dict(tic.to_port_state_dict(sd_f))
     assert torch.equal(fresh.model_fine.weight, first.model_fine.weight)
     assert torch.equal(fresh.model_coarse.bias, first.model_coarse.bias)
     ck.close()

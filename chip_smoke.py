@@ -1226,6 +1226,300 @@ def edit_phase(torch, np, dev, card, save_dir):
     return {"ms_per_load_frame": float(np.median(load_ms)), "frames": len(ids)}
 
 
+# ------------------------------------------------------------ data parallelism
+
+DP_SEED, DP_STEPS = 5, 8  # the graphed steps held bitwise, one replay each
+DP_CLI_STEPS, DP_CLI_MORE, DP_K = 100, 20, 10
+DP_CADENCE = {"step_log_tfb": 50, "step_save_ckpt": 100, "step_vis_train": 100,
+              "step_val": 100}
+DP_ROUNDS = 3  # timing rounds of (plain, group, group, plain) windows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def collective_counters():
+    from intrinsicnerf_tpu_torch.parallel import mesh
+
+    return {"reduce_grads": mesh.reduce_grads, "reduce_terms": mesh.reduce_terms,
+            "all_gather_rows": mesh.all_gather_rows}
+
+
+def zero_collectives():
+    for c in collective_counters().values():
+        c.launches = c.captured = 0
+
+
+def data_parallel_phase(torch, np, dev, card, room_dir):
+    """``data_parallel``: a one-rank NCCL group in this process, started as
+    ``torchrun`` starts a rank (its environment variables), then on the
+    Replica config's packed state:
+
+    - ``dp_step``: the data-parallel trainer's step (gradients and loss
+      terms all-reduced inside the CUDA graph) against the plain
+      trainer's from one seed, DP_STEPS graphed steps each (a one-step
+      graph replayed per step), the report, the weights and Adam's
+      moments bitwise after every step; the collectives' calls per
+      replay, and both steps' graphed ms in turns, with the NCCL kernels'
+      device time in a profiled window;
+    - ``dp_view``: one 320x240 view through the split render, bitwise
+      ``render_views``;
+    - ``dp_cli``: the scene CLI's trainer with ``--data_parallel``
+      (DP_CLI_STEPS steps at DP_K per call, a rebuild and an evaluation
+      at the end), then a second process (its own one-rank group) that
+      resumes exactly and trains DP_CLI_MORE more steps.
+
+    The group is destroyed at the end and the variables put back."""
+    import torch.distributed as dist
+
+    from intrinsicnerf_tpu_torch import train_scene
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.data.replica import default_replica_split, load_replica
+    from intrinsicnerf_tpu_torch.parallel.distributed import backend_for, initialize_distributed
+    from intrinsicnerf_tpu_torch.parallel.mesh import make_group
+    from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
+    from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
+    from intrinsicnerf_tpu_torch.train.step import make_multi_step, restore_state, snapshot_state
+    from intrinsicnerf_tpu_torch.train.trainer import Trainer, render_views
+
+    import shutil
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    rank_world = initialize_distributed(device=dev)
+    group = make_group(dev)
+    init_s = time.perf_counter() - t0
+    graphed = dev.type == "cuda"  # on the host a block of steps is a loop
+    say("dp_group", backend=group.backend, rank_world=json.dumps(rank_world),
+        device=json.dumps(str(group.device)),
+        nccl=json.dumps(torch.cuda.nccl.version() if graphed else None),
+        torch=torch.__version__, init_s=f"{init_s:.2f}", card=json.dumps(card))
+    if (group.backend, group.world, rank_world) != (backend_for(dev), 1, (0, 1)):
+        raise AssertionError(f"a one-rank NCCL group was asked for, got {group}")
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_data_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def cfg_for(name, **more):
+        return from_yaml(CONFIG, {"experiment.dataset_dir": room_dir,
+                                  "experiment.save_dir": os.path.join(work, name), **more})
+
+    cfg = cfg_for("plain")
+    train_ids, test_ids = default_replica_split(SCENE_FRAMES, SCENE_SPLIT)
+    data = load_replica(room_dir, train_ids, test_ids, img_h=cfg.experiment.height,
+                        img_w=cfg.experiment.width)
+    bundle = prepare_replica_bundle(cfg, data, device=dev)
+    trainers = {"plain": Trainer(cfg, bundle, seed=DP_SEED, device=dev),
+                "group": Trainer(cfg_for("group"), bundle, seed=DP_SEED, device=dev,
+                                 group=group)}
+
+    # ---- the step: DP_STEPS graphed steps each, held after every step
+    runs, counts, launches = {}, {}, {}
+    for name, t in trainers.items():
+        zero_launches()
+        zero_collectives()
+        multi = make_multi_step(t.step_fn, 1)
+        after = []
+        for _ in range(DP_STEPS):
+            rep = torch.stack(list(multi(t.state, t.bundle.pools, t.table, t._w_c_t,
+                                         t.generator)))
+            after.append(copy.deepcopy((rep, [m.state_dict() for m in (
+                t.state.model_coarse, t.state.model_fine)], optimizer_state_dict(t.state)["state"])))
+        torch.cuda.synchronize()
+        runs[name] = after
+        counts[name] = {k: [c.launches, c.captured] for k, c in collective_counters().items()}
+        eager = {k: c.launches for k, c in launch_counters().items()}
+        launches[name] = {k: eager[k] + multi.replays * c.captured
+                          for k, c in launch_counters().items()}
+
+    def first_part():
+        for i, ((rp, wp, ap), (rg, wg, ag)) in enumerate(zip(runs["plain"], runs["group"])):
+            if not torch.equal(rp, rg):
+                return [i + 1, "loss terms", float((rp - rg).abs().max())]
+            for level, sp, sg in zip(("coarse", "fine"), wp, wg):
+                for k in sp:
+                    if not torch.equal(sp[k], sg[k]):
+                        return [i + 1, f"{level} {k}", float((sp[k] - sg[k]).abs().max())]
+            for j in ap:
+                for n in ("exp_avg", "exp_avg_sq"):
+                    if not torch.equal(ap[j][n], ag[j][n]):
+                        return [i + 1, f"adam {j} {n}", float((ap[j][n] - ag[j][n]).abs().max())]
+        return None
+
+    part = first_part()
+    # each replay of the one-step graph: one gradient and one loss-term
+    # all-reduce; the capture's warm-up step ran each once more, eagerly
+    per_replay = {k: counts["group"][k][1] for k in ("reduce_grads", "reduce_terms")}
+    totals = [float(r[0][0]) for r in runs["group"]]
+    del runs
+
+    # graphed ms per step, DP_STEPS-step graphs, in turns from one snapshot each
+    multis = {name: make_multi_step(t.step_fn, GRAPH_K) for name, t in trainers.items()}
+    snaps = {name: snapshot_state(t.state, t.generator) for name, t in trainers.items()}
+
+    def call(name):
+        t = trainers[name]
+        return multis[name](t.state, t.bundle.pools, t.table, t._w_c_t, t.generator)
+
+    zero_collectives()
+    for name in trainers:
+        call(name)  # the capture
+    torch.cuda.synchronize()
+    captured_k = {k: c.captured for k, c in collective_counters().items()}
+    windows = {"plain": [], "group": []}
+    for _ in range(DP_ROUNDS):
+        for name in ("plain", "group", "group", "plain"):
+            t = trainers[name]
+            restore_state(t.state, snaps[name], t.generator)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_CALLS):
+                call(name)
+            torch.cuda.synchronize()
+            windows[name].append(1e3 * (time.perf_counter() - t0) / (GRAPH_CALLS * GRAPH_K))
+    t = trainers["group"]
+    restore_state(t.state, snaps["group"], t.generator)
+    wall_ms, busy_ms, by_name = profile_window(lambda: [call("group") for _ in range(GRAPH_CALLS)],
+                                               torch)
+    nccl = {k: v for k, v in by_name.items() if "nccl" in k.lower()}
+    n_steps = GRAPH_CALLS * GRAPH_K
+    ms = {name: float(np.median(w)) for name, w in windows.items()}
+    say("dp_step", steps=DP_STEPS, bitwise=part is None, first_part=json.dumps(part),
+        total_after=json.dumps([float(f"{x:.6g}") for x in totals]),
+        collective_calls_per_replay=json.dumps(per_replay),
+        collective_counts_eager_captured=json.dumps(counts["group"]),
+        captured_per_graph_of_k=json.dumps({"k": GRAPH_K, **captured_k}),
+        launches=json.dumps(launches), graph_ms_per_step=json.dumps(ms),
+        windows_ms=json.dumps({k: [round(x, 4) for x in v] for k, v in windows.items()}),
+        group_minus_plain_ms=f"{ms['group'] - ms['plain']:.4f}",
+        nccl_kernels_ms_per_step=json.dumps({k: round(v / n_steps, 5) for k, v in nccl.items()}),
+        nccl_ms_per_step=f"{sum(nccl.values()) / n_steps:.5f}",
+        busy_share=f"{busy_ms / wall_ms:.3f}", card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    want_calls = {"reduce_grads": int(graphed), "reduce_terms": int(graphed)}
+    if (part is not None or per_replay != want_calls
+            or {k: captured_k[k] for k in want_calls} != {k: GRAPH_K * graphed
+                                                           for k in want_calls}
+            or launches["group"] != launches["plain"] or not all(map(math.isfinite, totals))):
+        raise AssertionError(f"the data-parallel step: first differing part {part}, collectives "
+                             f"per replay {per_replay} (want {want_calls}), per {GRAPH_K}-step "
+                             f"graph {captured_k}, launches {launches}")
+    del multis, snaps
+
+    # ---- the view: split over the group and gathered, against render_views
+    t = trainers["group"]
+    rays = bundle.rays_test[:1]
+    zero_launches()
+    zero_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = next(t.render_views(rays))
+    torch.cuda.synchronize()
+    view_ms = 1e3 * (time.perf_counter() - t0)
+    view_launches = {k: c.launches for k, c in launch_counters().items()}
+    gathers = collective_counters()["all_gather_rows"].launches
+    chunk = min(cfg.chunk, bundle.h_scaled * bundle.w_scaled)  # the trainer's render chunk
+    plain = next(render_views(t.state.model_coarse, t.state.model_fine, t.mcfg, cfg.render, rays,
+                              bundle.h_scaled, bundle.w_scaled, chunk, device=dev))
+    same = sorted(k for k in plain if np.array_equal(view[k], plain[k]))
+    view_times = {"split": [], "plain": []}  # in turns: plain, split, split, plain
+
+    def one_view(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next(t.render_views(rays) if name == "split" else render_views(
+            t.state.model_coarse, t.state.model_fine, t.mcfg, cfg.render, rays, bundle.h_scaled,
+            bundle.w_scaled, chunk, device=dev))
+        torch.cuda.synchronize()
+        view_times[name].append(1e3 * (time.perf_counter() - t0))
+
+    for _ in range(DP_ROUNDS):
+        for name in ("plain", "split", "split", "plain"):
+            one_view(name)
+    view_med = {k: float(np.median(v)) for k, v in view_times.items()}
+    say("dp_view", view=f"{bundle.h_scaled}x{bundle.w_scaled}", bitwise=same == sorted(plain),
+        maps=json.dumps(sorted(plain)), same=json.dumps(same), launches=json.dumps(view_launches),
+        gathers=gathers, first_ms=f"{view_ms:.2f}", median_ms=json.dumps(view_med),
+        views_ms=json.dumps({k: [round(x, 2) for x in v] for k, v in view_times.items()}),
+        mean_acc=f"{float(view['acc'].mean()):.4f}", card=json.dumps(card))
+    n_chunks = math.ceil(bundle.h_scaled * bundle.w_scaled / chunk)
+    content = (plain["rgb"].max() > 0 and plain["depth"].max() > 0
+               and plain["acc"].mean() > VIEW_ACC_FLOOR)  # two empty views agree too
+    if (same != sorted(plain) or not content or view_launches["fwd"] != 2 * n_chunks
+            or gathers == 0):
+        raise AssertionError(f"the split view differs from render_views in {sorted(plain)} - "
+                             f"{same}, is empty (mean acc {float(plain['acc'].mean()):.4f} <= "
+                             f"{VIEW_ACC_FLOOR}), or its launches {view_launches} / gathers "
+                             f"{gathers}")
+    for tr in trainers.values():
+        tr.close()
+    del trainers, t
+    torch.cuda.empty_cache()
+
+    # ---- the CLI at one rank, then a resume in a second process
+    cfg_path = scene_yaml(CONFIG, os.path.join(work, "cli.yaml"), {
+        "experiment.dataset_dir": room_dir, "experiment.save_dir": os.path.join(work, "cli"),
+        "train.N_iters": DP_CLI_STEPS, "train.steps_per_call": DP_K,
+        **{f"logging.{k}": v for k, v in DP_CADENCE.items()}})
+    cli_args = ["--config_file", cfg_path, "--device", dev.type, "--data_parallel",
+                "--total_frames", str(SCENE_FRAMES), "--split_step", str(SCENE_SPLIT)]
+    zero_launches()
+    zero_collectives()
+    t0 = time.perf_counter()
+    ccfg, cbundle, trainer = train_scene.build_trainer(train_scene.parse_args(cli_args))
+    with trainer:
+        trainer.maybe_resume()
+        report = trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    _, _, cli_launches, replays = run_launches(trainer)
+    cli_counts = {k: [c.launches, c.captured] for k, c in collective_counters().items()}
+    save_dir = ccfg.experiment.save_dir
+    ck = torch.load(os.path.join(save_dir, "checkpoints", f"{DP_CLI_STEPS:06d}.ckpt"),
+                    map_location="cpu", weights_only=False)
+    sc = read_scalars(os.path.join(save_dir, "tfb_logs", "scalars.csv"))
+    psnr = sc.get("Test/psnr", {}).get(DP_CLI_STEPS, float("nan"))
+    rebuilt = os.path.exists(os.path.join(save_dir, "train_render", f"step_{DP_CLI_STEPS:06d}",
+                                          "cluster", "clusters.json"))
+    say("dp_cli", steps=DP_CLI_STEPS, steps_per_call=DP_K, seconds=f"{cli_s:.1f}",
+        replays=replays, launches_with_replays=json.dumps(cli_launches),
+        collective_counts_eager_captured=json.dumps(cli_counts), rebuilt=rebuilt,
+        eval_psnr=f"{psnr:.3f}", last_total=f"{float(report.total):.5f}",
+        generator_states=len(ck.get("generator_states", [])), card=json.dumps(card))
+    want_counts = [1, DP_K] if graphed else [DP_CLI_STEPS, 0]
+    if not (replays == (DP_CLI_STEPS // DP_K if graphed else 0)
+            and cli_counts["reduce_grads"] == cli_counts["reduce_terms"] == want_counts
+            and rebuilt and math.isfinite(psnr)
+            and math.isfinite(float(report.total)) and len(ck["generator_states"]) == 1):
+        raise AssertionError("the data-parallel CLI run failed a check (see the dp_cli line)")
+    ref = resume_state(trainer)
+    del trainer, cbundle
+    torch.cuda.empty_cache()
+    os.environ["MASTER_PORT"] = str(free_port())  # the second process's own one-rank group
+    resume, resume_s = resume_check(torch, ref, work, "intrinsicnerf_tpu_torch.train_scene",
+                                    cli_args, DP_CLI_STEPS + DP_CLI_MORE, DP_K, graphed)
+    say("dp_resume", seconds=f"{resume_s:.1f}", **{k: json.dumps(v) for k, v in resume.items()})
+
+    dist.destroy_process_group()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    parts = {"step": launches["group"], "view": view_launches, "cli": cli_launches}
+    return {"launches": {k: sum(p[k] for p in parts.values()) for k in ("fwd", "bwd", "image")},
+            "parts": parts, "graph_ms": ms, "nccl_ms": sum(nccl.values()) / n_steps,
+            "per_replay": per_replay, "view_ms": view_med}
+
+
 # ------------------------------------------------------- the other scene data
 
 
@@ -2257,6 +2551,8 @@ with trainer as t:
     }
     report = t.fit(n_iters=n_iters, progress=False)
     replays = t.multi_step.replays if t.multi_step is not None else 0
+if torch.distributed.is_initialized():  # the data-parallel CLI's one-rank group
+    torch.distributed.destroy_process_group()
 print(json.dumps({"exact": exact, "global_step": t.global_step, "replays": replays,
                   "last_total": float(report.total)}))
 """
@@ -2859,6 +3155,7 @@ def main() -> int:
     edit_phase(torch, np, dev, card, scene_k["save_dir"])
     bench_phase(torch, card)
     room = scene_k["data_dir"]
+    dp = data_parallel_phase(torch, np, dev, card, room)
     sd = scannet_data_phase(torch, np, dev, card, room)
     sst = scannet_step_phase(torch, np, dev, card, sd)
     del sd["bundle"]
@@ -2943,6 +3240,9 @@ def main() -> int:
         "scannet_view": sfit["view"],
         "launches_scannet_view": sfit["view"]["launches"],
         **scene_data("fwd"),
+        # the data-parallel phase (one NCCL rank): its graphed steps, split view and CLI run
+        "launches_data_parallel": dp["launches"]["fwd"],
+        "launches_data_parallel_parts": {k: v["fwd"] for k, v in dp["parts"].items()},
     }, {
         "name": "fused_mlp_fwd_image",
         "route": "cuda",
@@ -2959,6 +3259,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call lays out the slabs
         "launches_object_fit": ofit["launches"]["image"],
         **scene_data("image"),
+        "launches_data_parallel": dp["launches"]["image"],
     }, {
         "name": "fused_mlp_bwd",
         "route": "cuda",
@@ -2985,6 +3286,8 @@ def main() -> int:
         "semantic_widths": widths("bwd"),
         "max_abs_err_semantic_widths": max(v["max_bwd_err"] for v in sst["kernels"].values()),
         **{k: v for k, v in scene_data("bwd").items() if k != "launches_mesh"},
+        "launches_data_parallel": dp["launches"]["bwd"],
+        "launches_data_parallel_parts": {k: v["bwd"] for k, v in dp["parts"].items()},
     }, {
         "name": "fwd_probe",
         "route": "cuda",

@@ -7,7 +7,11 @@ with the original scene trainer's keys (``global_step``,
 ``optimizer_state_dict``; ``intrinsicnerf_tpu/tools/import_ckpt.py:3-7``),
 so ``import_reference_ckpt.py`` brings a port run into the JAX package.
 It adds ``generator_state``, the training draws' generator, so that a
-resumed run draws what the uninterrupted run would have.
+resumed run draws what the uninterrupted run would have; a data-parallel
+run adds ``generator_states``, every rank's in rank order (rank 0's is
+also ``generator_state``).  A restore at the world size a file was
+written at puts each rank's generator back; at another, it leaves the
+freshly seeded generator and says so.
 
 A packed training state (``models/mlp.py:PackedMLP``) is written in the
 same layout: its models' ``state_dict`` is the reference one, and Adam's
@@ -32,7 +36,7 @@ from __future__ import annotations
 import glob
 import os
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -116,8 +120,10 @@ def _packed_optimizer_state_dict(state: TrainState, opt_sd: dict) -> dict:
     return {"state": out, "param_groups": [{**group, "params": list(range(j))}]}
 
 
-def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> dict:
-    """The checkpoint dict of ``state``, on the host."""
+def snapshot(state: TrainState, generator: Optional[torch.Generator] = None,
+             generator_states: Optional[Sequence[torch.Tensor]] = None) -> dict:
+    """The checkpoint dict of ``state``, on the host; ``generator_states``
+    are every rank's generator states of a data-parallel run."""
     ckpt = {
         "global_step": int(state.step),
         "network_coarse_state_dict": state.model_coarse.state_dict(),
@@ -127,6 +133,9 @@ def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> 
     }
     if generator is not None:
         ckpt["generator_state"] = generator.get_state()
+    if generator_states is not None:
+        ckpt["generator_states"] = list(generator_states)
+        ckpt["generator_state"] = generator_states[0]
     ckpt = _host(ckpt)
     for group in ckpt["optimizer_state_dict"]["param_groups"]:
         if torch.is_tensor(group["lr"]):  # the graphed step's device LR
@@ -134,10 +143,10 @@ def snapshot(state: TrainState, generator: Optional[torch.Generator] = None) -> 
     return ckpt
 
 
-def restore_into(state: TrainState, ckpt: dict,
-                 generator: Optional[torch.Generator] = None) -> int:
-    """Load ``ckpt`` into ``state`` (and ``generator``) in place; returns
-    the restored step."""
+def restore_into(state: TrainState, ckpt: dict, generator: Optional[torch.Generator] = None,
+                 rank: int = 0, world: int = 1) -> int:
+    """Load ``ckpt`` into ``state`` (and ``generator``, as rank ``rank``
+    of ``world``) in place; returns the restored step."""
     state.model_coarse.load_state_dict(ckpt["network_coarse_state_dict"])
     if state.model_fine is not None:
         state.model_fine.load_state_dict(ckpt["network_fine_state_dict"])
@@ -151,8 +160,13 @@ def restore_into(state: TrainState, ckpt: dict,
     state.optimizer.load_state_dict({**opt_sd, "param_groups": groups})
     state.step = int(ckpt["global_step"])
     state.step_t.fill_(state.step)
-    if generator is not None and "generator_state" in ckpt:
-        generator.set_state(ckpt["generator_state"])
+    gens = ckpt.get("generator_states",
+                    [ckpt["generator_state"]] if "generator_state" in ckpt else [])
+    if generator is not None and len(gens) == world:
+        generator.set_state(gens[rank])
+    elif generator is not None and gens:
+        print(f"checkpoint of {len(gens)} rank(s) resumed at {world}: rank {rank}'s "
+              "training draws start from a fresh seed")
     return state.step
 
 
@@ -171,10 +185,10 @@ class Checkpointer:
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
 
-    def save(self, state: TrainState, step: int,
-             generator: Optional[torch.Generator] = None) -> None:
+    def save(self, state: TrainState, step: int, generator: Optional[torch.Generator] = None,
+             generator_states: Optional[Sequence[torch.Tensor]] = None) -> None:
         """Copy ``state`` to the host now; write it in the background."""
-        ckpt = snapshot(state, generator)
+        ckpt = snapshot(state, generator, generator_states)
         ckpt["global_step"] = int(step)
         self.wait()  # one write at a time, in order
         self._pending = self._pool.submit(self._save_and_prune, ckpt, step)
@@ -190,16 +204,17 @@ class Checkpointer:
         return latest_step(self.ckpt_dir)
 
     def restore(self, state: TrainState, step: Optional[int] = None,
-                generator: Optional[torch.Generator] = None) -> Optional[int]:
-        """Restore ``step`` (default: the newest) into ``state``; None when
-        the directory holds no checkpoint."""
+                generator: Optional[torch.Generator] = None, rank: int = 0,
+                world: int = 1) -> Optional[int]:
+        """Restore ``step`` (default: the newest) into ``state`` as rank
+        ``rank`` of ``world``; None when the directory holds no checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         # on the host: load_state_dict moves the moments to each parameter's
         # device and keeps Adam's step counts on the host, as a fresh run has them
         ckpt = torch.load(checkpoint_path(self.ckpt_dir, step), map_location="cpu")
-        return restore_into(state, ckpt, generator)
+        return restore_into(state, ckpt, generator, rank, world)
 
     def wait(self) -> None:
         """Join the write in flight; its error, if any, is raised here."""

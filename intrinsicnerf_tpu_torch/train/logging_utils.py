@@ -1,7 +1,8 @@
 """Observability: scalars, histograms and images for TensorBoard, a CSV
 of every scalar, and the profiler hooks.
 
-Port of ``intrinsicnerf_tpu/train/logging_utils.py``.  Every scalar is
+Port of ``intrinsicnerf_tpu/train/logging_utils.py`` (``TBLogger``,
+``NullLogger`` and the profiler hooks).  Every scalar is
 written to ``<log_dir>/scalars.csv`` as ``step,name,value`` rows (what
 ``tools_convergence_gate.py:read_test_metrics`` and the port's gate twin
 read), and to TensorBoard where ``torch.utils.tensorboard`` imports.
@@ -58,6 +59,25 @@ class TBLogger:
         self._csv_file.close()
         if self.writer is not None:
             self.writer.close()
+
+
+class NullLogger:
+    """The logger of a data-parallel run's other ranks: rank 0 owns the
+    log files, and the rest log nothing (their training is the same)."""
+
+    writer = None
+
+    def scalars(self, step, values):
+        pass
+
+    def histogram(self, step, name, values):
+        pass
+
+    def image(self, step, name, img, dataformats="HWC"):
+        pass
+
+    def close(self):
+        pass
 
 
 class ProfilerTrace:

@@ -24,6 +24,11 @@ never move.  Elsewhere they are ``IntrinsicMLP``s with the reference
 same steps from the same weights.  All random draws come from the
 ``torch.Generator`` handed to the step.
 
+With a data-parallel group (``make_train_step(group=...)``, the twin of
+the JAX ``axis_name``) the step averages the masked gradients over the
+group in one all-reduce before Adam, and the logged loss terms in one
+more (``parallel/mesh.py``); the report is built from the averaged terms.
+
 Everything the step reads that changes from step to step lives on the
 device: the step count (``TrainState.step_t``), from which the step
 computes the LR and the loss-weight switches, and the cluster weight
@@ -49,6 +54,7 @@ from intrinsicnerf_tpu_torch.core.losses import (
 )
 from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs
 from intrinsicnerf_tpu_torch.models.mlp import MLP, IntrinsicMLP, MLPConfig, PackedMLP, fuses
+from intrinsicnerf_tpu_torch.parallel.mesh import reduce_grads, reduce_terms
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, draw_train_noise, render_rays
 from intrinsicnerf_tpu_torch.train.schedules import loss_weight_schedule, make_lr_schedule
 
@@ -204,6 +210,17 @@ def restore_state(state: TrainState, snap: dict,
         generator.set_state(snap["generator"])
 
 
+LEVEL_TERMS = ("img", "sem", "chroma", "residual", "reflect_sparsity", "shading_smooth",
+               "far_reflect", "intensity", "cluster")
+
+
+def _level_terms(t: dict) -> list:
+    """One level's loss terms as 0-dim tensors, in ``LEVEL_TERMS`` order."""
+    intr = t["intr"]
+    return [t["img"], t["sem"], intr.chroma, intr.residual, intr.reflect_sparsity,
+            intr.shading_smooth, intr.far_reflect, intr.intensity, t["cluster"]]
+
+
 def make_train_step(
     mcfg: MLPConfig,
     rcfg: RenderConfig,
@@ -212,6 +229,7 @@ def make_train_step(
     w: int,
     sample_fn=None,
     noise_fn=None,
+    group=None,
 ):
     """The step ``step_fn(state, pools, table, w_c, generator) ->
     LossReport``.  It updates ``state`` in place, leaves this step's
@@ -226,7 +244,9 @@ def make_train_step(
     read before this step advances it, so a graph replay sees each step's
     count, as the traced step of the JAX scan does); ``noise_fn(
     generator, n_rays) -> dict`` overrides ``draw_train_noise`` (both
-    hooks let callers inject fixed draws)."""
+    hooks let callers inject fixed draws).  ``group`` (a
+    ``parallel.mesh.DataGroup``) averages the gradients and the loss terms
+    over its ranks; the step keeps it in ``step_fn.group``."""
     lr_schedule = make_lr_schedule(tcfg.lrate, tcfg.lrate_decay)
 
     def loss_terms(maps, batch, w_res, w_i, cluster_target, w_c):
@@ -297,36 +317,46 @@ def make_train_step(
         for model in (state.model_coarse, state.model_fine):
             if isinstance(model, PackedMLP):
                 model.mask_grads()
+        if group is not None:  # the mask first, then the mean, as the JAX step orders them
+            reduce_grads(group, [p for g in opt.param_groups for p in g["params"]])
         lr = lr_schedule(step_t)  # the pre-update count, as optax reads it
         if lr.device.type == "cpu":
             lr = float(lr)  # the host's Adam takes a number
-        for group in opt.param_groups:
-            group["lr"] = lr
+        for pg in opt.param_groups:
+            pg["lr"] = lr
         opt.step()
         step_t.add_(1)
         state.step += 1
 
-        def both(get):
-            v = get(t_c)
-            return (v + get(t_f) if t_f is not None else v).detach()
+        # the logged terms: the total, then each level's (averaged over the group)
+        terms = [total] + [v for t in (t_c, t_f) if t is not None for v in _level_terms(t)]
+        terms = [v.detach() for v in terms]
+        if group is not None:
+            terms = reduce_terms(group, terms)
+        c = dict(zip(LEVEL_TERMS, terms[1:]))
+        f = dict(zip(LEVEL_TERMS, terms[1 + len(LEVEL_TERMS):])) if t_f is not None else None
 
-        zero = t_c["img"].new_zeros(())
+        def both(name):
+            return c[name] + f[name] if f is not None else c[name]
+
+        zero = c["img"].new_zeros(())
         return LossReport(
-            total=total.detach(),
-            img_coarse=t_c["img"].detach(),
-            img_fine=t_f["img"].detach() if t_f is not None else zero,
-            psnr_coarse=mse2psnr(t_c["img"]).detach(),
-            psnr_fine=mse2psnr(t_f["img"]).detach() if t_f is not None else zero,
-            semantic=both(lambda t: t["sem"]),
-            chroma=both(lambda t: t["intr"].chroma),
-            residual=both(lambda t: t["intr"].residual),
-            reflect_sparsity=both(lambda t: t["intr"].reflect_sparsity),
-            shading_smooth=both(lambda t: t["intr"].shading_smooth),
-            far_reflect=both(lambda t: t["intr"].far_reflect),
-            intensity=both(lambda t: t["intr"].intensity),
-            reflect_cluster=both(lambda t: t["cluster"]),
+            total=terms[0],
+            img_coarse=c["img"],
+            img_fine=f["img"] if f is not None else zero,
+            psnr_coarse=mse2psnr(c["img"]),
+            psnr_fine=mse2psnr(f["img"]) if f is not None else zero,
+            semantic=both("sem"),
+            chroma=both("chroma"),
+            residual=both("residual"),
+            reflect_sparsity=both("reflect_sparsity"),
+            shading_smooth=both("shading_smooth"),
+            far_reflect=both("far_reflect"),
+            intensity=both("intensity"),
+            reflect_cluster=both("cluster"),
         )
 
+    step_fn.group = group
     return step_fn
 
 
@@ -368,11 +398,11 @@ def make_multi_step(step_fn, k: int):
         if not (torch.is_tensor(w_c) and w_c.dim() == 0 and w_c.device == state.step_t.device):
             raise ValueError("a graphed step needs w_c as a 0-dim tensor on the device, "
                              f"got {w_c!r}")
-        if cache["key"] != _static_key(state, pools, table, w_c, generator):
+        if cache["key"] != _static_key(step_fn, state, pools, table, w_c, generator):
             cache["graph"] = cache["out"] = None  # free the old graph's memory first
             cache["graph"], cache["out"] = _capture(step_fn, k, state, pools, table, w_c,
                                                     generator)
-            cache["key"] = _static_key(state, pools, table, w_c, generator)
+            cache["key"] = _static_key(step_fn, state, pools, table, w_c, generator)
             cache["params"] = [p for g in state.optimizer.param_groups for p in g["params"]]
         cache["graph"].replay()
         torch.autograd.graph.increment_version(cache["params"])
@@ -385,10 +415,13 @@ def make_multi_step(step_fn, k: int):
     return multi
 
 
-def _static_key(state, pools, table, w_c, generator) -> tuple:
+def _static_key(step_fn, state, pools, table, w_c, generator) -> tuple:
     """What a captured graph holds by address: a new tensor anywhere
-    here (a restored Adam state, a new table) needs a new capture."""
-    tensors = [*pools, *(table if table is not None else ()), w_c, state.step_t]
+    here (a restored Adam state, a new table, a new buffer of the group's
+    collectives) needs a new capture."""
+    group = getattr(step_fn, "group", None)
+    tensors = [*pools, *(table if table is not None else ()), w_c, state.step_t,
+               *(group.buffers.values() if group is not None else ())]
     for group in state.optimizer.param_groups:
         for p in group["params"]:
             tensors += [p, *state.optimizer.state.get(p, {}).values()]

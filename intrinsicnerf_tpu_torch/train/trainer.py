@@ -1,6 +1,6 @@
 """The scene trainer: the training loop with its periodic work.
 
-Port of ``intrinsicnerf_tpu/train/trainer.py:Trainer`` on one device:
+Port of ``intrinsicnerf_tpu/train/trainer.py:Trainer``:
 
 - the step (``train/step.py:make_train_step``) every iteration, with the
   cluster term off (``w_c = 0``) until the first rebuild;
@@ -32,8 +32,18 @@ as ``sample_fn``; its bundle renders the test views at each rebuild
 (``rays_cluster``) and has no semantic head.  After each rebuild and
 evaluation the rendered frames become mp4s (``tools/video.py``).
 
-Left out here: the device mesh and several hosts.  ``render_views`` is
-also a free function: the serving path.
+``group`` (a ``parallel.mesh.DataGroup``, the twin of ``mesh=``) trains
+data-parallel, one process per GPU: the pools are padded and sharded by
+image (or, loaded host-locally, already are this rank's), the state is
+broadcast from rank 0 at the start and after a resume, each rank draws
+from its own generator, the step averages gradients and loss terms over
+the group, and every full-image render is split over the ranks and
+gathered (``parallel/sharded_render.py``), so every rank rebuilds the same
+cluster table from the same views.  Files (logs, the config, renders,
+palettes, videos, checkpoints) are written by rank 0 only; a checkpoint
+keeps every rank's generator state.
+
+``render_views`` is also a free function: the serving path.
 """
 
 from __future__ import annotations
@@ -61,7 +71,12 @@ from intrinsicnerf_tpu_torch.models.mlp import MLP, MLPConfig
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays, render_rays_chunked
 from intrinsicnerf_tpu_torch.tools.video import generate_all
 from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
-from intrinsicnerf_tpu_torch.train.logging_utils import ProfilerTrace, TBLogger
+from intrinsicnerf_tpu_torch.parallel.distributed import make_global_pools
+from intrinsicnerf_tpu_torch.parallel.mesh import (
+    DataGroup, all_gather_rows, pad_images_to_multiple, replicate, shard_pools)
+from intrinsicnerf_tpu_torch.parallel.sharded_render import make_sharded_render
+from intrinsicnerf_tpu_torch.parallel.sharded_step import rank_generator
+from intrinsicnerf_tpu_torch.train.logging_utils import NullLogger, ProfilerTrace, TBLogger
 from intrinsicnerf_tpu_torch.train.schedules import cluster_anneal
 from intrinsicnerf_tpu_torch.train.step import (
     DataPools, TrainState, create_train_state, make_multi_step, make_train_step, packs_state)
@@ -88,6 +103,8 @@ class SceneBundle:
     colour_map: Optional[np.ndarray] = None  # [C+1, 3] with the void row
     class_names: Optional[list] = None  # ["void", ...] by original id
     semantic_class_ids: Optional[np.ndarray] = None  # original ids with void
+    # the pools hold only this process's images (host-local loading), not all
+    pools_local: bool = False
 
 
 def make_object_sample_fn(cfg, bundle: SceneBundle, ndc_focal=None):
@@ -133,13 +150,16 @@ def render_views(
     ``device``; a missing GPU raises here, at the call, not at the
     first view."""
     rays_all = torch.as_tensor(rays_all, dtype=torch.float32, device=resolve_device(device))
-    return _views(model_c, model_f, mcfg, rcfg, rays_all, h, w, chunk)
+    return _views(lambda r: render_rays_chunked(model_c, model_f, mcfg, r, rcfg, chunk),
+                  rays_all, h, w)
 
 
 @torch.no_grad()
-def _views(model_c, model_f, mcfg, rcfg, rays_all, h, w, chunk):
+def _views(render_rays_of, rays_all, h, w):
+    """``render_views``' loop over the views of ``rays_all``, each rendered
+    by ``render_rays_of(rays [H*W, 11]) -> RenderResult``."""
     def render(i):
-        return render_rays_chunked(model_c, model_f, mcfg, rays_all[i], rcfg, chunk)
+        return render_rays_of(rays_all[i])
 
     n = rays_all.shape[0]
     pending = render(0) if n else None
@@ -171,7 +191,9 @@ def _views(model_c, model_f, mcfg, rcfg, rays_all, h, w, chunk):
 
 class Trainer:
     """Trains one scene on one device (default ``"cuda"``, which raises
-    without a GPU).  ``step_hook(step, t_start, t_enqueued, did_work)``,
+    without a GPU), or on this rank's device of ``group`` (without one,
+    a group of one process whose collectives do nothing).
+    ``step_hook(step, t_start, t_enqueued, did_work)``,
     when set, is called after each call of the step (one step, or a block
     of ``steps_per_call``) with the step count after it, the host clock
     before the call and after it was enqueued, and whether the call did
@@ -179,14 +201,23 @@ class Trainer:
     traces N steps with ``torch.profiler``.  ``sample_fn`` replaces the
     step's pool sampler (the object pipeline's pose sampler)."""
 
-    def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda", sample_fn=None):
+    def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda", sample_fn=None,
+                 group=None):
         self.device = resolve_device(device)
+        if group is None:  # one process: a group of one, whose collectives do nothing
+            group = DataGroup(0, 1, None, self.device)
+        elif group.device.type != self.device.type:
+            raise ValueError(f"a {self.device.type} trainer got a group on {group.device}")
+        self.device = group.device
+        self.group = group
+        self.lead = group.lead  # this process writes the files
         self.cfg = cfg
-        self.bundle = bundle
         self.save_dir = cfg.experiment.save_dir
-        os.makedirs(self.save_dir, exist_ok=True)
-        self.logger = TBLogger(os.path.join(self.save_dir, "tfb_logs"), cfg.raw)
-        if cfg.raw:  # the config, as the original trainer dumps it
+        if self.lead:
+            os.makedirs(self.save_dir, exist_ok=True)
+        self.logger = (TBLogger(os.path.join(self.save_dir, "tfb_logs"), cfg.raw) if self.lead
+                       else NullLogger())
+        if cfg.raw and self.lead:  # the config, as the original trainer dumps it
             import yaml
 
             with open(os.path.join(self.save_dir, "exp_config.yaml"), "w") as f:
@@ -206,11 +237,21 @@ class Trainer:
             self.mcfg, cfg.train, device=self.device,
             generator=torch.Generator().manual_seed(seed),
             with_fine=cfg.render.n_importance > 0)
+        if bundle.pools_local:  # the CLI loaded only this rank's images
+            pools = make_global_pools(group, bundle.pools)
+        else:
+            pools = shard_pools(group, pad_images_to_multiple(bundle.pools, group.world))
+        bundle = dataclasses.replace(bundle, pools=pools)
+        replicate(group, self.state)
         self.step_fn = make_train_step(self.mcfg, cfg.render, cfg.train, bundle.h, bundle.w,
-                                       sample_fn=sample_fn)
+                                       sample_fn=sample_fn, group=group)
         # every training draw (pixels, jitter, sigma noise, importance
-        # uniforms) comes from this generator; checkpoints keep its state
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # uniforms) comes from this rank's generator; checkpoints keep its state
+        self.generator = rank_generator(seed, group)
+        n_view = bundle.h_scaled * bundle.w_scaled
+        self._render = make_sharded_render(self.mcfg, cfg.render, group, n_view,
+                                           chunk=min(cfg.chunk, n_view))
+        self.bundle = bundle
 
         self.n_table_classes = max(1, 1 if cfg.train.no_semantic_tree else bundle.num_valid_classes)
         self.cluster_manager: Optional[ClusterManager] = None
@@ -240,9 +281,6 @@ class Trainer:
             self._ckpt = Checkpointer(os.path.join(self.save_dir, "checkpoints"))
         return self._ckpt
 
-    def _eval_chunk(self) -> int:
-        return min(self.cfg.chunk, self.bundle.h_scaled * self.bundle.w_scaled)
-
     def close(self):
         """Join the checkpoint write and the image writes, close the
         logger.  Idempotent."""
@@ -266,13 +304,24 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore the newest checkpoint under ``save_dir/checkpoints``, if
-        any, and the palette that goes with it; returns the global step."""
-        if not os.path.isdir(os.path.join(self.save_dir, "checkpoints")):
-            return self.global_step
-        step = self._checkpointer().restore(self.state, generator=self.generator)
+        any, and the palette that goes with it; returns the global step.
+        Every rank reads the file and takes its own generator state from it
+        (a file of another world size reseeds the draws), and the state is
+        broadcast from rank 0 again; a rank that did not restore the step
+        rank 0 did (a ``save_dir`` the ranks do not share) raises."""
+        step, before = None, self.state.step
+        if os.path.isdir(os.path.join(self.save_dir, "checkpoints")):
+            step = self._checkpointer().restore(self.state, generator=self.generator,
+                                                rank=self.group.rank, world=self.group.world)
+        replicate(self.group, self.state)
+        if self.state.step != (before if step is None else step):
+            raise RuntimeError(
+                f"rank {self.group.rank} restored step {step} from {self.save_dir}, rank 0 step "
+                f"{self.state.step}: resuming needs a save_dir that every rank reads")
         if step is not None:
             self.global_step = step
-            print(f"resumed from step {step}")
+            if self.lead:
+                print(f"resumed from step {step}")
             self._restore_cluster_state()
         return self.global_step
 
@@ -301,8 +350,9 @@ class Trainer:
         self._set_table(mgr.to_table(device=self.device))
         self.w_c, self.b_f = cluster_anneal(best_step, self.cfg.logging.step_vis_train,
                                             self.cfg.train.n_iters, self.cfg.b_f_cap)
-        print(f"cluster palette restored from rebuild @{best_step} "
-              f"(w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
+        if self.lead:
+            print(f"cluster palette restored from rebuild @{best_step} "
+                  f"(w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
 
     # ------------------------------------------------------------- train
 
@@ -350,14 +400,14 @@ class Trainer:
                 self.multi_step = make_multi_step(self.step_fn, spc)
             step_fn = self.multi_step
         it = range(start, n_iters, spc)
-        if progress:
+        if progress and self.lead:
             from tqdm import trange
 
             # tqdm counts blocks, so the resume's initial is in blocks too
             it = trange(start, n_iters, spc, initial=start // spc)
         # --profile N traces steps [start+1, start+1+N): the first step,
         # which builds the kernels, stays out of the trace
-        prof_start = start + 1 if self.profile_steps > 0 else None
+        prof_start = start + 1 if self.profile_steps > 0 and self.lead else None
         prof_stop = prof_start + self.profile_steps if prof_start is not None else None
         t0 = time.time()
         report = None
@@ -380,7 +430,7 @@ class Trainer:
                 t0 = time.time()
                 did_work = True
             if done % log.step_save_ckpt == 0:
-                self._checkpointer().save(self.state, done, self.generator)
+                self.save_checkpoint(done)
                 did_work = True
             if done % log.step_vis_train == 0 and not self.cfg.train.no_cluster:
                 self.rebuild_clusters(done)
@@ -395,6 +445,14 @@ class Trainer:
             self._stop_profile()
         self.flush_io()
         return report
+
+    def save_checkpoint(self, step: int):
+        """Checkpoint the state at ``step`` (written off the loop): every
+        rank's generator state is gathered, and rank 0 writes them all."""
+        g = self.generator.get_state().to(self.device)[None]
+        gens = all_gather_rows(self.group, g).cpu().unbind(0)
+        if self.lead:
+            self._checkpointer().save(self.state, step, self.generator, generator_states=gens)
 
     def _stop_profile(self):
         path = self._profiler.stop()
@@ -445,7 +503,7 @@ class Trainer:
             ids = np.asarray(self.bundle.semantic_class_ids)
             names = self.bundle.class_names or [f"class_{int(i)}" for i in range(int(ids.max()) + 1)]
             legend = plot_semantic_legend(ids, names, colormap=label_colormap(int(ids.max()) + 2),
-                                          save_path=self.save_dir)
+                                          save_path=self.save_dir if self.lead else None)
         if self.logger.writer is None:
             return
         if legend is not None:
@@ -475,12 +533,17 @@ class Trainer:
 
     def render_views(self, rays_all: torch.Tensor) -> Iterator[Dict[str, np.ndarray]]:
         """Render every view of ``rays_all [N, Hs*Ws, 11]`` with the current
-        models; yields per-view numpy maps at the scaled resolution."""
-        return render_views(self.state.model_coarse, self.state.model_fine, self.mcfg,
-                            self.cfg.render, rays_all, self.bundle.h_scaled,
-                            self.bundle.w_scaled, self._eval_chunk(), device=self.device)
+        models, split over the group and gathered (``parallel/sharded_render.py``);
+        yields per-view numpy maps at the scaled resolution."""
+        rays_all = torch.as_tensor(rays_all, dtype=torch.float32, device=self.device)
+        st = self.state
+        return _views(lambda r: self._render(st.model_coarse, st.model_fine, r), rays_all,
+                      self.bundle.h_scaled, self.bundle.w_scaled)
 
     def _save_view(self, save_dir: str, i: int, view: Dict[str, np.ndarray]):
+        """Queue the files of one rendered view (rank 0 only)."""
+        if not self.lead:
+            return
         near, far = self.cfg.depth_range
 
         def p(name):
@@ -508,8 +571,10 @@ class Trainer:
         the annealed ``(w_c, b_f)``, swap in the new device table and write
         the renders, the palette and the previews.  ``last_rebuild`` keeps
         the seconds spent rendering and in mean-shift, and which
-        mean-shift ran."""
+        mean-shift ran.  Under a group every rank renders (the split render
+        is collective) and rebuilds the same table; rank 0 writes."""
         cfg = self.cfg
+        save = save and self.lead
         self.w_c, self.b_f = cluster_anneal(step, cfg.logging.step_vis_train, cfg.train.n_iters,
                                             cfg.b_f_cap)
         save_dir = os.path.join(self.save_dir, "train_render", f"step_{step:06d}")
@@ -538,8 +603,10 @@ class Trainer:
         path = meanshift_backend()
         self.last_rebuild = {"render_s": render_s, "meanshift_s": meanshift_s, "meanshift": path,
                              "views": len(views)}
-        print(f"cluster rebuild @{step}: render {render_s:.1f}s ({len(views)} views), "
-              f"mean-shift {meanshift_s:.1f}s ({path}) (w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
+        if self.lead:
+            print(f"cluster rebuild @{step}: render {render_s:.1f}s ({len(views)} views), "
+                  f"mean-shift {meanshift_s:.1f}s ({path}) (w_c={self.w_c:.3g}, "
+                  f"b_f={self.b_f:.3g})")
         self.cluster_manager = mgr
         self._set_table(mgr.to_table(device=self.device))
         if save:
@@ -622,7 +689,9 @@ class Trainer:
     # ------------------------------------------------------------- eval
 
     def evaluate(self, step: int, save: bool = True) -> Dict[str, float]:
-        """Render the test views; PSNR, the depth suite and the mIoU suite."""
+        """Render the test views; PSNR, the depth suite and the mIoU suite
+        (where the ground truth is: rank 0 under host-local loading)."""
+        save = save and self.lead
         save_dir = os.path.join(self.save_dir, "test_render", f"step_{step:06d}")
         if save:
             os.makedirs(save_dir, exist_ok=True)
@@ -651,7 +720,8 @@ class Trainer:
                             "class_avg_acc": cls_acc})
         self.logger.scalars(step, {f"Test/{k}": v for k, v in metrics.items()})
         self._log_view_panels(step, "Test", views)
-        print(f"eval @{step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+        if self.lead:
+            print(f"eval @{step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
         if save:
             self.flush_io()  # the videos read the PNGs from disk
             self._write_videos(save_dir)

@@ -12,9 +12,14 @@ blocks of steps as one CUDA graph replay.
     python -m intrinsicnerf_tpu_torch.train_object --config configs/object/lego.txt
     python -m intrinsicnerf_tpu_torch.train_object --config cfg.txt --render_only --render_test
     python -m intrinsicnerf_tpu_torch.train_object --config cfg.txt --device cpu
+    torchrun --nproc_per_node 4 -m intrinsicnerf_tpu_torch.train_object --config cfg.txt \
+        --data_parallel
 
-The multi-device flag (ROADMAP queue 1, item 7) is not ported yet and
-raises.
+``--data_parallel`` (or any of ``--coordinator``, ``--num_processes``,
+``--process_id``, as in the scene CLI) trains on one process per GPU: every
+process loads the object, and the trainer keeps its shard of the pose
+sampler's per-image pools (``dirs_cam`` is shared by all), so each rank
+draws ``N_rand`` pairs of its own images.
 """
 
 from __future__ import annotations
@@ -43,8 +48,13 @@ def parse_args(argv=None):
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="trace N training steps with torch.profiler "
                         "(<save_dir>/profile/trace.json)")
-    parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--seed", type=int, default=0, help="init / training draws seed")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="train on one process per GPU (the process flags imply it)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="tcp://HOST:PORT of rank 0's rendezvous (else torchrun's environment)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     return parser.parse_args(argv)
 
 
@@ -83,6 +93,7 @@ def build_trainer(args):
     """The configuration, bundle and ``Trainer`` (not yet entered) of the
     parsed CLI ``args``."""
     from intrinsicnerf_tpu_torch.config import from_object_txt
+    from intrinsicnerf_tpu_torch.parallel.distributed import join_group
     from intrinsicnerf_tpu_torch.train.prepare import prepare_blender_bundle
     from intrinsicnerf_tpu_torch.train.trainer import Trainer, make_object_sample_fn
 
@@ -90,21 +101,23 @@ def build_trainer(args):
     if args.expname:
         overrides["expname"] = args.expname
     cfg = from_object_txt(args.config, overrides)
+    group = join_group(args)
     data = load_object_data(cfg)
     ndc_focal = ndc_focal_for(cfg, data)
-    bundle, _ = prepare_blender_bundle(cfg, data, ndc_focal=ndc_focal, device=args.device)
+    bundle, _ = prepare_blender_bundle(cfg, data, ndc_focal=ndc_focal,
+                                       device=group.device if group else args.device)
     sample_fn = make_object_sample_fn(cfg, bundle, ndc_focal=ndc_focal)
-    trainer = Trainer(cfg, bundle, seed=args.seed, device=args.device, sample_fn=sample_fn)
+    trainer = Trainer(cfg, bundle, seed=args.seed, device=args.device, sample_fn=sample_fn,
+                      group=group)
     trainer.profile_steps = args.profile
     return cfg, bundle, trainer
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: multi-device training is not ported yet "
-                         "(ROADMAP queue 7)")
     import torch
+
+    from intrinsicnerf_tpu_torch.parallel.distributed import process_group_scope
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -115,21 +128,24 @@ def main(argv=None):
               "but ignored — the cluster-loss weight follows the annealed "
               "schedule, matching the reference (run_nerf.py:957,1063)")
 
-    cfg, bundle, trainer = build_trainer(args)
-    with trainer:
-        trainer.maybe_resume()
-        if args.render_only:
-            save_dir = os.path.join(
-                cfg.experiment.save_dir,
-                f"renderonly_{'test' if args.render_test else 'path'}_{trainer.global_step:06d}")
-            os.makedirs(save_dir, exist_ok=True)
-            rays = bundle.rays_test if args.render_test else bundle.rays_vis
-            for i, view in enumerate(trainer.render_views(rays)):
-                trainer._save_view(save_dir, i, view)
-            trainer.flush_io()
-            print(f"renders written to {save_dir}")
-            return
-        trainer.fit(n_iters=args.n_iters, progress=not args.no_progress)
+    with process_group_scope():
+        cfg, bundle, trainer = build_trainer(args)
+        with trainer:
+            trainer.maybe_resume()
+            if args.render_only:
+                save_dir = os.path.join(
+                    cfg.experiment.save_dir,
+                    f"renderonly_{'test' if args.render_test else 'path'}_"
+                    f"{trainer.global_step:06d}")
+                if trainer.lead:
+                    os.makedirs(save_dir, exist_ok=True)
+                rays = bundle.rays_test if args.render_test else bundle.rays_vis
+                for i, view in enumerate(trainer.render_views(rays)):
+                    trainer._save_view(save_dir, i, view)  # rank 0 writes
+                trainer.flush_io()
+                print(f"renders written to {save_dir}")
+                return
+            trainer.fit(n_iters=args.n_iters, progress=not args.no_progress)
     print("training complete")
 
 

@@ -13,9 +13,19 @@ periodic eval, cluster rebuild and checkpoint work.  An existing
     python -m intrinsicnerf_tpu_torch.train_scene --config_file cfg.yaml --sparse_views \\
         --sparse_ratio 0.5
     python -m intrinsicnerf_tpu_torch.train_scene --config_file cfg.yaml --device cpu
+    torchrun --nproc_per_node 4 -m intrinsicnerf_tpu_torch.train_scene \
+        --config_file cfg.yaml --data_parallel
+    python -m intrinsicnerf_tpu_torch.train_scene --config_file cfg.yaml --data_parallel \
+        --coordinator tcp://HOST:PORT --num_processes N --process_id I
 
-The multi-device flags (ROADMAP queue 1, item 7) are not ported yet and
-raise.
+``--data_parallel`` (or any of ``--coordinator``, ``--num_processes``,
+``--process_id``) trains on one process per GPU (``parallel/``): each
+rank samples ``N_rays`` pairs of its own images, so the global batch is
+``N_rays`` times the process count.  The process group is joined before
+any data loads; with more than one process each loads only its shard of
+the Replica training frames (``build_multihost_replica_bundle``), and
+the degradation flags, whose host-side draws would differ between the
+processes, are refused.
 """
 
 from __future__ import annotations
@@ -117,9 +127,11 @@ def parse_args(argv=None):
     parser.add_argument("--label_propagation", action="store_true")
     parser.add_argument("--partial_perc", type=float, default=0.0)
     parser.add_argument("--no_progress", action="store_true")
-    parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--seed", type=int, default=0, help="init / training draws seed")
-    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="train on one process per GPU (the process flags imply it)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="tcp://HOST:PORT of rank 0's rendezvous (else torchrun's environment)")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--debug_nans", action="store_true",
@@ -130,23 +142,90 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def build_multihost_replica_bundle(cfg, args, group):
+    """The bundle of a rank of a run over several processes: the rank
+    loads only its shard of the train frames (``local_train_ids``), the
+    semantic class set is agreed over the group so the label remap and the
+    semantic head are one everywhere, the test ground truth is read on
+    rank 0 only, and the train and test view rays (which every rank needs:
+    the split render is collective) come from the whole pose table.
+    Train-view metrics need every train image on one process and are
+    skipped (``train_gt`` is empty)."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from intrinsicnerf_tpu_torch.core.rays import create_rays
+    from intrinsicnerf_tpu_torch.data.replica import (
+        default_replica_split, load_replica, rebuild_semantic_remap)
+    from intrinsicnerf_tpu_torch.parallel.distributed import (
+        allgather_semantic_classes, local_train_ids)
+    from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle, replica_intrinsics
+
+    exp = cfg.experiment
+    if exp.dataset_type != "replica":
+        raise SystemExit("loading over several processes supports the replica pipeline "
+                         f"(got {exp.dataset_type})")
+    refuse_degradations(args)
+    train_ids, test_ids = default_replica_split(args.total_frames, args.split_step)
+    local_ids, padded_n = local_train_ids(train_ids, group.world, group.rank)
+    data = load_replica(exp.dataset_dir, local_ids, test_ids if group.lead else [],
+                        img_h=exp.height, img_w=exp.width)
+    rebuild_semantic_remap(data, allgather_semantic_classes(data.semantic_classes))
+    bundle = prepare_replica_bundle(cfg, data, device=group.device)
+
+    traj = np.loadtxt(os.path.join(exp.dataset_dir, "traj_w_c.txt"),
+                      delimiter=" ").reshape(-1, 4, 4)
+    hs, ws = exp.height // cfg.test_viz_factor, exp.width // cfg.test_viz_factor
+    fxs, fys, cxs, cys = replica_intrinsics(ws, hs)
+    near, far = cfg.depth_range
+
+    def rays(ids):
+        poses = torch.as_tensor(traj[ids], dtype=torch.float32, device=group.device)
+        return create_rays(poses, hs, ws, fxs, fys, cxs, cys, near, far,
+                           convention=exp.convention)
+
+    print(f"[rank {group.rank}/{group.world}] loaded {len(local_ids)}/{padded_n} train frames"
+          + (", and the test ground truth" if group.lead else ""))
+    return dataclasses.replace(bundle, rays_vis=rays(train_ids), rays_test=rays(test_ids),
+                               train_gt={}, pools_local=True)
+
+
+def refuse_degradations(args):
+    """The degradation flags draw on the host, and those draws would differ
+    between processes: refused when more than one process trains."""
+    for flag in DEGRADATION_FLAGS:
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} uses host-side draws that would differ between "
+                             "processes; run degradation experiments on one process")
+
+
 def build_trainer(args):
     """The configuration, bundle and ``Trainer`` (not yet entered) of the
-    parsed CLI ``args``."""
+    parsed CLI ``args``; with data parallelism the process group is joined
+    first."""
     from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.parallel.distributed import (
+        data_parallel_asked, join_group, requested_world)
     from intrinsicnerf_tpu_torch.train.trainer import Trainer
 
-    if args.data_parallel or args.coordinator or args.num_processes or args.process_id is not None:
-        raise SystemExit("multi-device and multi-host training are not ported yet "
-                         "(ROADMAP queue 1, item 7)")
     cfg = from_yaml(args.config_file)
-    data = build_dataset(cfg, args)
-    bundle = prepare_bundle(cfg, data, args.device)
+    if data_parallel_asked(args) and requested_world(args.num_processes) > 1:
+        refuse_degradations(args)  # before the rendezvous, which would wait for the others
+    group = join_group(args)
+    if group is not None and group.world > 1:
+        bundle = build_multihost_replica_bundle(cfg, args, group)
+    else:
+        data = build_dataset(cfg, args)
+        bundle = prepare_bundle(cfg, data, group.device if group else args.device)
     sample_fn = None
     if not cfg.raw.get("render", {}).get("no_batching", True):
         sample_fn = all_images_sample_fn(cfg, bundle)
         print("batching mode: sampling pixels across all training images")
-    trainer = Trainer(cfg, bundle, seed=args.seed, device=args.device, sample_fn=sample_fn)
+    trainer = Trainer(cfg, bundle, seed=args.seed, device=args.device, sample_fn=sample_fn,
+                      group=group)
     trainer.profile_steps = args.profile
     return cfg, bundle, trainer
 
@@ -157,10 +236,13 @@ def main(argv=None):
         import torch
 
         torch.autograd.set_detect_anomaly(True)
-    _, _, trainer = build_trainer(args)
-    with trainer:
-        trainer.maybe_resume()
-        trainer.fit(n_iters=args.n_iters, progress=not args.no_progress)
+    from intrinsicnerf_tpu_torch.parallel.distributed import process_group_scope
+
+    with process_group_scope():
+        _, _, trainer = build_trainer(args)
+        with trainer:
+            trainer.maybe_resume()
+            trainer.fit(n_iters=args.n_iters, progress=not args.no_progress)
     print("training complete")
 
 

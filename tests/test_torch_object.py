@@ -280,13 +280,48 @@ def test_train_object_cli_trains_resumes_and_renders(tmp_path, object_dir, capsy
     assert not (d / "rgb_002.png").exists()
 
 
-def test_train_object_cli_guards(tmp_path, object_dir):
+def test_train_object_cli_guards(tmp_path, object_dir, monkeypatch):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
     cfg = _tiny_txt(tmp_path, object_dir)
-    with pytest.raises(SystemExit, match="queue 7"):
-        cli.main(["--config", cfg, "--data_parallel"])
+    with pytest.raises(SystemExit, match="missing: --coordinator, MASTER_ADDR"):
+        cli.main(["--config", cfg, "--data_parallel", "--num_processes", "2", "--device", "cpu"])
+    if not torch.cuda.is_available():  # a CUDA run raises here, and never takes gloo
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            cli.main(["--config", cfg, "--data_parallel", "--coordinator", "tcp://127.0.0.1:9",
+                      "--num_processes", "2", "--process_id", "0"])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA device requested"):
             cli.main(["--config", cfg, "--n_iters", "2"])
+
+
+def test_train_object_cli_data_parallel_at_one_rank(tmp_path, object_dir, capsys):
+    """``--data_parallel`` in a one-rank gloo group joined before the CLI:
+    the pose pools padded and sharded (``dirs_cam`` whole), the state
+    broadcast, the collectives in each step and render; the checkpoint
+    equals the plain run's bitwise, and the CLI leaves the group it did
+    not make as it found it."""
+    import torch.distributed as dist
+
+    from tests._torch_parallel_worker import free_port
+
+    cfg = _tiny_txt(tmp_path, object_dir)
+    argv = ["--config", cfg, "--device", "cpu", "--n_iters", "4", "--no_progress"]
+    torch.sin(torch.linspace(0, 1, 1 << 16))  # the process's first parallel sin, off the record
+    cli.main(argv + ["--expname", "plain"])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        cli.main(argv + ["--expname", "group", "--data_parallel"])
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
+    assert "data-parallel: rank 0 of 1 (gloo)" in capsys.readouterr().out
+    a, b = (torch.load(tmp_path / name / "checkpoints" / "000004.ckpt", weights_only=False)
+            for name in ("plain", "group"))
+    for key in ("network_coarse_state_dict", "network_fine_state_dict"):
+        assert all(torch.equal(a[key][k], b[key][k]) for k in a[key]), key
+    assert torch.equal(a["generator_state"], b["generator_states"][0])
 
 
 @pytest.mark.parametrize("dataset_type", ["blender", "blender_intrinsic"])

@@ -291,17 +291,36 @@ def test_scene_cli_end_to_end(tiny_replica, tmp_path):
         "000030.ckpt", "000060.ckpt"]
 
 
+TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
 @pytest.mark.parametrize("flag,queue", [
-    (["--data_parallel"], "queue 1, item 7"),
-    (["--coordinator", "localhost:1234"], "queue 1, item 7"),
-    (["--num_processes", "2"], "queue 1, item 7"), (["--process_id", "0"], "queue 1, item 7"),
+    (["--data_parallel", "--n_iters", "2"], None),  # one process, no process group: it trains
+    (["--coordinator", "localhost:1234"], "--coordinator needs --num_processes and --process_id"),
+    (["--num_processes", "2"], "missing: --coordinator, MASTER_ADDR, MASTER_PORT, RANK"),
+    (["--process_id", "0"], "missing: --coordinator, MASTER_ADDR, MASTER_PORT, RANK"),
     # this directory has no semantic_instance maps
     (["--region_denoising", "--total_frames", str(N_FRAMES), "--split_step", str(SPLIT)],
-     "semantic_instance")])
-def test_cli_refuses_what_is_not_ported(tiny_replica, tmp_path, flag, queue):
+     "semantic_instance"),
+    # host-side label draws would differ between processes: refused before the rendezvous
+    (["--sparse_views", "--coordinator", "tcp://127.0.0.1:9", "--num_processes", "2",
+      "--process_id", "0"], "--sparse_views uses host-side draws")])
+def test_cli_refuses_what_is_not_ported(tiny_replica, tmp_path, flag, queue, monkeypatch,
+                                        capsys):
+    """Each flag's answer: a refusal that names what is missing or not
+    supported, or, for ``--data_parallel`` alone, a run at world 1."""
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
     path = _write_cfg(tmp_path, _cfg_dict(tiny_replica, tmp_path / "run"))
+    argv = ["--config_file", path, "--device", "cpu", "--total_frames", str(N_FRAMES),
+            "--split_step", str(SPLIT), "--no_progress", *flag]
+    if queue is None:
+        train_scene.main(argv)
+        out = capsys.readouterr().out
+        assert "data-parallel: rank 0 of 1" in out and "training complete" in out
+        return
     with pytest.raises(SystemExit, match=queue):
-        train_scene.main(["--config_file", path, "--device", "cpu", *flag])
+        train_scene.main(argv)
 
 
 def test_resume_takes_the_palette_no_newer_than_the_checkpoint(tiny_replica, tmp_path, capsys):

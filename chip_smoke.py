@@ -78,7 +78,16 @@ weights:
   run's checkpoint on a 256^3 grid (kernel 1 once per 131,072 points,
   twice per 4,096-ray chunk of the vertex-colour render; a slice of the
   occupancy against the plain version; the PLY read back), then from the
-  object run's at 128^3.
+  object run's at 128^3;
+- the last tools: the kernel bench (``tools/kernel_bench.py``: kernels 1
+  and 2 at 65,536 and 196,608 points and the graphed step, beside their
+  bounds), the world-1 row of ``tools/bench_scaling.py`` (a one-rank NCCL
+  group in a process of its own) against the bench, a reference-format
+  checkpoint of the graphed scene run imported by the import CLI and
+  resumed in a second process, whose 320x240 view must be bitwise the
+  original model's, and last the endurance tool's rig
+  (``tools/fullrun.py --smoke``: 2,000 steps, the scene CLI SIGKILLed past
+  step 1,100 and resumed, kernels 1 and 2 launched in both segments).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; a graph replay's launches are its replays times the
@@ -95,6 +104,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2916,6 +2926,191 @@ def bench_phase(torch, card):
     return out
 
 
+# the endurance tool's rig: the smoke cadences (log 200, checkpoint and
+# rebuild 400, eval 1000) for 2000 steps, killed past step 1100
+FULLRUN_RIG = ["--smoke", "--steps", "2000", "--kill-at", "1100"]
+FULLRUN_KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_image", "fused_mlp_bwd")
+
+
+def fullrun_rig_phase(card):
+    """``fullrun_rig``: ``tools/fullrun.py`` at the smoke cadences, on the
+    card: the scene CLI SIGKILLed past step 1100 and relaunched.  Every
+    check of the smoke run must hold, the relaunch must resume the newest
+    checkpoint the kill left with the newest complete palette no newer
+    than it (800 or 1200, by where the kill landed), and each segment's
+    log must count launches of kernel 1, its image and kernel 2."""
+    work = os.path.join(ROOT, "logs", "chip_smoke_fullrun")
+    shutil.rmtree(work, ignore_errors=True)
+    out = os.path.join(work, "FULLRUN_smoke.json")
+    t0 = time.perf_counter()
+    run_port(["-m", "intrinsicnerf_tpu_torch.tools.fullrun", *FULLRUN_RIG, "--workdir", work,
+              "--out", out], timeout=900)
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        r = json.load(f)
+    launches = [seg["launches"] for seg in r["segments"]]
+    say("fullrun_rig", seconds=f"{secs:.1f}", wall_s=r["wall_s"],
+        killed_at_logged_step=r["killed_at_logged_step"], at_kill=json.dumps(r["at_kill"]),
+        resumed_from=json.dumps(r["resumed_from_steps"]),
+        palette_from=json.dumps(r["palette_restored_from"]),
+        resume_consistent=r["resume_consistent"], checks=json.dumps(r["checks"]),
+        segment_launches=json.dumps(launches),
+        ms_per_step=json.dumps([seg["ms_per_step_median"] for seg in r["segments"]]),
+        rebuild_s=json.dumps([seg["rebuild_s"] for seg in r["segments"]]),
+        eval_s=json.dumps([seg["eval_s"] for seg in r["segments"]]),
+        final_eval=json.dumps(r["final_eval"]), card=json.dumps(card))
+    if not (r["pass"] and r["resume_consistent"] and r["killed_at_logged_step"] >= 1100
+            and r["resumed_from_steps"] and r["resumed_from_steps"][0] in (800, 1200)
+            and len(launches) == 2
+            and all(seg[k] > 0 for seg in launches for k in FULLRUN_KERNELS)):
+        raise AssertionError(f"the fullrun rig failed: {r['checks']}, resume "
+                             f"{r['resumed_from_steps']} / {r['palette_restored_from']} after "
+                             f"{r['at_kill']}, launches {launches}")
+    return {"launches": launches, "seconds": secs, "json": r}
+
+
+def scaling_phase(torch, card, bench_k):
+    """``scaling``: ``tools/bench_scaling.py``'s world-1 row on the card (a
+    one-rank NCCL group in a process of its own, 8 steps a replay) against
+    ``tools/bench.py``'s K = 8 number from ``bench_phase``: 8 + 8
+    all-reduces a replay, and no NCCL kernel at one rank."""
+    from intrinsicnerf_tpu_torch.tools import bench_scaling
+
+    torch.cuda.empty_cache()
+    result = bench_scaling.main(["--ranks", "1"])
+    row = result["results"][1]
+    ratio = row["global_rays_per_s"] / bench_k["value"]
+    say("scaling", world=1, rays_per_s=f"{row['global_rays_per_s']:.1f}",
+        ms_per_step=f"{row['ms_per_step']:.4f}", bench_rays_per_s=f"{bench_k['value']:.1f}",
+        ratio_to_bench=f"{ratio:.4f}",
+        collectives_per_replay=json.dumps(row["collective_calls_per_replay"]),
+        nccl_device_ms_per_step=row["nccl_device_ms_per_step"], backend=row["backend"],
+        card=json.dumps(card))
+    if not (row["backend"] == "nccl" and math.isfinite(row["last_total"])
+            and row["collective_calls_per_replay"] == {"reduce_grads": GRAPH_K,
+                                                        "reduce_terms": GRAPH_K}
+            and row["nccl_device_ms_per_step"] == 0.0):
+        raise AssertionError(f"the world-1 scaling row: {row}")
+    return {"row": row, "ratio_to_bench": ratio}
+
+
+_IMPORT_VIEW_RUNNER = """
+import json, sys, torch
+from intrinsicnerf_tpu_torch import train_scene
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+from intrinsicnerf_tpu_torch.train.trainer import render_views
+cfg_path, rays_path, out_path, frames, split, h, w = sys.argv[1:8]
+args = train_scene.parse_args(["--config_file", cfg_path, "--total_frames", frames,
+                               "--split_step", split])
+cfg, _, trainer = train_scene.build_trainer(args)
+with trainer as t:
+    step = t.maybe_resume()
+    for c in fm.LAUNCH_COUNTERS.values():
+        c.launches = c.captured = 0
+    st = t.state
+    view = next(render_views(st.model_coarse, st.model_fine, t.mcfg, cfg.render,
+                             torch.load(rays_path).cuda(), int(h), int(w), cfg.chunk))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in fm.LAUNCH_COUNTERS.items()}
+torch.save({"view": view, "step": step, "launches": launches}, out_path)
+print(json.dumps({"step": step, "launches": launches}))
+"""
+
+
+def import_cli_phase(torch, np, dev, card, scene):
+    """``import_cli``: the graphed scene run's newest checkpoint written as
+    a reference-format ``.ckpt`` (the reference's keys only), imported by
+    ``python -m intrinsicnerf_tpu_torch.import_reference_ckpt`` at a copy
+    of the Replica config, resumed in a second process by the scene CLI's
+    trainer, which renders one 320x240 view; the same view rendered here
+    from the run's own checkpoint must be bitwise equal, map for map, and
+    both go through kernel 1 (twice per 32,768-ray chunk)."""
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.core.rays import create_rays
+    from intrinsicnerf_tpu_torch.data.replica import default_replica_split
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+    from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer, checkpoint_path, latest_step
+    from intrinsicnerf_tpu_torch.train.prepare import replica_intrinsics
+    from intrinsicnerf_tpu_torch.train.step import create_train_state
+    from intrinsicnerf_tpu_torch.train.trainer import render_views
+
+    work = os.path.join(ROOT, "logs", "chip_smoke_import")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt_dir = os.path.join(scene["save_dir"], "checkpoints")
+    step = latest_step(ckpt_dir)
+    own = torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu")
+    ref = os.path.join(work, f"{step:06d}.ckpt")
+    torch.save({k: own[k] for k in ("global_step", "network_coarse_state_dict",
+                                    "network_fine_state_dict")} | {"optimizer_state_dict": {}},
+               ref)
+    cfg_path = scene_yaml(CONFIG, os.path.join(work, "cfg.yaml"), {
+        "experiment.dataset_dir": scene["data_dir"],
+        "experiment.save_dir": os.path.join(work, "run")})
+    t0 = time.perf_counter()
+    told = run_port(["-m", "intrinsicnerf_tpu_torch.import_reference_ckpt", ref,
+                     "--config_file", cfg_path]).strip().splitlines()[-1]
+    import_s = time.perf_counter() - t0
+    cfg = from_yaml(cfg_path)
+    _, test_ids = default_replica_split(SCENE_FRAMES, SCENE_SPLIT)
+    traj = np.loadtxt(os.path.join(scene["data_dir"], "traj_w_c.txt")).reshape(-1, 4, 4)
+    pose = torch.as_tensor(traj[test_ids[0]], dtype=torch.float32, device=dev)
+    rays = create_rays(pose[None], H, W, *replica_intrinsics(W, H), *cfg.depth_range,
+                       convention=cfg.experiment.convention)
+    rays_path, out_path = os.path.join(work, "rays.pt"), os.path.join(work, "view.pt")
+    torch.save(rays.cpu(), rays_path)
+    t0 = time.perf_counter()
+    run_port(["-c", _IMPORT_VIEW_RUNNER, cfg_path, rays_path, out_path, str(SCENE_FRAMES),
+              str(SCENE_SPLIT), str(H), str(W)])
+    resume_s = time.perf_counter() - t0
+    theirs = torch.load(out_path, weights_only=False)
+    # the view from the model the file came from: the run's own checkpoint
+    n_cls = own["network_coarse_state_dict"]["semantic_linear.1.weight"].shape[0]
+    mcfg = dataclasses.replace(cfg.mlp, num_semantic_classes=n_cls)
+    state = create_train_state(mcfg, cfg.train, device=dev)
+    Checkpointer(ckpt_dir).restore(state, step)
+    zero_launches()
+    mine = next(render_views(state.model_coarse, state.model_fine, mcfg, cfg.render, rays, H, W,
+                             cfg.chunk, device=dev))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in fm.LAUNCH_COUNTERS.items()}
+    want = {"fused_mlp_fwd": 2 * math.ceil(H * W / cfg.chunk), "fused_mlp_fwd_image": 2,
+            "fused_mlp_bwd": 0}
+    same_maps = {k: bool(np.array_equal(mine[k], theirs["view"][k])) for k in mine}
+    acc = float(mine["acc"].mean())
+    say("import_cli", step=step, told=json.dumps(told), import_s=f"{import_s:.1f}",
+        resume_process_s=f"{resume_s:.1f}", bitwise=json.dumps(same_maps),
+        launches_here=json.dumps(launches), launches_resumed=json.dumps(theirs["launches"]),
+        mean_opacity=f"{acc:.4f}", card=json.dumps(card))
+    if not (theirs["step"] == step and all(same_maps.values()) and launches == want
+            and theirs["launches"] == want and acc > VIEW_ACC_FLOOR):
+        raise AssertionError(f"the imported checkpoint's view: step {theirs['step']} (want "
+                             f"{step}), bitwise {same_maps}, launches {launches} / "
+                             f"{theirs['launches']} (want {want}), mean opacity {acc}")
+    return {"launches": theirs["launches"], "launches_here": launches}
+
+
+def kernel_bench_phase(card):
+    """``kernel_bench``: one run of ``tools/kernel_bench.py`` (kernels 1
+    and 2 alone at 65,536 and 196,608 points, the graphed step), each time
+    beside its bound."""
+    from intrinsicnerf_tpu_torch.tools import kernel_bench
+
+    r = kernel_bench.main(["--iters", "20"])
+    for label, row in r["kernels"].items():
+        say("kernel_bench", entry=label, points=row["points"], fwd_ms=f"{row['fwd_ms']:.4f}",
+            fwd_bound_ms=f"{row['fwd_bound_ms']:.4f}", fwd_bwd_ms=f"{row['fwd_bwd_ms']:.4f}",
+            fwd_bwd_bound_ms=f"{row['fwd_bwd_bound_ms']:.4f}", card=json.dumps(card))
+    st = r["step"]
+    say("kernel_bench", entry="graphed_step", ms_per_step=f"{st['ms_per_step']:.4f}",
+        bound_ms=f"{st['bound_ms']:.4f}", card=json.dumps(card))
+    times = [v for row in r["kernels"].values() for v in (row["fwd_ms"], row["fwd_bwd_ms"])]
+    if not (all(math.isfinite(t) and t > 0 for t in times + [st["ms_per_step"]])
+            and math.isfinite(st["last_total"])):
+        raise AssertionError(f"kernel_bench: {r}")
+    return r
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3153,7 +3348,10 @@ def main() -> int:
     scene = scene_phases(torch, np, dev, card)
     scene_k = scene_phases(torch, np, dev, card, SCENE_K, train["graph"]["eager_bitwise"], scene)
     edit_phase(torch, np, dev, card, scene_k["save_dir"])
-    bench_phase(torch, card)
+    bench = bench_phase(torch, card)
+    scaling = scaling_phase(torch, card, bench[GRAPH_K])
+    kbench = kernel_bench_phase(card)
+    imported = import_cli_phase(torch, np, dev, card, scene_k)
     room = scene_k["data_dir"]
     dp = data_parallel_phase(torch, np, dev, card, room)
     sd = scannet_data_phase(torch, np, dev, card, room)
@@ -3178,6 +3376,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     ocube = object_cube_phase(torch, np, dev, card)
     mesh = mesh_phase(torch, np, dev, card, sfit["cfg_path"], obj_cfg_path)
+    torch.cuda.empty_cache()
+    fullrun = fullrun_rig_phase(card)
+
+    def new_paths(name):
+        """The launches of kernel ``name`` on the paths of the last tools
+        (each counted in its own processes)."""
+        return {"launches_fullrun_rig_segments": [seg[name] for seg in fullrun["launches"]],
+                "launches_import_cli_resumed_view": imported["launches"][name]}
 
     # the other scene data's paths: launches per run, and kernels 1 and 2 at
     # each semantic width beside their bounds at the network's own work
@@ -3243,6 +3449,9 @@ def main() -> int:
         # the data-parallel phase (one NCCL rank): its graphed steps, split view and CLI run
         "launches_data_parallel": dp["launches"]["fwd"],
         "launches_data_parallel_parts": {k: v["fwd"] for k, v in dp["parts"].items()},
+        **new_paths("fused_mlp_fwd"),
+        "kernel_bench": {k: {f: v[f] for f in ("points", "fwd_ms", "fwd_bound_ms")}
+                         for k, v in kbench["kernels"].items()},
     }, {
         "name": "fused_mlp_fwd_image",
         "route": "cuda",
@@ -3260,6 +3469,7 @@ def main() -> int:
         "launches_object_fit": ofit["launches"]["image"],
         **scene_data("image"),
         "launches_data_parallel": dp["launches"]["image"],
+        **new_paths("fused_mlp_fwd_image"),
     }, {
         "name": "fused_mlp_bwd",
         "route": "cuda",
@@ -3288,6 +3498,13 @@ def main() -> int:
         **{k: v for k, v in scene_data("bwd").items() if k != "launches_mesh"},
         "launches_data_parallel": dp["launches"]["bwd"],
         "launches_data_parallel_parts": {k: v["bwd"] for k, v in dp["parts"].items()},
+        **new_paths("fused_mlp_bwd"),
+        # kernel 1's image, kernel 1 and kernel 2 of the packed state's forward and backward
+        "kernel_bench_fwd_bwd": {k: {f: v[f] for f in ("points", "fwd_bwd_ms", "fwd_bwd_bound_ms")}
+                                 for k, v in kbench["kernels"].items()},
+        "kernel_bench_graphed_step": {f: kbench["step"][f] for f in ("ms_per_step", "bound_ms")},
+        "scaling_world1": {"rays_per_s": scaling["row"]["global_rays_per_s"],
+                           "ratio_to_bench": scaling["ratio_to_bench"]},
     }, {
         "name": "fwd_probe",
         "route": "cuda",

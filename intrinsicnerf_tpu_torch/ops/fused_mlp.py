@@ -723,6 +723,10 @@ def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -
 
 fused_mlp_backward.launches = fused_mlp_backward.captured = 0
 
+# the training path's kernel wrappers by kernel name (``chip_smoke.py``'s names)
+LAUNCH_COUNTERS = {"fused_mlp_fwd": fused_mlp_forward, "fused_mlp_fwd_image": fwd_weight_image,
+                   "fused_mlp_bwd": fused_mlp_backward}
+
 
 class FusedMLP(torch.autograd.Function):
     """The fused MLP with its gradient: ``(in8, pe_mat, sin_mask, weight,

@@ -35,9 +35,12 @@ from intrinsicnerf_tpu_torch import resolve_device
 from intrinsicnerf_tpu_torch.cluster.manager import ClusterManager, build_cluster
 from intrinsicnerf_tpu_torch.core.rays import create_rays
 from intrinsicnerf_tpu_torch.models.mlp import MLPConfig
+from intrinsicnerf_tpu_torch.parallel.mesh import (
+    DataGroup, pad_images_to_multiple, replicate, shard_pools)
+from intrinsicnerf_tpu_torch.parallel.sharded_step import RANK_STRIDE, make_sharded_train_step
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig
 from intrinsicnerf_tpu_torch.train.step import (
-    DataPools, TrainConfig, create_train_state, make_multi_step, make_train_step)
+    DataPools, TrainConfig, create_train_state, make_multi_step)
 
 H, W, N_IMG, N_CLASSES = 240, 320, 16, 27
 MLP = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=N_CLASSES,
@@ -71,9 +74,14 @@ def make_synthetic_pools(h, w, n_img, n_classes, device, seed=0) -> DataPools:
     )
 
 
-def make_workload(device, seed=0, mcfg=MLP, rcfg=RENDER, tcfg=TRAIN, h=H, w=W, n_img=N_IMG):
+def make_workload(device, seed=0, mcfg=MLP, rcfg=RENDER, tcfg=TRAIN, h=H, w=W, n_img=N_IMG,
+                  group=None):
     """(step_fn, state, pools, table, w_c, generator) of the bench's step
-    on ``device``, everything drawn from ``seed``."""
+    on ``device``, everything drawn from ``seed``: this rank's
+    ``make_sharded_train_step`` on its shard of the pools, with rank 0's
+    state and a generator of its own.  Without a data-parallel ``group``
+    (``parallel.mesh.DataGroup``) it is a group of one process, whose
+    collectives return at once, as ``Trainer`` runs."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     n_classes = mcfg.num_semantic_classes
@@ -84,9 +92,12 @@ def make_workload(device, seed=0, mcfg=MLP, rcfg=RENDER, tcfg=TRAIN, h=H, w=W, n
         anchors_per_class=2048, device=dev)
     state = create_train_state(mcfg, tcfg, device=dev,
                                generator=torch.Generator().manual_seed(seed))
-    step_fn = make_train_step(mcfg, rcfg, tcfg, h, w)
     w_c = torch.tensor(W_C, dtype=torch.float32, device=dev)
-    generator = torch.Generator(device=dev).manual_seed(seed + 7)
+    group = group if group is not None else DataGroup(0, 1, None, dev)
+    pools = shard_pools(group, pad_images_to_multiple(pools, group.world))
+    replicate(group, state)
+    step_fn = make_sharded_train_step(mcfg, rcfg, tcfg, h, w, group)
+    generator = torch.Generator(device=dev).manual_seed(seed + 7 + group.rank * RANK_STRIDE)
     return step_fn, state, pools, table, w_c, generator
 
 

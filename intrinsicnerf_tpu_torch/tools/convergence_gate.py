@@ -38,7 +38,8 @@ import sys
 
 import numpy as np
 
-from intrinsicnerf_tpu_torch.tools.synthetic_replica import REPO, write_synthetic_replica
+from intrinsicnerf_tpu_torch.tools.synthetic_replica import (
+    REPO, repo_env, write_synthetic_replica)
 from intrinsicnerf_tpu_torch.utils.image import imread
 
 THRESHOLDS = {
@@ -61,11 +62,9 @@ SPLIT_STEP = 5  # test ids = every 5th frame offset 2 (the CLI's default split)
 def run_scene(cfg_path, tag, device, seed=0):
     args = ["--config_file", str(cfg_path), "--total_frames", str(TOTAL_FRAMES),
             "--split_step", str(SPLIT_STEP), "--no_progress", "--seed", str(seed)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     proc = subprocess.run(
         [sys.executable, "-m", "intrinsicnerf_tpu_torch.train_scene", *args, "--device", device],
-        capture_output=True, text=True, cwd=REPO, env=env, timeout=3600)
+        capture_output=True, text=True, cwd=REPO, env=repo_env(), timeout=3600)
     sys.stderr.write(proc.stdout[-2000:] + "\n")
     if proc.returncode != 0:
         raise RuntimeError(f"{tag} run failed:\n{proc.stderr[-4000:]}")

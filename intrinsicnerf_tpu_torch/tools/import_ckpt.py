@@ -172,3 +172,74 @@ def packed_to_jax(model) -> Dict[str, np.ndarray]:
     blocks = fm.flat_blocks(fm.FlatBlocks(model.weight.detach(), model.bias.detach()), model.cfg)
     return {k: _np(v) for k, v in blocks.items()}
 
+
+
+def mlp_config_from_arch(arch: Dict[str, Any], pos_scalar_factor: float, compute_dtype=None,
+                         use_fused_kernel=None):
+    """The ``MLPConfig`` of imported weights: the architecture from the
+    checkpoint (``infer_arch``), the scene scale and the compute path from
+    the caller's config (twin of the JAX ``mlp_config_from_arch``)."""
+    from intrinsicnerf_tpu_torch.config import _fused_kernel_default
+    from intrinsicnerf_tpu_torch.models.mlp import MLPConfig
+
+    if use_fused_kernel is None:
+        use_fused_kernel = _fused_kernel_default(arch["depth"], arch["width"], True)
+    return MLPConfig(
+        depth=arch["depth"], width=arch["width"], skips=arch["skips"],
+        n_freqs_pos=arch["n_freqs_pos"], n_freqs_dir=arch["n_freqs_dir"],
+        pos_scalar_factor=pos_scalar_factor, use_viewdirs=True,
+        enable_semantic=arch["enable_semantic"],
+        num_semantic_classes=arch["num_semantic_classes"],
+        compute_dtype=compute_dtype if compute_dtype is not None else torch.bfloat16,
+        use_fused_kernel=use_fused_kernel)
+
+
+def import_reference_checkpoint(path: str, pos_scalar_factor: float = 10.0, tcfg=None,
+                                compute_dtype=None, use_fused_kernel=None, device="cuda"):
+    """A reference ``.ckpt``/``.tar`` -> (``TrainState`` on ``device``,
+    ``MLPConfig``): the packed training state where ``packs_state`` holds
+    for the config, else the unpacked one, at the file's ``global_step``
+    with a fresh Adam state.  As the JAX ``import_reference_checkpoint``
+    does, Adam's moments start at zero and its step counts at the imported
+    step (the reference's moments are keyed by registration order and are
+    not carried over); the LR follows the step."""
+    from intrinsicnerf_tpu_torch.train.step import TrainConfig, create_train_state
+
+    step, sd_c, sd_f = load_reference_checkpoint(path)
+    flavor = detect_flavor(sd_c)
+    sd_c = to_port_state_dict(sd_c, flavor)
+    mcfg = mlp_config_from_arch(infer_arch(sd_c), pos_scalar_factor, compute_dtype,
+                                use_fused_kernel)
+    state = create_train_state(mcfg, tcfg or TrainConfig(), device=device,
+                               with_fine=sd_f is not None)
+    state.model_coarse.load_state_dict(sd_c)
+    if sd_f is not None:
+        state.model_fine.load_state_dict(to_port_state_dict(sd_f, flavor))
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32,
+                                     device=p.device if group["capturable"] else "cpu"),
+                "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+    state.step = step
+    state.step_t.fill_(step)
+    return state, mcfg
+
+
+def import_to_checkpoint(path: str, save_dir: str, pos_scalar_factor: float = 10.0,
+                         compute_dtype=None, use_fused_kernel=None, device="cuda"):
+    """Write :func:`import_reference_checkpoint`'s state as
+    ``<save_dir>/checkpoints/{step:06d}.ckpt``, the port's checkpoint, so
+    the trainers' resume, ``--render_only`` and ``extract_mesh`` find it.
+    Returns (step, ``MLPConfig``, the file written)."""
+    import os
+
+    from intrinsicnerf_tpu_torch.train.checkpoint import _write, checkpoint_path, snapshot
+
+    state, mcfg = import_reference_checkpoint(path, pos_scalar_factor, None, compute_dtype,
+                                              use_fused_kernel, device)
+    ckpt_dir = os.path.join(save_dir, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    out = checkpoint_path(ckpt_dir, state.step)
+    _write(snapshot(state), out)
+    return state.step, mcfg, out

@@ -48,14 +48,20 @@ runpy.run_path(tool, run_name="__main__")
 """
 
 
+def repo_env() -> dict:
+    """This process's environment with the checkout first on
+    ``PYTHONPATH``, for a subprocess that imports the port."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+
+
 def run_with_imwrite(script: str, args, timeout: float) -> str:
     """Run ``script args`` in a subprocess from the repo root, with
     ``imageio.v2.imwrite`` supplied from OpenCV; returns its stdout and
     raises with its stderr's tail when it fails."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     proc = subprocess.run([sys.executable, "-c", _RUNNER, script, *map(str, args)],
-                          capture_output=True, text=True, cwd=REPO, env=env, timeout=timeout)
+                          capture_output=True, text=True, cwd=REPO, env=repo_env(),
+                          timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{script} failed:\n{proc.stderr[-4000:]}")
     return proc.stdout

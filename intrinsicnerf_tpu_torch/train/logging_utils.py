@@ -20,11 +20,20 @@ from typing import Dict, Optional
 import numpy as np
 
 
+def _ends_with_newline(path: str) -> bool:
+    with open(path, "rb") as f:
+        f.seek(-1, os.SEEK_END)
+        return f.read(1) == b"\n"
+
+
 class TBLogger:
     def __init__(self, log_dir: str, config: Optional[dict] = None):
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
-        self._csv_file = open(os.path.join(log_dir, "scalars.csv"), "a", newline="")
+        path = os.path.join(log_dir, "scalars.csv")
+        self._csv_file = open(path, "a", newline="")
+        if self._csv_file.tell() and not _ends_with_newline(path):
+            self._csv_file.write("\n")  # a row a killed run cut off stays a row of its own
         self._csv = csv.writer(self._csv_file)
         try:
             from torch.utils.tensorboard import SummaryWriter

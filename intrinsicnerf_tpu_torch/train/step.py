@@ -54,6 +54,7 @@ from intrinsicnerf_tpu_torch.core.losses import (
 )
 from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs
 from intrinsicnerf_tpu_torch.models.mlp import MLP, IntrinsicMLP, MLPConfig, PackedMLP, fuses
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.parallel.mesh import reduce_grads, reduce_terms
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, draw_train_noise, render_rays
 from intrinsicnerf_tpu_torch.train.schedules import loss_weight_schedule, make_lr_schedule
@@ -383,10 +384,13 @@ def make_multi_step(step_fn, k: int):
     replay bumps their version counters, as an in-place update does (the
     model's packed fused-kernel operands are kept by version).  A failed
     capture or replay raises.  The returned callable keeps ``k``
-    in ``.k`` and counts its replays in ``.replays``."""
+    in ``.k``, counts its replays in ``.replays`` and, in ``.replayed``,
+    the kernel launches its replays made (``fm.LAUNCH_COUNTERS``' names:
+    each replay adds what its graph recorded), which no wrapper counts."""
     if k < 1:
         raise ValueError(f"steps per call must be >= 1, got {k}")
-    cache: Dict[str, object] = {"key": None, "graph": None, "out": None, "params": None}
+    cache: Dict[str, object] = {"key": None, "graph": None, "out": None, "params": None,
+                                "recorded": {}}
 
     def multi(state: TrainState, pools: DataPools, table: Optional[ClusterTable], w_c,
               generator: torch.Generator) -> LossReport:
@@ -400,17 +404,23 @@ def make_multi_step(step_fn, k: int):
                              f"got {w_c!r}")
         if cache["key"] != _static_key(step_fn, state, pools, table, w_c, generator):
             cache["graph"] = cache["out"] = None  # free the old graph's memory first
+            before = {name: c.captured for name, c in fm.LAUNCH_COUNTERS.items()}
             cache["graph"], cache["out"] = _capture(step_fn, k, state, pools, table, w_c,
                                                     generator)
+            cache["recorded"] = {name: c.captured - before[name]
+                                 for name, c in fm.LAUNCH_COUNTERS.items()}
             cache["key"] = _static_key(step_fn, state, pools, table, w_c, generator)
             cache["params"] = [p for g in state.optimizer.param_groups for p in g["params"]]
         cache["graph"].replay()
         torch.autograd.graph.increment_version(cache["params"])
         state.step += k
         multi.replays += 1
+        for name, n in cache["recorded"].items():
+            multi.replayed[name] += n
         return LossReport(*cache["out"].clone().unbind())
 
     multi.replays = 0
+    multi.replayed = dict.fromkeys(fm.LAUNCH_COUNTERS, 0)
     multi.k = k
     return multi
 

@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -68,6 +69,7 @@ from intrinsicnerf_tpu_torch.core.metrics import (
     calculate_depth_metrics, calculate_segmentation_metrics, psnr_np)
 from intrinsicnerf_tpu_torch.data.samplers import sample_ray_pairs_from_poses
 from intrinsicnerf_tpu_torch.models.mlp import MLP, MLPConfig
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays, render_rays_chunked
 from intrinsicnerf_tpu_torch.tools.video import generate_all
 from intrinsicnerf_tpu_torch.train.checkpoint import Checkpointer
@@ -203,6 +205,7 @@ class Trainer:
 
     def __init__(self, cfg, bundle: SceneBundle, seed: int = 0, device="cuda", sample_fn=None,
                  group=None):
+        self._t_made = time.perf_counter()
         self.device = resolve_device(device)
         if group is None:  # one process: a group of one, whose collectives do nothing
             group = DataGroup(0, 1, None, self.device)
@@ -328,31 +331,35 @@ class Trainer:
     def _restore_cluster_state(self):
         """Reload the newest palette written no later than the restored
         step, so the cluster term stays on across a restart, and re-derive
-        the anneal as the rebuild that wrote it did."""
+        the anneal as the rebuild that wrote it did.  A palette a kill cut
+        off (no ``clusters.json``, or one that does not read) gives way to
+        the next older one; with none, the term resumes at the next
+        rebuild."""
         if self.cfg.train.no_cluster:
             return
-        best_step, best_dir = -1, None
+        found = []
         for d in glob.glob(os.path.join(self.save_dir, "train_render", "step_*", "cluster")):
             if not os.path.exists(os.path.join(d, "clusters.json")):
                 continue  # a rebuild cut off while writing
             name = os.path.basename(os.path.dirname(d)).split("_")[-1]
-            if name.isdigit() and best_step < int(name) <= self.global_step:
-                best_step, best_dir = int(name), d
-        if best_dir is None:
+            if name.isdigit() and int(name) <= self.global_step:
+                found.append((int(name), d))
+        for best_step, best_dir in sorted(found, reverse=True):
+            try:
+                mgr = ClusterManager.load(best_dir)
+            except (OSError, ValueError, KeyError) as e:  # a truncated JSON
+                print(f"cluster palette at {best_dir} unreadable ({e}); trying an older one")
+                continue
+            self.cluster_manager = mgr
+            self._set_table(mgr.to_table(device=self.device))
+            self.w_c, self.b_f = cluster_anneal(best_step, self.cfg.logging.step_vis_train,
+                                                self.cfg.train.n_iters, self.cfg.b_f_cap)
+            if self.lead:
+                print(f"cluster palette restored from rebuild @{best_step} "
+                      f"(w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
             return
-        try:
-            mgr = ClusterManager.load(best_dir)
-        except (OSError, ValueError, KeyError) as e:  # a truncated JSON
-            print(f"cluster palette at {best_dir} unreadable ({e}); "
-                  f"the cluster term resumes at the next rebuild")
-            return
-        self.cluster_manager = mgr
-        self._set_table(mgr.to_table(device=self.device))
-        self.w_c, self.b_f = cluster_anneal(best_step, self.cfg.logging.step_vis_train,
-                                            self.cfg.train.n_iters, self.cfg.b_f_cap)
-        if self.lead:
-            print(f"cluster palette restored from rebuild @{best_step} "
-                  f"(w_c={self.w_c:.3g}, b_f={self.b_f:.3g})")
+        if found:
+            print("no cluster palette readable; the cluster term resumes at the next rebuild")
 
     # ------------------------------------------------------------- train
 
@@ -444,7 +451,25 @@ class Trainer:
         if self._profiler is not None:  # --profile N past the end of the run
             self._stop_profile()
         self.flush_io()
+        self._print_launches(self.global_step)
         return report
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Launches of kernel 1, its weight image and kernel 2 in this
+        process so far: the wrappers' eager launches plus those of this
+        trainer's graph replays (``make_multi_step``'s ``.replayed``)."""
+        replayed = self.multi_step.replayed if self.multi_step is not None else {}
+        return {name: c.launches + replayed.get(name, 0)
+                for name, c in fm.LAUNCH_COUNTERS.items()}
+
+    def _print_launches(self, step: int):
+        """One ``kernel launches: {json}`` line (rank 0), with the seconds
+        since the trainer was made: a run's log then says which kernels
+        trained it and how fast, even when the process is killed."""
+        if self.lead:
+            line = {"step": step, "seconds": round(time.perf_counter() - self._t_made, 3),
+                    **self.kernel_launches()}
+            print("kernel launches: " + json.dumps(line), flush=True)
 
     def save_checkpoint(self, step: int):
         """Checkpoint the state at ``step`` (written off the loop): every
@@ -467,6 +492,7 @@ class Trainer:
         vals["Train/w_intensity"] = t.w_i1 if step <= t.intensity_switch else t.w_i2
         vals["Train/w_c_eff"] = self.w_c if self.cluster_manager is not None else 0.0
         vals["Train/b_f"] = self.b_f
+        self._print_launches(step)  # before the row a watcher of scalars.csv waits for
         self.logger.scalars(step, vals)
         if self._probe_rays is not None and self.logger.writer is not None:
             with torch.no_grad():
@@ -692,6 +718,7 @@ class Trainer:
         """Render the test views; PSNR, the depth suite and the mIoU suite
         (where the ground truth is: rank 0 under host-local loading)."""
         save = save and self.lead
+        tic = time.perf_counter()
         save_dir = os.path.join(self.save_dir, "test_render", f"step_{step:06d}")
         if save:
             os.makedirs(save_dir, exist_ok=True)
@@ -721,7 +748,8 @@ class Trainer:
         self.logger.scalars(step, {f"Test/{k}": v for k, v in metrics.items()})
         self._log_view_panels(step, "Test", views)
         if self.lead:
-            print(f"eval @{step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+            print(f"eval @{step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items())
+                  + f" ({time.perf_counter() - tic:.1f} s)")
         if save:
             self.flush_io()  # the videos read the PNGs from disk
             self._write_videos(save_dir)

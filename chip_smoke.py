@@ -27,7 +27,9 @@ weights:
   the plain versions on the host; then ``make_multi_step``: 8 steps
   captured as one CUDA graph and replayed, against 8 eager steps from
   the same state and generator (bitwise where two eager runs are),
-  kernels 1 and 2 found by name 16 times each in a profiled replay; the
+  kernels 1 and 2 found by name 16 times each in a profiled replay, and
+  80 device-clock stamp nodes captured (two a phase of each step,
+  ``utils/trace.py``); the
   packed training state (``PackedMLP``, what the step trains here)
   against the unpacked one from one seed, 8 graphed steps each held
   bitwise after every step, and both states' replays split by kernel
@@ -150,6 +152,9 @@ GRAPH_K, GRAPH_CALLS = 8, 5  # train_graph: steps per replay, replays per timed 
 # launches per forward or backward call
 REPLAY_KERNELS = {"fused_mlp_fwd_kernel": 1, "fwd_wimg_kernel": 1, "bwd_act_wimg_kernel": 1,
                   "bwd_act_wgmma_kernel": 1, "bwd_wgrad_gemm_kernel": 1, "reduce_rows_kernel": 2}
+# the device-clock stamps a graphed step holds: one at each bound of each
+# of its five phase spans (utils/trace.py's clock_stamp_kernel)
+STAMP_NODES = 10
 SCENE_K = 10  # the graphed scene run's steps per call: divides 50, 200, 400 and the resume's 50
 # a graphed block against the same steps run eagerly, where eager runs are
 # not bitwise: the JAX scan test's bounds (tests/test_train_step.py)
@@ -161,6 +166,7 @@ PACKED_STEPS = 8
 # the device time outside kernels 1 and 2, by what launched it: kernel
 # name substrings (a graph replay shows kernels, not host ops)
 REST_KINDS = (("adam", ("multi_tensor_apply", "adam", "Adam")),
+              ("clock_stamp", ("clock_stamp_kernel",)),
               ("pack_cat", ("CatArrayBatchedCopy",)), ("fill", ("FillFunctor",)),
               ("copy_cast", ("copy_kernel", "bfloat16_copy", "direct_copy")))
 CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
@@ -360,6 +366,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.tools import bwd_passes
     from intrinsicnerf_tpu_torch.train.step import make_multi_step, restore_state, snapshot_state
+    from intrinsicnerf_tpu_torch.utils import trace
 
     k = GRAPH_K
     w_c_t = torch.tensor(w_c, dtype=torch.float32, device=state.step_t.device)
@@ -381,9 +388,11 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
     counters = (fm.fused_mlp_forward, fm.fwd_weight_image, fm.fused_mlp_backward)
     for c in counters:
         c.launches = c.captured = 0
+    nodes0 = trace.snapshot()["counters"].get("graph.stamp_nodes", 0)
     t0 = time.perf_counter()
     g1 = run_from(state, snap, gen, graphed, torch)  # the capture, then its first replay
     capture_s = time.perf_counter() - t0
+    stamp_nodes = trace.snapshot()["counters"]["graph.stamp_nodes"] - nodes0
     eager_launches = [c.launches for c in counters]
     captured = [c.captured for c in counters]
     g2 = run_from(state, snap, gen, graphed, torch)  # a replay of the restored state
@@ -408,6 +417,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
     # 2's row sums four times (weights and biases)
     want = {name: 2 * k * n for name, n in REPLAY_KERNELS.items()}
     found = {name: n_named(name) for name in REPLAY_KERNELS}
+    stamps = n_named("clock_stamp_kernel")  # the profiler may drop a record
     k1_ms = sum(v for name, v in by_name.items()
                 if "fused_mlp_fwd_kernel" in name or "fwd_wimg_kernel" in name)
     k2_ms = sum(v for name, v in by_name.items()
@@ -448,6 +458,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
         graph_vs_eager=json.dumps(detail1), replay_after_restore_vs_eager=json.dumps(detail2),
         capture_s=f"{capture_s:.3f}", capture_eager_launches=json.dumps(eager_launches),
         captured=json.dumps(captured), replay_kernels=json.dumps(found), want=json.dumps(want),
+        stamp_nodes=stamp_nodes, want_stamps=STAMP_NODES * k, replay_stamps=stamps,
         eager_ms_per_step=f"{eager_ms:.3f}", graph_ms_per_step=f"{graph_ms:.3f}",
         eager_windows_ms=json.dumps([round(x, 3) for x in eager_times]),
         graph_windows_ms=json.dumps([round(x, 3) for x in graph_times]),
@@ -464,10 +475,10 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
         eager_step_device_ms_by_op=json.dumps(top(ops, 20)), card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
     if not (agree1 and agree2 and kernels_ok and captured == [2 * k] * 3
-            and eager_launches == [2, 2, 2]):
+            and eager_launches == [2, 2, 2] and stamp_nodes == STAMP_NODES * k):
         raise AssertionError(f"the graphed steps disagree with the eager steps or their kernels: "
                              f"{detail1} {detail2} {found} captured {captured} "
-                             f"eager {eager_launches}")
+                             f"eager {eager_launches} stamp nodes {stamp_nodes}")
     del multi
     torch.cuda.empty_cache()
     return {"eager_bitwise": eager_bitwise, "eager_ms": eager_ms, "graph_ms": graph_ms,
@@ -1295,6 +1306,7 @@ def data_parallel_phase(torch, np, dev, card, room_dir):
     from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
     from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
     from intrinsicnerf_tpu_torch.train.step import make_multi_step, restore_state, snapshot_state
+    from intrinsicnerf_tpu_torch.utils import trace
     from intrinsicnerf_tpu_torch.train.trainer import Trainer, render_views
 
     import shutil

@@ -22,8 +22,9 @@ import re
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Dict, Tuple
+
+from intrinsicnerf_tpu_torch.utils import trace
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -47,6 +48,9 @@ SIGNATURES = {
     "fwd_probe": [
         ("fwd_probe", [_P] * 6 + [_I64] + [_I32] * 4 + [_P], ctypes.c_int),
         ("fwd_probe_image", [_P, _P, _I32, _P], ctypes.c_int),
+    ],
+    "clock_stamp": [
+        ("clock_stamp", [_P, _P], ctypes.c_int),
     ],
 }
 
@@ -74,34 +78,38 @@ def build(name: str) -> Tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
     (library path, seconds spent, compiler log with ``-Xptxas -v``); the
     log is kept beside the library as ``<library>.log``, so a cached build
-    returns the log of the build that made it."""
+    returns the log of the build that made it.  The seconds are those of
+    the ``kernel.build`` span; the counters ``kernel.builds`` and
+    ``kernel.cache_hits`` count builds and libraries found."""
     path = library_path(name)
     log_path = path + ".log"
     if os.path.exists(path) and os.path.exists(log_path):
+        trace.count("kernel.cache_hits")
         with open(log_path) as f:
             return path, 0.0, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
-            capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, TMPDIR=BUILD_DIR),  # nvcc's scratch stays in the build
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}{proc.stdout}")
-        log = proc.stderr + proc.stdout
-        with open(tmp + ".log", "w") as f:
-            f.write(log)
-        os.replace(tmp + ".log", log_path)  # the log first: a library implies its log
-        os.replace(tmp, path)
-    finally:
-        for leftover in (tmp, tmp + ".log"):
-            if os.path.exists(leftover):
-                os.remove(leftover)
-    return path, time.perf_counter() - t0, log
+    with trace.span("kernel.build", name, always=True) as building:
+        try:
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")],
+                capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, TMPDIR=BUILD_DIR),  # nvcc's scratch stays in the build
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}{proc.stdout}")
+            log = proc.stderr + proc.stdout
+            with open(tmp + ".log", "w") as f:
+                f.write(log)
+            os.replace(tmp + ".log", log_path)  # the log first: a library implies its log
+            os.replace(tmp, path)
+        finally:
+            for leftover in (tmp, tmp + ".log"):
+                if os.path.exists(leftover):
+                    os.remove(leftover)
+    trace.count("kernel.builds")
+    return path, building.seconds, log
 
 
 def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:

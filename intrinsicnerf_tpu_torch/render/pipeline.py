@@ -27,6 +27,7 @@ from intrinsicnerf_tpu_torch.core.sampling import (
     stratified_z_vals,
 )
 from intrinsicnerf_tpu_torch.models.mlp import MLP, MLPConfig, eval_points
+from intrinsicnerf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,9 +150,11 @@ def render_rays_chunked(
     device memory; the last chunk takes the rays that are left.  Eval rays
     are independent and the fused kernel masks a ragged tile, so no chunk
     is padded (the JAX package pads the last one to keep its shapes
-    static)."""
-    outs = [
-        render_rays(model_coarse, model_fine, mlp_cfg, r, rcfg, train=False)
-        for r in torch.split(rays, chunk)
-    ]
-    return _cat(outs)
+    static).  Spans: ``render.enqueue`` over the call, one
+    ``render.chunk`` (id: the chunk's index) a chunk."""
+    with trace.span("render.enqueue"):
+        outs = []
+        for j, r in enumerate(torch.split(rays, chunk)):
+            with trace.span("render.chunk", j):
+                outs.append(render_rays(model_coarse, model_fine, mlp_cfg, r, rcfg, train=False))
+        return _cat(outs)

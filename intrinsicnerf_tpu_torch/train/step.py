@@ -58,6 +58,7 @@ from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.parallel.mesh import reduce_grads, reduce_terms
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, draw_train_noise, render_rays
 from intrinsicnerf_tpu_torch.train.schedules import loss_weight_schedule, make_lr_schedule
+from intrinsicnerf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,81 +282,87 @@ def make_train_step(
     def step_fn(state: TrainState, pools: DataPools, table: Optional[ClusterTable],
                 w_c, generator: torch.Generator) -> LossReport:
         step_t = state.step_t
-        if sample_fn is not None:
-            batch = sample_fn(generator, pools, step_t)
-        else:
-            batch = sample_ray_pairs(generator, pools.rays, pools.rgb, h, w, tcfg.n_rays,
-                                     depth_pool=pools.depth, sem_pool=pools.semantic,
-                                     mask_ids=pools.mask_ids)
-        n = batch.rays.shape[0]
-        draws = (noise_fn(generator, n) if noise_fn is not None
-                 else draw_train_noise(n, rcfg, generator, batch.rays.device))
-        w_res, w_i = loss_weight_schedule(step_t, tcfg.w_res1, tcfg.w_res2, tcfg.w_i1,
-                                          tcfg.w_i2, tcfg.residual_switch,
-                                          tcfg.intensity_switch)
-        w_c = torch.as_tensor(w_c, dtype=torch.float32, device=step_t.device)
+        with trace.device_span("step.sample", state.step):
+            if sample_fn is not None:
+                batch = sample_fn(generator, pools, step_t)
+            else:
+                batch = sample_ray_pairs(generator, pools.rays, pools.rgb, h, w, tcfg.n_rays,
+                                         depth_pool=pools.depth, sem_pool=pools.semantic,
+                                         mask_ids=pools.mask_ids)
+            n = batch.rays.shape[0]
+            draws = (noise_fn(generator, n) if noise_fn is not None
+                     else draw_train_noise(n, rcfg, generator, batch.rays.device))
+            w_res, w_i = loss_weight_schedule(step_t, tcfg.w_res1, tcfg.w_res2, tcfg.w_i1,
+                                              tcfg.w_i2, tcfg.residual_switch,
+                                              tcfg.intensity_switch)
+            w_c = torch.as_tensor(w_c, dtype=torch.float32, device=step_t.device)
 
-        out = render_rays(state.model_coarse, state.model_fine, mcfg, batch.rays, rcfg,
-                          train=True, **draws)
+        with trace.device_span("step.render", state.step):
+            out = render_rays(state.model_coarse, state.model_fine, mcfg, batch.rays, rcfg,
+                              train=True, **draws)
         fine = out.fine if out.fine is not None else out.coarse
-        cluster_target = None
-        if not tcfg.no_cluster and table is not None:
-            with torch.no_grad():
-                if mcfg.enable_semantic and fine.sem_logits is not None:
-                    cls = torch.argmax(fine.sem_logits, dim=-1)
-                else:
-                    cls = torch.zeros(n, dtype=torch.long, device=batch.rays.device)
-                cluster_target = dest_color(table, fine.albedo.detach(), cls)
 
-        t_c = loss_terms(out.coarse, batch, w_res, w_i, cluster_target, w_c)
-        t_f = (loss_terms(out.fine, batch, w_res, w_i, cluster_target, w_c)
-               if out.fine is not None else None)
-        total = t_c["total"] + (t_f["total"] if t_f is not None else 0.0)
+        with trace.device_span("step.loss", state.step):
+            cluster_target = None
+            if not tcfg.no_cluster and table is not None:
+                with torch.no_grad():
+                    if mcfg.enable_semantic and fine.sem_logits is not None:
+                        cls = torch.argmax(fine.sem_logits, dim=-1)
+                    else:
+                        cls = torch.zeros(n, dtype=torch.long, device=batch.rays.device)
+                    cluster_target = dest_color(table, fine.albedo.detach(), cls)
+            t_c = loss_terms(out.coarse, batch, w_res, w_i, cluster_target, w_c)
+            t_f = (loss_terms(out.fine, batch, w_res, w_i, cluster_target, w_c)
+                   if out.fine is not None else None)
+            total = t_c["total"] + (t_f["total"] if t_f is not None else 0.0)
 
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        for model in (state.model_coarse, state.model_fine):
-            if isinstance(model, PackedMLP):
-                model.mask_grads()
-        if group is not None:  # the mask first, then the mean, as the JAX step orders them
-            reduce_grads(group, [p for g in opt.param_groups for p in g["params"]])
-        lr = lr_schedule(step_t)  # the pre-update count, as optax reads it
-        if lr.device.type == "cpu":
-            lr = float(lr)  # the host's Adam takes a number
-        for pg in opt.param_groups:
-            pg["lr"] = lr
-        opt.step()
-        step_t.add_(1)
-        state.step += 1
+        with trace.device_span("step.backward", state.step):
+            opt.zero_grad(set_to_none=True)
+            total.backward()
+            for model in (state.model_coarse, state.model_fine):
+                if isinstance(model, PackedMLP):
+                    model.mask_grads()
+            if group is not None:  # the mask first, then the mean, as the JAX step orders them
+                reduce_grads(group, [p for g in opt.param_groups for p in g["params"]])
 
-        # the logged terms: the total, then each level's (averaged over the group)
-        terms = [total] + [v for t in (t_c, t_f) if t is not None for v in _level_terms(t)]
-        terms = [v.detach() for v in terms]
-        if group is not None:
-            terms = reduce_terms(group, terms)
-        c = dict(zip(LEVEL_TERMS, terms[1:]))
-        f = dict(zip(LEVEL_TERMS, terms[1 + len(LEVEL_TERMS):])) if t_f is not None else None
+        with trace.device_span("step.update", state.step):
+            lr = lr_schedule(step_t)  # the pre-update count, as optax reads it
+            if lr.device.type == "cpu":
+                lr = float(lr)  # the host's Adam takes a number
+            for pg in opt.param_groups:
+                pg["lr"] = lr
+            opt.step()
+            step_t.add_(1)
+            state.step += 1
 
-        def both(name):
-            return c[name] + f[name] if f is not None else c[name]
+            # the logged terms: the total, then each level's (averaged over the group)
+            terms = [total] + [v for t in (t_c, t_f) if t is not None for v in _level_terms(t)]
+            terms = [v.detach() for v in terms]
+            if group is not None:
+                terms = reduce_terms(group, terms)
+            c = dict(zip(LEVEL_TERMS, terms[1:]))
+            f = dict(zip(LEVEL_TERMS, terms[1 + len(LEVEL_TERMS):])) if t_f is not None else None
 
-        zero = c["img"].new_zeros(())
-        return LossReport(
-            total=terms[0],
-            img_coarse=c["img"],
-            img_fine=f["img"] if f is not None else zero,
-            psnr_coarse=mse2psnr(c["img"]),
-            psnr_fine=mse2psnr(f["img"]) if f is not None else zero,
-            semantic=both("sem"),
-            chroma=both("chroma"),
-            residual=both("residual"),
-            reflect_sparsity=both("reflect_sparsity"),
-            shading_smooth=both("shading_smooth"),
-            far_reflect=both("far_reflect"),
-            intensity=both("intensity"),
-            reflect_cluster=both("cluster"),
-        )
+            def both(name):
+                return c[name] + f[name] if f is not None else c[name]
+
+            zero = c["img"].new_zeros(())
+            return LossReport(
+                total=terms[0],
+                img_coarse=c["img"],
+                img_fine=f["img"] if f is not None else zero,
+                psnr_coarse=mse2psnr(c["img"]),
+                psnr_fine=mse2psnr(f["img"]) if f is not None else zero,
+                semantic=both("sem"),
+                chroma=both("chroma"),
+                residual=both("residual"),
+                reflect_sparsity=both("reflect_sparsity"),
+                shading_smooth=both("shading_smooth"),
+                far_reflect=both("far_reflect"),
+                intensity=both("intensity"),
+                reflect_cluster=both("cluster"),
+            )
 
     step_fn.group = group
     return step_fn
@@ -386,11 +393,16 @@ def make_multi_step(step_fn, k: int):
     capture or replay raises.  The returned callable keeps ``k``
     in ``.k``, counts its replays in ``.replays`` and, in ``.replayed``,
     the kernel launches its replays made (``fm.LAUNCH_COUNTERS``' names:
-    each replay adds what its graph recorded), which no wrapper counts."""
+    each replay adds what its graph recorded), which no wrapper counts.
+
+    Each captured step stamps the device clock at the bounds of each of
+    the step's phases (``utils/trace.py``), so a replay made while spans
+    are on gives the phases' device times; the counters ``graph.captures``
+    and ``graph.stamp_nodes`` count the captures and the stamps they hold."""
     if k < 1:
         raise ValueError(f"steps per call must be >= 1, got {k}")
     cache: Dict[str, object] = {"key": None, "graph": None, "out": None, "params": None,
-                                "recorded": {}}
+                                "recorded": {}, "stamps": None}
 
     def multi(state: TrainState, pools: DataPools, table: Optional[ClusterTable], w_c,
               generator: torch.Generator) -> LossReport:
@@ -405,13 +417,14 @@ def make_multi_step(step_fn, k: int):
         if cache["key"] != _static_key(step_fn, state, pools, table, w_c, generator):
             cache["graph"] = cache["out"] = None  # free the old graph's memory first
             before = {name: c.captured for name, c in fm.LAUNCH_COUNTERS.items()}
-            cache["graph"], cache["out"] = _capture(step_fn, k, state, pools, table, w_c,
-                                                    generator)
+            cache["graph"], cache["out"], cache["stamps"] = _capture(
+                step_fn, k, state, pools, table, w_c, generator)
             cache["recorded"] = {name: c.captured - before[name]
                                  for name, c in fm.LAUNCH_COUNTERS.items()}
             cache["key"] = _static_key(step_fn, state, pools, table, w_c, generator)
             cache["params"] = [p for g in state.optimizer.param_groups for p in g["params"]]
         cache["graph"].replay()
+        trace.replayed(cache["stamps"])
         torch.autograd.graph.increment_version(cache["params"])
         state.step += k
         multi.replays += 1
@@ -422,6 +435,7 @@ def make_multi_step(step_fn, k: int):
     multi.replays = 0
     multi.replayed = dict.fromkeys(fm.LAUNCH_COUNTERS, 0)
     multi.k = k
+    trace.watch(multi)
     return multi
 
 
@@ -439,7 +453,8 @@ def _static_key(step_fn, state, pools, table, w_c, generator) -> tuple:
 
 
 def _capture(step_fn, k, state, pools, table, w_c, generator):
-    """(graph, the last step's stacked report) of ``k`` steps."""
+    """(graph, the last step's stacked report, its phases' clock stamps)
+    of ``k`` steps."""
     if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
         raise RuntimeError("a graphed step needs torch.cuda.CUDAGraph.register_generator_state "
                            f"(this PyTorch is {torch.__version__})")
@@ -453,9 +468,11 @@ def _capture(step_fn, k, state, pools, table, w_c, generator):
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
     state.optimizer.zero_grad(set_to_none=True)
-    with torch.cuda.graph(graph):
+    with trace.capturing() as stamps, torch.cuda.graph(graph):
         for _ in range(k):
             report = step_fn(state, pools, table, w_c, generator)
         out = torch.stack(list(report))
     state.step = snap["step"]  # capture ran nothing: only the replays count
-    return graph, out
+    trace.count("graph.captures")
+    trace.count("graph.stamp_nodes", stamps.n)
+    return graph, out, stamps

@@ -82,6 +82,7 @@ from intrinsicnerf_tpu_torch.train.logging_utils import NullLogger, ProfilerTrac
 from intrinsicnerf_tpu_torch.train.schedules import cluster_anneal
 from intrinsicnerf_tpu_torch.train.step import (
     DataPools, TrainState, create_train_state, make_multi_step, make_train_step, packs_state)
+from intrinsicnerf_tpu_torch.utils import trace
 from intrinsicnerf_tpu_torch.utils.image import (
     depth2rgb, imwrite, label_colormap, plot_semantic_legend, to8b)
 
@@ -128,8 +129,11 @@ def make_object_sample_fn(cfg, bundle: SceneBundle, ndc_focal=None):
 
 
 def _host(x: torch.Tensor, *shape) -> np.ndarray:
+    """``x`` on the host, by one blocking copy (counted in
+    ``render.host_syncs``)."""
     if x.is_floating_point():
         x = x.float()
+    trace.count("render.host_syncs")
     return x.cpu().numpy().reshape(*shape)
 
 
@@ -161,7 +165,11 @@ def _views(render_rays_of, rays_all, h, w):
     """``render_views``' loop over the views of ``rays_all``, each rendered
     by ``render_rays_of(rays [H*W, 11]) -> RenderResult``."""
     def render(i):
-        return render_rays_of(rays_all[i])
+        with trace.device_span("render.view", i):
+            return render_rays_of(rays_all[i])
+
+    if rays_all.is_cuda:
+        trace.ready()
 
     n = rays_all.shape[0]
     pending = render(0) if n else None
@@ -170,24 +178,27 @@ def _views(render_rays_of, rays_all, h, w):
         if i + 1 < n:
             pending = render(i + 1)
         maps = out.fine if out.fine is not None else out.coarse
-        view = {
-            "rgb": _host(maps.rgb, h, w, 3),
-            "disp": _host(maps.disp, h, w),
-            "depth": _host(maps.depth, h, w),
-            "acc": _host(maps.acc, h, w),
-            "albedo": _host(maps.albedo, h, w, 3),
-            "shading": _host(maps.shading, h, w),
-            "residual": _host(maps.residual, h, w, 3),
-        }
-        if maps.sem_logits is not None:
-            view["sem_label"] = _host(torch.argmax(maps.sem_logits, dim=-1), h, w)
-            view["sem_entropy"] = _host(semantic_entropy(maps.sem_logits), h, w)
-        if maps.endpoint_feat is not None:
-            view["feat"] = _host(maps.endpoint_feat, h, w, -1)
+        with trace.device_span("render.to_host", i):
+            view = {
+                "rgb": _host(maps.rgb, h, w, 3),
+                "disp": _host(maps.disp, h, w),
+                "depth": _host(maps.depth, h, w),
+                "acc": _host(maps.acc, h, w),
+                "albedo": _host(maps.albedo, h, w, 3),
+                "shading": _host(maps.shading, h, w),
+                "residual": _host(maps.residual, h, w, 3),
+            }
+            if maps.sem_logits is not None:
+                view["sem_label"] = _host(torch.argmax(maps.sem_logits, dim=-1), h, w)
+                view["sem_entropy"] = _host(semantic_entropy(maps.sem_logits), h, w)
+            if maps.endpoint_feat is not None:
+                view["feat"] = _host(maps.endpoint_feat, h, w, -1)
         # reference parity: NaN/Inf alarm on every rendered map
-        for k, v in view.items():
-            if not np.isfinite(v).all():
-                print(f"! [Numerical Error] view {i} map '{k}' contains nan or inf.")
+        with trace.span("render.check", i):
+            for k, v in view.items():
+                if not np.isfinite(v).all():
+                    print(f"! [Numerical Error] view {i} map '{k}' contains nan or inf.")
+        trace.count("render.views")
         yield view
 
 
@@ -197,9 +208,11 @@ class Trainer:
     a group of one process whose collectives do nothing).
     ``step_hook(step, t_start, t_enqueued, did_work)``,
     when set, is called after each call of the step (one step, or a block
-    of ``steps_per_call``) with the step count after it, the host clock
-    before the call and after it was enqueued, and whether the call did
-    periodic work (log, checkpoint, rebuild, eval); ``profile_steps = N``
+    of ``steps_per_call``) with the step count after it, the bounds of
+    the call's ``fit.enqueue`` span (the host clock before the call and
+    after it was enqueued, in ``time.perf_counter`` seconds), and whether
+    the call did periodic work (log, checkpoint, rebuild, eval);
+    ``profile_steps = N``
     traces N steps with ``torch.profiler``.  ``sample_fn`` replaces the
     step's pool sampler (the object pipeline's pose sampler)."""
 
@@ -212,6 +225,8 @@ class Trainer:
         elif group.device.type != self.device.type:
             raise ValueError(f"a {self.device.type} trainer got a group on {group.device}")
         self.device = group.device
+        if self.device.type == "cuda":
+            trace.ready()  # the stamp kernel built before any step is profiled
         self.group = group
         self.lead = group.lead  # this process writes the files
         self.cfg = cfg
@@ -394,65 +409,71 @@ class Trainer:
     def fit(self, n_iters: Optional[int] = None, progress: bool = True):
         """Train from ``global_step`` to ``n_iters`` (default: the
         config's); returns the last step's ``LossReport``."""
-        n_iters = n_iters or self.cfg.train.n_iters
-        log = self.cfg.logging
-        start = self.global_step
-        if start == 0:
-            self.log_gt_panels()
-        spc = self._steps_per_call(n_iters, start)
-        self.logger.scalars(max(start, 1), {"Train/steps_per_call_effective": float(spc)})
-        step_fn = self.step_fn
-        if spc > 1:
-            if self.multi_step is None or self.multi_step.k != spc:
-                self.multi_step = make_multi_step(self.step_fn, spc)
-            step_fn = self.multi_step
-        it = range(start, n_iters, spc)
-        if progress and self.lead:
-            from tqdm import trange
+        with trace.span("fit.call"):
+            with trace.span("fit.prologue"):
+                n_iters = n_iters or self.cfg.train.n_iters
+                log = self.cfg.logging
+                start = self.global_step
+                if start == 0:
+                    self.log_gt_panels()
+                spc = self._steps_per_call(n_iters, start)
+                self.logger.scalars(max(start, 1), {"Train/steps_per_call_effective": float(spc)})
+                step_fn = self.step_fn
+                if spc > 1:
+                    if self.multi_step is None or self.multi_step.k != spc:
+                        self.multi_step = make_multi_step(self.step_fn, spc)
+                    step_fn = self.multi_step
+                it = range(start, n_iters, spc)
+                if progress and self.lead:
+                    from tqdm import trange
 
-            # tqdm counts blocks, so the resume's initial is in blocks too
-            it = trange(start, n_iters, spc, initial=start // spc)
-        # --profile N traces steps [start+1, start+1+N): the first step,
-        # which builds the kernels, stays out of the trace
-        prof_start = start + 1 if self.profile_steps > 0 and self.lead else None
-        prof_stop = prof_start + self.profile_steps if prof_start is not None else None
-        t0 = time.time()
-        report = None
-        for i in it:
-            self.global_step = i
-            if i == prof_start:
-                self._profiler = ProfilerTrace(self.save_dir)
-            if i == prof_stop and self._profiler is not None:
+                    # tqdm counts blocks, so the resume's initial is in blocks too
+                    it = trange(start, n_iters, spc, initial=start // spc)
+                # --profile N traces steps [start+1, start+1+N): the first step,
+                # which builds the kernels, stays out of the trace
+                prof_start = start + 1 if self.profile_steps > 0 and self.lead else None
+                prof_stop = prof_start + self.profile_steps if prof_start is not None else None
+            t0 = time.time()
+            report = None
+            for i in it:
+                self.global_step = i
+                if i == prof_start:
+                    self._profiler = ProfilerTrace(self.save_dir)
+                if i == prof_stop and self._profiler is not None:
+                    self._stop_profile()
+                done = i + spc
+                hook = self.step_hook
+                with trace.span("fit.enqueue", done, always=hook is not None) as enqueue:
+                    # no cluster term until the first rebuild
+                    self._w_c_t.fill_(self.w_c if self.cluster_manager is not None else 0.0)
+                    report = step_fn(self.state, self.bundle.pools, self.table, self._w_c_t,
+                                     self.generator)
+                did_work = False
+                if done % log.step_log_tfb == 0:
+                    with trace.span("fit.log", done):
+                        self._log_scalars(done, report, time.time() - t0)
+                    t0 = time.time()
+                    did_work = True
+                if done % log.step_save_ckpt == 0:
+                    with trace.span("fit.checkpoint", done):
+                        self.save_checkpoint(done)
+                    did_work = True
+                if done % log.step_vis_train == 0 and not self.cfg.train.no_cluster:
+                    with trace.span("fit.rebuild", done):
+                        self.rebuild_clusters(done)
+                    did_work = True
+                if done % log.step_val == 0:
+                    with trace.span("fit.eval", done):
+                        self.evaluate(done)
+                    did_work = True
+                self.global_step = done
+                if hook is not None:
+                    hook(done, enqueue.t0 * 1e-9, enqueue.t1 * 1e-9, did_work)
+            if self._profiler is not None:  # --profile N past the end of the run
                 self._stop_profile()
-            t_start = time.perf_counter()
-            # no cluster term until the first rebuild
-            self._w_c_t.fill_(self.w_c if self.cluster_manager is not None else 0.0)
-            report = step_fn(self.state, self.bundle.pools, self.table, self._w_c_t,
-                             self.generator)
-            t_enqueued = time.perf_counter()
-            done = i + spc
-            did_work = False
-            if done % log.step_log_tfb == 0:
-                self._log_scalars(done, report, time.time() - t0)
-                t0 = time.time()
-                did_work = True
-            if done % log.step_save_ckpt == 0:
-                self.save_checkpoint(done)
-                did_work = True
-            if done % log.step_vis_train == 0 and not self.cfg.train.no_cluster:
-                self.rebuild_clusters(done)
-                did_work = True
-            if done % log.step_val == 0:
-                self.evaluate(done)
-                did_work = True
-            self.global_step = done
-            if self.step_hook is not None:
-                self.step_hook(done, t_start, t_enqueued, did_work)
-        if self._profiler is not None:  # --profile N past the end of the run
-            self._stop_profile()
-        self.flush_io()
-        self._print_launches(self.global_step)
-        return report
+            self.flush_io()
+            self._print_launches(self.global_step)
+            return report
 
     def kernel_launches(self) -> Dict[str, int]:
         """Launches of kernel 1, its weight image and kernel 2 in this
@@ -486,6 +507,7 @@ class Trainer:
 
     def _log_scalars(self, step, report, dt):
         vals = {f"Train/Loss/{k}": float(v) for k, v in report._asdict().items()}
+        trace.count("fit.host_syncs", len(report))
         vals["Train/steps_per_s"] = self.cfg.logging.step_log_tfb / max(dt, 1e-9)
         t = self.cfg.train
         vals["Train/w_residual"] = t.w_res1 if step <= t.residual_switch else t.w_res2
@@ -607,44 +629,44 @@ class Trainer:
         if save:
             os.makedirs(save_dir, exist_ok=True)
         rays = self.bundle.rays_cluster if self.bundle.rays_cluster is not None else self.bundle.rays_vis
-        tic = time.perf_counter()
         pixels, labels, views = [], [], []
-        for i, view in enumerate(self.render_views(rays)):
-            if save:
-                self._save_view(save_dir, i, view)
-            albedo_sub = view["albedo"][::2, ::2, :]
-            if "sem_label" in view and not cfg.train.no_semantic_tree:
-                lab_sub = view["sem_label"][::2, ::2]
-            else:
-                lab_sub = np.zeros(albedo_sub.shape[:2], np.int64)
-            pixels.append(albedo_sub.reshape(-1, 3))
-            labels.append(lab_sub.reshape(-1))
-            views.append(view)
-        render_s = time.perf_counter() - tic
+        with trace.span("rebuild.render", step, always=True) as rendering:
+            for i, view in enumerate(self.render_views(rays)):
+                if save:
+                    self._save_view(save_dir, i, view)
+                albedo_sub = view["albedo"][::2, ::2, :]
+                if "sem_label" in view and not cfg.train.no_semantic_tree:
+                    lab_sub = view["sem_label"][::2, ::2]
+                else:
+                    lab_sub = np.zeros(albedo_sub.shape[:2], np.int64)
+                pixels.append(albedo_sub.reshape(-1, 3))
+                labels.append(lab_sub.reshape(-1))
+                views.append(view)
 
         mgr = ClusterManager(class_num=self.n_table_classes)
-        tic = time.perf_counter()
-        mgr.update_centers(np.concatenate(labels), np.concatenate(pixels), band_factor=self.b_f)
-        meanshift_s = time.perf_counter() - tic
+        with trace.span("rebuild.meanshift", step, always=True) as meanshift:
+            mgr.update_centers(np.concatenate(labels), np.concatenate(pixels),
+                               band_factor=self.b_f)
         path = meanshift_backend()
-        self.last_rebuild = {"render_s": render_s, "meanshift_s": meanshift_s, "meanshift": path,
-                             "views": len(views)}
+        self.last_rebuild = {"render_s": rendering.seconds, "meanshift_s": meanshift.seconds,
+                             "meanshift": path, "views": len(views)}
         if self.lead:
-            print(f"cluster rebuild @{step}: render {render_s:.1f}s ({len(views)} views), "
-                  f"mean-shift {meanshift_s:.1f}s ({path}) (w_c={self.w_c:.3g}, "
+            print(f"cluster rebuild @{step}: render {rendering.seconds:.1f}s ({len(views)} "
+                  f"views), mean-shift {meanshift.seconds:.1f}s ({path}) (w_c={self.w_c:.3g}, "
                   f"b_f={self.b_f:.3g})")
-        self.cluster_manager = mgr
-        self._set_table(mgr.to_table(device=self.device))
-        if save:
-            mgr.save(os.path.join(save_dir, "cluster"))
-            self._save_cluster_previews(save_dir, views)
-        if self.bundle.rays_cluster is None:  # the views are the train views
-            self._log_train_render_metrics(step, views)
-        else:
-            self._log_view_panels(step, "Train", views)
-        self.flush_io()
-        if save:
-            self._write_videos(save_dir)
+        with trace.span("rebuild.write", step, always=True):
+            self.cluster_manager = mgr
+            self._set_table(mgr.to_table(device=self.device))
+            if save:
+                mgr.save(os.path.join(save_dir, "cluster"))
+                self._save_cluster_previews(save_dir, views)
+            if self.bundle.rays_cluster is None:  # the views are the train views
+                self._log_train_render_metrics(step, views)
+            else:
+                self._log_view_panels(step, "Train", views)
+            self.flush_io()
+            if save:
+                self._write_videos(save_dir)
 
     def _write_videos(self, save_dir: str):
         """mp4s of the rendered frames in ``save_dir``; a failed write is

@@ -1,0 +1,18 @@
+"""Device milliseconds per training step in the step's update phase (the
+LR, Adam, the step counter and the report's terms): the program's
+``step.update`` span, timed by the device-clock stamps at the phase's
+bounds (in a captured block, those of the newest replay made while the
+profiler recorded, over its steps) (``perfbench/spans.py``)."""
+
+from perfbench import spans
+
+LAYER = "train/step.py"
+UNIT = "ms"
+MOVES = "train_rays_per_s"
+KERNELS = ()
+
+
+def read(run):
+    if run.kind != "train":
+        return None
+    return spans.device_ms("step.update")

@@ -47,19 +47,23 @@
 //     the accumulator registers: bias (loaded before the product) and ReLU,
 //     the ReLU's mask kept as one bit per register in shared memory for
 //     the backward (no re-read of the arena), rows past P zeroed in the
-//     gradients, bf16 pairs into the next product's operand, then 16-byte
-//     copies of the warpgroup's columns to the arena, and the bias partials
-//     as column sums in a fixed order (lane shuffles, then the four warps).
-//     The arena holds 5,888 bf16 per point, row-major per buffer; rows past
-//     P are zero-gradient padding up to a multiple of 64.
+//     gradients, bf16 pairs into the next product's operand, then one bulk
+//     store of the warpgroup's atoms to the arena by one of its threads, and
+//     the bias partials as column sums in a fixed order (lane shuffles, then
+//     the four warps).  The arena holds 5,888 bf16 per point; each buffer
+//     keeps a tile's rows in the atoms of its shared buffer, byte for byte,
+//     so a warpgroup's columns are one contiguous run in both places.  Rows
+//     past P are zero-gradient padding up to a multiple of 64.
 //  2. `bwd_wgrad_gemm_kernel`: dW = A^T G for the 20 weight blocks as 51
 //     output tiles of 128x128, each over one of `splits` point chunks, so
-//     that 255 blocks of two warpgroups run as one wave at two per SM.
-//     Point slabs of A and G (64 x 128 each) stream through a 3-stage ring
-//     by 16-byte cp.async into swizzled atoms; the arena is point-major, so
-//     both operands are MN-major and wgmma m64n128k16 takes both
-//     transposed.  Each (tile, chunk) writes its fp32 partial to a
-//     workspace [splits, 835,584] straight from the registers.
+//     that 255 blocks of two warpgroups and a producer warp run as one wave
+//     at two per SM.  The producer moves point slabs of A and G (64 x 128
+//     each, two atoms that lie side by side in the arena) into a 3-stage
+//     ring with one bulk copy per operand, as the activation pass moves its
+//     weights; both operands are MN-major and wgmma m64n128k16 takes both
+//     transposed, one slab's products in flight while the next is issued.
+//     Each (tile, chunk) writes its fp32 partial to a workspace [splits,
+//     835,584] straight from the registers.
 //  3. `reduce_rows_kernel` (twice): the partials and the per-tile bias
 //     partials summed in a fixed order.
 // No atomics anywhere: two launches on the same inputs give bitwise-equal
@@ -67,16 +71,27 @@
 // grid instead; a GPU grid runs in parallel and dW (3.3 MB in fp32) does
 // not fit in a block, hence the arena and the partials.
 //
-// Copies: bulk copies (the copy engine without a tensor map) for the
-// weights, whose image is contiguous per slab; 16-byte cp.async for the
-// arena's slabs, which are strided.  TMA tensor maps would fit the arena
-// too, but the arena is a fresh allocation on every call, so its maps
-// would be encoded per call through the driver API (a libcuda link this
-// plain-C build does not have).  Measured on the card (PERF.md, PR 5, at
-// the fine shape): the activation pass took 5.5 ms with the weights loaded
-// by cp.async from every thread behind a block barrier per slab, 3.4 ms with
-// the producer's bulk copies, 2.8 ms with one slab's products in flight and
-// the bias loaded ahead.
+// Copies: every copy is a bulk copy (the copy engine without a tensor map),
+// since each one moves a contiguous run: a weight slab of the image, a
+// warpgroup's atoms of a buffer into the arena, an operand's two atoms of
+// a slab out of it.  TMA tensor maps are not needed for that, and would be
+// encoded per call through the driver API (the arena is a fresh
+// allocation; this plain-C build has no libcuda link).  A store is read
+// out of shared memory while the next product runs; a product's first
+// thread of each warpgroup waits, before the barrier that opens it, until
+// all but the warpgroup's newest store have read their buffers, since its
+// epilogue may overwrite them.  The stores mark their lines first to go
+// from L2 (hopper_mma.cuh:bulk_store), so that the 2.3 GB of arena a fine
+// call writes does not push out the weight image that every tile reads.
+// Measured on the card (PERF.md, PRs 5 and 19, at the fine shape): the
+// activation pass took 5.5 ms with the weights loaded by cp.async from
+// every thread behind a block barrier per slab, 3.4 ms with the producer's
+// bulk copies, 2.8 ms with one slab's products in flight and the bias
+// loaded ahead and the arena written by 16-byte copies from every thread;
+// 3.3 ms with the arena's bulk stores and the slab loops as the compiler
+// unrolled them, 2.4-2.5 ms with the loops rolled, 2.0 ms with the stores'
+// lines marked `evict_first`, the same as with no arena stores at all.  The GEMM took 1.10 ms with 16-byte cp.async behind a block
+// barrier per slab, 0.89 ms with the bulk-load ring (its byte bound 0.70).
 
 #include <climits>
 
@@ -87,8 +102,12 @@ namespace {
 
 using namespace fmlp;
 
-// Arena layout: each buffer [p_pad, width] bf16 row-major, starting at
-// (its offset below) * p_pad elements.
+// Arena layout: each buffer of `width` columns starts at (its offset
+// below) * p_pad elements and holds the points' 64-row tiles in order, each
+// as width / 64 atoms of 64 rows x 64 columns (8 KB), byte for byte as
+// the activation pass's shared buffers and the weight-gradient pass's
+// stages hold them (128-byte swizzle, hopper_mma.cuh): tile t of a buffer
+// starts t * 64 * width elements on, and its atom a a * 4,096 on.
 constexpr int AR_FEAT = 0;              // PE features, 128
 constexpr int AR_ACT = AR_FEAT + IN_W;  // trunk activations 0..7, W each
 constexpr int AR_A1 = AR_ACT + 8 * W;
@@ -245,9 +264,14 @@ __device__ __forceinline__ void consumer_sync() {
 template <int NW, int WT>
 __device__ __forceinline__ void mma_slabs(float (&acc)[NW / 2], Ring& r, uint32_t a, int kslabs) {
   const int wg = threadIdx.x >> 7;
-  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy
-  consumer_sync();
-  int prev = -1;  // the stage of the slab whose products may still run
+  // The arena store before this warpgroup's newest may still read a buffer
+  // that this product's epilogue overwrites: wait for it (the buffers
+  // alternate, so it is a product old); the barrier holds every consumer
+  // behind the wait.
+  if ((threadIdx.x & 127) == 0) hmma::bulk_wait<1, 1>();
+  consumer_sync();  // A's writers fenced their writes to the async proxy before it
+  int prev = -1;    // the stage of the slab whose products may still run
+#pragma unroll 1  // unrolled at its 19 call sites, the pass ran 25% slower on the card
   for (int s = 0; s < kslabs; ++s) {
     const int st = r.it % ACT_STAGES;
     hmma::mbar_wait(r.full + st * 8, (r.it / ACT_STAGES) & 1);
@@ -292,15 +316,16 @@ __device__ __forceinline__ void wg_sync() {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
 }
 
-// the 64 rows of columns [col0, col0 + ncols) of a K-major shared buffer
-// to the arena (row stride `width`), 16 bytes at a time by `nt` threads
-__device__ __forceinline__ void copy_out(const unsigned char* S, int col0, int ncols, int width,
-                                         bf16* G, int t, int nt) {
-  const int cpr = ncols >> 3;
-  for (int e = t; e < 64 * cpr; e += nt) {
-    const int row = e / cpr, c = col0 + (e % cpr) * 8;
-    *reinterpret_cast<uint4*>(G + (long)row * width + c) =
-        *reinterpret_cast<const uint4*>(S + kmaj(row, c));
+// This warpgroup's NW columns of the K-major shared buffer S (its atoms
+// from wg * NW / 64) to the same atoms of the arena tile at G: one bulk
+// store by the warpgroup's first thread, in a bulk group of its own.
+// Called after a barrier that follows every writer's fence_proxy_async.
+template <int NW>
+__device__ __forceinline__ void store_atoms(const unsigned char* S, bf16* G) {
+  const uint32_t off = (threadIdx.x >> 7) * NW * 128;
+  if ((threadIdx.x & 127) == 0) {
+    hmma::bulk_store(reinterpret_cast<unsigned char*>(G) + off, hmma::smem_u32(S) + off, NW * 128);
+    hmma::bulk_commit();
   }
 }
 
@@ -318,11 +343,10 @@ __device__ __forceinline__ void load_bias(float (&bv)[NW / 4], const float* __re
 
 // Forward epilogue of this warpgroup's NW columns: bf16(act(acc + bias))
 // into the K-major buffer D (the next product's A), the ReLU's mask bits
-// into `mask`, then the columns to the arena (G, row stride `width`).
+// into `mask`, then the columns to the arena tile G.
 template <int NW>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NW / 2], const float (&bv)[NW / 4],
-                                             bool relu, unsigned char* D, uint32_t* mask, bf16* G,
-                                             int width) {
+                                             bool relu, unsigned char* D, uint32_t* mask, bf16* G) {
   const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, lane = lt & 31;
   const int r0 = (lt >> 5) * 16 + (lane >> 2);
   uint32_t bits[NW / 64] = {};
@@ -346,17 +370,18 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[NW / 2], const f
   if (relu)
 #pragma unroll
     for (int q = 0; q < NW / 64; ++q) mask[q] = bits[q];
+  hmma::fence_proxy_async();
   wg_sync();
-  copy_out(D, wg * NW, NW, width, G, lt, 128);
+  store_atoms<NW>(D, G);
 }
 
 // Gradient epilogue of this warpgroup's NW columns: v = acc, zero where
 // the mask bit is clear (when `mask` is set) and past n; bf16(v) into D and
-// the arena, and the fp32 column sums of v over the tile's 64 rows (lanes,
+// the arena tile G, and the fp32 column sums of v over the tile's 64 rows (lanes,
 // then the four warps in order) into bsum.
 template <int NW>
 __device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2], const uint32_t* mask,
-                                              unsigned char* D, bf16* G, int width, float* bsum,
+                                              unsigned char* D, bf16* G, float* bsum,
                                               float* colsum, long long row0, long long n) {
   const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
   const int r0 = warp * 16 + (lane >> 2);
@@ -389,8 +414,9 @@ __device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2], const 
       cs[j * 8 + 2 * lane + 1] = s1;
     }
   }
+  hmma::fence_proxy_async();
   wg_sync();
-  copy_out(D, wg * NW, NW, width, G, lt, 128);
+  store_atoms<NW>(D, G);
   if (lt < NW) {
     const float* c0 = colsum + wg * 4 * 128 + lt;
     bsum[wg * NW + lt] = ((c0[0] + c0[128]) + c0[256]) + c0[384];
@@ -451,8 +477,9 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
 
   // ---- forward recompute (kernel 1 without the output products) ----
   compute_feat_kmaj(sm + OV_FEAT, in8, pe_mat, sin_mask, row0, n);
+  hmma::fence_proxy_async();
   consumer_sync();
-  copy_out(sm + OV_FEAT, 0, IN_W, IN_W, ar(AR_FEAT, IN_W), threadIdx.x, NTHREADS);
+  store_atoms<64>(sm + OV_FEAT, ar(AR_FEAT, IN_W));
   uint32_t src = sa + OV_FEAT;
   int kslabs = IN_W / 64;
   float bv2[32], bv1[16];  // the product's bias
@@ -462,7 +489,7 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
     load_bias<128>(bv2, b + B_TRUNK + l * W);
     mma_slabs<128, 0>(acc2, ring, src, kslabs);
     if (l == 5) mma_slabs<128, 0>(acc2, ring, sa + OV_FEAT, IN_W / 64);
-    fwd_epilogue<128>(acc2, bv2, true, sm + dst, mask(l), ar(AR_ACT + l * W, W), W);
+    fwd_epilogue<128>(acc2, bv2, true, sm + dst, mask(l), ar(AR_ACT + l * W, W));
     src = sa + dst;
     kslabs = W / 64;
   }
@@ -470,38 +497,37 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   zero_acc(acc2);  // f = H@w_f + b_f -> bufA
   load_bias<128>(bv2, b + B_F);
   mma_slabs<128, 0>(acc2, ring, Hs, 4);
-  fwd_epilogue<128>(acc2, bv2, false, sm + OV_BUFA, nullptr, ar(AR_F, W), W);
+  fwd_epilogue<128>(acc2, bv2, false, sm + OV_BUFA, nullptr, ar(AR_F, W));
   zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v)
   load_bias<64>(bv1, b + B_V);
   mma_slabs<64, 0>(acc1, ring, sa + OV_BUFA, 4);
   mma_slabs<64, 0>(acc1, ring, sa + OV_FEAT, 2);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_V), ar(AR_V, HW), HW);
+  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_V), ar(AR_V, HW));
   zero_acc(acc1);  // a1, s1, m1 = relu(H@w + b)
   load_bias<64>(bv1, b + B_A1);
   mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA, mask(MK_A1), ar(AR_A1, HW), HW);
+  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA, mask(MK_A1), ar(AR_A1, HW));
   zero_acc(acc1);
   load_bias<64>(bv1, b + B_S1);
   mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, mask(MK_S1), ar(AR_S1, HW), HW);
+  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, mask(MK_S1), ar(AR_S1, HW));
   zero_acc(acc1);
   load_bias<64>(bv1, b + B_M1);
   mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_M1), ar(AR_M1, HW), HW);
+  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_M1), ar(AR_M1, HW));
   consumer_sync();  // the forward's buffers are read; the backward's overlay them
 
   // ---- backward chain ----
   {
-    bf16* go_ar = ar(AR_GO, OUT_W);
     for (int e = threadIdx.x; e < TILE_M * OUT_W / 8; e += NTHREADS) {
       const int i = e >> 4, c = (e & 15) * 8;
       const long long p = row0 + i;
-      const uint4 v =
+      *reinterpret_cast<uint4*>(sm + OV_GO + kmaj(i, c)) =
           p < n ? *reinterpret_cast<const uint4*>(g + p * OUT_W + c) : make_uint4(0, 0, 0, 0);
-      *reinterpret_cast<uint4*>(sm + OV_GO + kmaj(i, c)) = v;
-      *reinterpret_cast<uint4*>(go_ar + (long)i * OUT_W + c) = v;
     }
+    hmma::fence_proxy_async();
     consumer_sync();
+    store_atoms<64>(sm + OV_GO, ar(AR_GO, OUT_W));
     if (threadIdx.x < OUT_W) {  // the five output biases' gradient: sum(go)
       float s = 0.0f;
       for (int i = 0; i < TILE_M; ++i)
@@ -513,23 +539,22 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   // gv = (go @ w_r^T) * (v > 0); gf = gv @ wv_f^T (f has no ReLU)
   zero_acc(acc1);
   mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_V), sm + OV_R1, ar(AR_GV, HW), HW, bsum + B_V, colsum, row0, n);
+  grad_epilogue<64>(acc1, mask(MK_V), sm + OV_R1, ar(AR_GV, HW), bsum + B_V, colsum, row0, n);
   zero_acc(acc2);
   mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
-  grad_epilogue<128>(acc2, nullptr, sm + OV_R2, ar(AR_GF, W), W, bsum + B_F, colsum, row0, n);
+  grad_epilogue<128>(acc2, nullptr, sm + OV_R2, ar(AR_GF, W), bsum + B_F, colsum, row0, n);
   // head gradients: g1 = (go @ w2^T) * (act1 > 0) -> ga1, gs1, gm1
   zero_acc(acc1);
   mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_A1), sm + OV_R1, ar(AR_GA1, HW), HW, bsum + B_A1, colsum, row0,
-                    n);
+  grad_epilogue<64>(acc1, mask(MK_A1), sm + OV_R1, ar(AR_GA1, HW), bsum + B_A1, colsum, row0, n);
   zero_acc(acc1);
   mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_S1), sm + OV_R1 + 2 * ATOM, ar(AR_GS1, HW), HW, bsum + B_S1,
-                    colsum, row0, n);
+  grad_epilogue<64>(acc1, mask(MK_S1), sm + OV_R1 + 2 * ATOM, ar(AR_GS1, HW), bsum + B_S1, colsum,
+                    row0, n);
   zero_acc(acc1);
   mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_M1), sm + OV_R1 + 4 * ATOM, ar(AR_GM1, HW), HW, bsum + B_M1,
-                    colsum, row0, n);
+  grad_epilogue<64>(acc1, mask(MK_M1), sm + OV_R1 + 4 * ATOM, ar(AR_GM1, HW), bsum + B_M1, colsum,
+                    row0, n);
   // dH = go@w_sig^T + ga1@w_a1^T + gs1@w_s1^T + gm1@w_m1^T + gf@w_f^T
   zero_acc(acc2);
   mma_slabs<128, 1>(acc2, ring, go, 2);
@@ -538,19 +563,22 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 4 * ATOM, 2);
   mma_slabs<128, 1>(acc2, ring, sa + OV_R2, 4);
   consumer_sync();  // gh7 overlays the head gradients just read
-  grad_epilogue<128>(acc2, mask(7), sm + OV_R1, ar(AR_G + 7 * W, W), W, bsum + B_TRUNK + 7 * W,
-                     colsum, row0, n);
+  grad_epilogue<128>(acc2, mask(7), sm + OV_R1, ar(AR_G + 7 * W, W), bsum + B_TRUNK + 7 * W, colsum,
+                     row0, n);
   // trunk: gh_{l-1} = (gh_l @ w_l^T) * (act_{l-1} > 0), l = 7..1
   int cur = OV_R1, other = OV_R2;
   for (int l = 7; l >= 1; --l) {
     zero_acc(acc2);
     mma_slabs<128, 1>(acc2, ring, sa + cur, 4);
-    grad_epilogue<128>(acc2, mask(l - 1), sm + other, ar(AR_G + (l - 1) * W, W), W,
+    grad_epilogue<128>(acc2, mask(l - 1), sm + other, ar(AR_G + (l - 1) * W, W),
                        bsum + B_TRUNK + (l - 1) * W, colsum, row0, n);
     const int t = cur;
     cur = other;
     other = t;
   }
+  // every store has read its source and written the arena before the
+  // block exits and its shared memory passes to the next tile's block
+  if ((threadIdx.x & 127) == 0) hmma::bulk_wait<0, 0>();
 }
 
 // One weight gradient dW[K, N] = A[P, K]^T @ G[P, N] (arena buffers).
@@ -563,22 +591,25 @@ constexpr int N_JOBS = 20;
 
 // The weight-gradient GEMM.  Output tiles of TK x TN = 128 x 128 cover
 // every block exactly (K and N are each 128 or 256): 51 tiles.  A block
-// is two warpgroups, one per 64-row half of the tile, over one point
-// chunk.  Point slabs of A [SLAB, 128] and G [SLAB, 128] stream through a
-// ring of STAGES stages in shared memory by 16-byte cp.async, each slab
-// stored as two 64-column atoms (hopper_mma.cuh); the arena is
-// point-major, so both operands are MN-major (the contraction runs down
-// the slab's rows) and the wgmma takes both transposed.
+// is two consumer warpgroups, one per 64-row half of the tile, and a
+// producer warp, over one point chunk.  The producer moves point slabs of
+// A [SLAB, 128] and G [SLAB, 128] into a ring of STAGES stages, each
+// operand's two 64-column atoms with one bulk copy (they lie side by side
+// in the arena's tile); a stage's `full` barrier completes when its bytes
+// have landed, its `empty` barrier when the eight consumer warps are done
+// with it.  The arena is point-major, so both operands are MN-major (the
+// contraction runs down the slab's rows) and the wgmma takes both
+// transposed; one slab's products stay in flight while the next is issued.
 constexpr int TK = 128, TN = 128;
 constexpr int N_TILES = (int)(W_TOTAL / (TK * TN));
 static_assert(N_TILES * TK * TN == W_TOTAL, "every block is a whole number of tiles");
-constexpr int SLAB = 64;                     // points per stage; p_pad is a multiple
+constexpr int SLAB = 64;                     // points per stage: one arena tile
 constexpr int STAGES = 3;
 constexpr int ATOM_BYTES = SLAB * 128;       // 64 columns x SLAB rows
 constexpr int STAGE_BYTES = 4 * ATOM_BYTES;  // A: 2 atoms, G: 2 atoms (32 KB)
-constexpr int WG_THREADS = 256;
-constexpr int WG_SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1 KB
-static_assert(TILE_M % SLAB == 0, "the arena's rows are whole slabs");
+constexpr int WG_THREADS = 256 + 32;         // + the producer warp
+constexpr int WG_SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, 1 KB slack
+static_assert(TILE_M == SLAB, "a slab is one arena tile");
 
 #define JOB(a, la, g, lg, k, n, off) {a, la, g, lg, k, n, off}
 __constant__ Job c_jobs[N_JOBS] = {
@@ -605,26 +636,12 @@ __constant__ Job c_jobs[N_JOBS] = {
 };
 #undef JOB
 
-// one slab (SLAB points from row p) of A's columns [k0, k0 + 128) and G's
-// [n0, n0 + 128) into the stage at shared address `st`; 16 threads per
-// 256-byte row, 8 chunks per thread
-__device__ __forceinline__ void load_slab(uint32_t st, const bf16* A, int lda, int k0,
-                                          const bf16* G, int ldg, int n0, long long p) {
-#pragma unroll
-  for (int i = 0; i < 2 * SLAB * 16 / WG_THREADS; ++i) {
-    const int e = threadIdx.x + i * WG_THREADS;
-    const int op = e / (SLAB * 16);  // 0: A, 1: G
-    const int row = (e / 16) % SLAB, c = e % 16;
-    const bf16* src = op == 0 ? A + (p + row) * lda + k0 + c * 8 : G + (p + row) * ldg + n0 + c * 8;
-    hmma::cp_async16(st + (uint32_t)(op * 2 + c / 8) * ATOM_BYTES + hmma::sw128(row, c % 8), src);
-  }
-}
-
 __global__ void __launch_bounds__(WG_THREADS, 2)
 bwd_wgrad_gemm_kernel(const bf16* __restrict__ arena, float* __restrict__ ws, long long p_pad,
                       long long chunk) {
   extern __shared__ __align__(128) unsigned char wg_smem[];
   const uint32_t ring = (hmma::smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES, empty = full + STAGES * 8;
   // the job owning this output tile: jobs own K*N / (TK*TN) tiles each,
   // in weight-buffer order
   int t = blockIdx.x, j = 0;
@@ -636,32 +653,42 @@ bwd_wgrad_gemm_kernel(const bf16* __restrict__ arena, float* __restrict__ ws, lo
   const Job job = c_jobs[j];
   const int tiles_n = job.N / TN;
   const int k0 = (t / tiles_n) * TK, n0 = (t % tiles_n) * TN;
-  const bf16* A = arena + (long)job.a_off * p_pad;
-  const bf16* G = arena + (long)job.g_off * p_pad;
+  // a slab's columns [k0, k0 + 128) of A: atoms k0 / 64 and k0 / 64 + 1 of
+  // its tile, 16 KB in a row (and G's likewise)
+  const bf16* A = arena + (long)job.a_off * p_pad + k0 * SLAB;
+  const bf16* G = arena + (long)job.g_off * p_pad + n0 * SLAB;
   const long long p_begin = (long long)blockIdx.y * chunk;
   const long long p_end = p_begin + chunk < p_pad ? p_begin + chunk : p_pad;
   const int n_slabs = p_end > p_begin ? (int)((p_end - p_begin) / SLAB) : 0;
+  if (threadIdx.x == 0)
+    for (int st = 0; st < STAGES; ++st) {
+      hmma::mbar_init(full + st * 8, 1);   // the producer's expect_tx
+      hmma::mbar_init(empty + st * 8, 8);  // the eight consumer warps
+    }
+  hmma::fence_mbar_init();
+  __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x == 256)
+      for (int i = 0; i < n_slabs; ++i) {
+        const int st = i % STAGES;
+        const long long p = p_begin + (long long)i * SLAB;
+        if (i >= STAGES) hmma::mbar_wait(empty + st * 8, ((i / STAGES) - 1) & 1);
+        hmma::mbar_expect_tx(full + st * 8, STAGE_BYTES);
+        hmma::bulk_load(ring + st * STAGE_BYTES, A + p * job.lda, 2 * ATOM_BYTES, full + st * 8);
+        hmma::bulk_load(ring + st * STAGE_BYTES + 2 * ATOM_BYTES, G + p * job.ldg, 2 * ATOM_BYTES,
+                        full + st * 8);
+      }
+    return;
+  }
   const int wg = threadIdx.x / 128;  // this warpgroup's 64 rows of the tile
 
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_slabs)
-      load_slab(ring + s * STAGE_BYTES, A, job.lda, k0, G, job.ldg, n0, p_begin + s * SLAB);
-    hmma::cp_async_commit();
-  }
   for (int it = 0; it < n_slabs; ++it) {
-    hmma::cp_async_wait<STAGES - 2>();  // slab `it` has landed (this thread's part)
-    hmma::fence_proxy_async();
-    __syncthreads();  // ... everyone's part; slab it - 1's stage is free
-    const int nxt = it + STAGES - 1;
-    if (nxt < n_slabs)
-      load_slab(ring + (nxt % STAGES) * STAGE_BYTES, A, job.lda, k0, G, job.ldg, n0,
-                p_begin + (long long)nxt * SLAB);
-    hmma::cp_async_commit();
-    const uint32_t st = ring + (it % STAGES) * STAGE_BYTES;
+    const int sti = it % STAGES;
+    hmma::mbar_wait(full + sti * 8, (it / STAGES) & 1);
+    const uint32_t st = ring + sti * STAGE_BYTES;
     hmma::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < SLAB / 16; ++kk) {
@@ -671,8 +698,12 @@ bwd_wgrad_gemm_kernel(const bf16* __restrict__ arena, float* __restrict__ ws, lo
       hmma::wgmma_m64n128k16<1, 1>(acc, da, db, 1);
     }
     hmma::wgmma_commit();
-    hmma::wgmma_wait<0>();
+    if (it > 0) {  // the previous slab's products are done: its stage is free
+      hmma::wgmma_wait<1>();
+      if ((threadIdx.x & 31) == 0) hmma::mbar_arrive(empty + ((it - 1) % STAGES) * 8);
+    }
   }
+  hmma::wgmma_wait<0>();
   hmma::fence_regs(acc);
 
   // the fp32 partial of this (tile, chunk), straight from the registers

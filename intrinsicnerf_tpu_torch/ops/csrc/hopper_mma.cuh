@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the fused-MLP forward and backward
 // (fused_mlp_fwd.cu, fused_mlp_bwd.cu) and the forward's probe
-// (fwd_probe.cu): 16-byte cp.async into 128-byte-swizzled shared tiles,
-// mbarriers and bulk copies into shared memory, wgmma shared-memory
-// descriptors, and bf16 wgmma with fp32 accumulators (n64, n128, n256).
+// (fwd_probe.cu): mbarriers, bulk copies between global memory and
+// 128-byte-swizzled shared tiles, wgmma shared-memory descriptors, and
+// bf16 wgmma with fp32 accumulators (n64, n128, n256).
 //
 // Shared tiles.  Every operand tile is a run of "atoms": 64 bf16 columns
 // (128 bytes) by R rows, row r at byte r * 128, its eight 16-byte chunks
@@ -31,18 +31,8 @@ __device__ __forceinline__ uint32_t sw128(int row, int chunk) {
   return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy writes to shared memory (cp.async, st.shared) made
-// visible to the async proxy that wgmma reads through
+// generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma and the bulk copies read through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -83,6 +73,29 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from shared to global memory by the copy engine, in this thread's open
+// bulk group; bulk_commit closes the group.  The lines it writes are the
+// first that L2 evicts: a stream of scratch written once must not push
+// out data that every block reads again (a weight image).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n"
+               ::"l"(dst), "r"(src), "r"(bytes), "l"(policy) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed bulk groups are still
+// reading their shared source (READ = 1) or still running at all (READ = 0)
+template <int N, int READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`

@@ -6,9 +6,9 @@ a copy of the source, and times that pass in each at the training step's
 fine shape (196,608 points; ``tools/bwd_passes.py``'s inputs):
 
 - ``base``: the kernel as it is;
-- ``no_arena_stores``: the 16-byte copies of each buffer to the arena;
+- ``no_arena_stores``: the bulk stores of each buffer's atoms to the arena;
 - ``no_epilogues``: every epilogue (bias, ReLU, masks, bf16 stores,
-  column sums, arena copies);
+  column sums, arena stores);
 - ``no_mma``: the wgmma products (the ring still streams every slab);
 - ``no_weight_loads``: the producer's bulk copies into the ring (the
   products read whatever the stages hold);
@@ -47,11 +47,11 @@ _LOADS = """      hmma::mbar_expect_tx(full + st * 8, bytes);
 _FWD_EPI = "  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, lane = lt & 31;\n"
 _GRAD_EPI = ("  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, warp = lt >> 5, "
              "lane = lt & 31;\n")
-_COPY = "  const int cpr = ncols >> 3;\n"
+_STORE = "  const uint32_t off = (threadIdx.x >> 7) * NW * 128;\n"
 
 PATCHES = {
     "base": [],
-    "no_arena_stores": [(_COPY, "  return;\n" + _COPY)],
+    "no_arena_stores": [(_STORE, "  return;\n" + _STORE)],
     "no_epilogues": [(_FWD_EPI, "  return;\n" + _FWD_EPI), (_GRAD_EPI, "  return;\n" + _GRAD_EPI)],
     "no_mma": [(_MMA, "      (void)da;\n      (void)db;")],
     "no_weight_loads": [(_LOADS, "      hmma::mbar_arrive(full + st * 8);")],

@@ -153,8 +153,10 @@ GRAPH_K, GRAPH_CALLS = 8, 5  # train_graph: steps per replay, replays per timed 
 REPLAY_KERNELS = {"fused_mlp_fwd_kernel": 1, "fwd_wimg_kernel": 1, "bwd_act_wimg_kernel": 1,
                   "bwd_act_wgmma_kernel": 1, "bwd_wgrad_gemm_kernel": 1, "reduce_rows_kernel": 2}
 # the device-clock stamps a graphed step holds: one at each bound of each
-# of its five phase spans (utils/trace.py's clock_stamp_kernel)
+# of its five phase spans (utils/trace.py's clock_stamp_kernel); the
+# object's pose sampler adds one at each bound of its ``sample.rays`` span
 STAMP_NODES = 10
+OBJECT_STAMP_NODES = 12
 SCENE_K = 10  # the graphed scene run's steps per call: divides 50, 200, 400 and the resume's 50
 # a graphed block against the same steps run eagerly, where eager runs are
 # not bitwise: the JAX scan test's bounds (tests/test_train_step.py)
@@ -358,7 +360,8 @@ def compare_runs(a, b, exact: bool, torch):
                                 "generator_and_step_equal": same_gen}
 
 
-def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="train_graph"):
+def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="train_graph",
+                stamp_nodes_a_step=STAMP_NODES):
     """``train_graph`` (or ``phase``): GRAPH_K eager steps twice from one state and
     generator state (bitwise or not), then GRAPH_K steps as one graph
     replay from the same state, held to the eager steps; the kernels of a
@@ -458,7 +461,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
         graph_vs_eager=json.dumps(detail1), replay_after_restore_vs_eager=json.dumps(detail2),
         capture_s=f"{capture_s:.3f}", capture_eager_launches=json.dumps(eager_launches),
         captured=json.dumps(captured), replay_kernels=json.dumps(found), want=json.dumps(want),
-        stamp_nodes=stamp_nodes, want_stamps=STAMP_NODES * k, replay_stamps=stamps,
+        stamp_nodes=stamp_nodes, want_stamps=stamp_nodes_a_step * k, replay_stamps=stamps,
         eager_ms_per_step=f"{eager_ms:.3f}", graph_ms_per_step=f"{graph_ms:.3f}",
         eager_windows_ms=json.dumps([round(x, 3) for x in eager_times]),
         graph_windows_ms=json.dumps([round(x, 3) for x in graph_times]),
@@ -475,7 +478,7 @@ def graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card, phase="
         eager_step_device_ms_by_op=json.dumps(top(ops, 20)), card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
     if not (agree1 and agree2 and kernels_ok and captured == [2 * k] * 3
-            and eager_launches == [2, 2, 2] and stamp_nodes == STAMP_NODES * k):
+            and eager_launches == [2, 2, 2] and stamp_nodes == stamp_nodes_a_step * k):
         raise AssertionError(f"the graphed steps disagree with the eager steps or their kernels: "
                              f"{detail1} {detail2} {found} captured {captured} "
                              f"eager {eager_launches} stamp nodes {stamp_nodes}")
@@ -501,7 +504,7 @@ def rest_by_kind(other, n_steps):
 
 
 def packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, seed, phase,
-                 start=0):
+                 start=0, stamp_nodes_a_step=STAMP_NODES):
     """``phase``: the packed training state (``PackedMLP``, what
     ``create_train_state`` makes here) against the unpacked one
     (``IntrinsicMLP``), both from one seeded generator, the same draws and
@@ -560,7 +563,8 @@ def packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, s
     for packed, name in ((True, "packed"), (False, "unpacked")):
         st, gen = states[packed]
         graphs[name] = graph_phase(torch, np, step_fn, st, pools, table, w_c, gen, card,
-                                   phase=f"{phase}_graph_{name}")
+                                   phase=f"{phase}_graph_{name}",
+                                   stamp_nodes_a_step=stamp_nodes_a_step)
     split = {name: {k: (round(g[k], 4) if isinstance(g[k], float) else g[k]) for k in (
         "graph_ms", "eager_ms", "kernel1_ms", "image_ms", "kernel2_ms", "other_ms",
         "other_by_kind", "busy_share")} for name, g in graphs.items()}
@@ -2429,9 +2433,10 @@ def object_graph_phase(torch, np, dev, card, od, st):
     state.step = start
     state.step_t.fill_(start)
     graph = graph_phase(torch, np, st["step_fn"], state, pools, table, 0.1, gen, card,
-                        phase="object_graph")
+                        phase="object_graph", stamp_nodes_a_step=OBJECT_STAMP_NODES)
     graph["packed"] = packed_phase(torch, np, dev, card, st["mcfg"], cfg.train, st["step_fn"],
-                                   pools, table, 0.1, 20, "object_packed", start=start)
+                                   pools, table, 0.1, 20, "object_packed", start=start,
+                                   stamp_nodes_a_step=OBJECT_STAMP_NODES)
 
     n = cfg.train.n_rays
     rec = torch.full((2, k, n), -1, dtype=torch.long, device=dev)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from intrinsicnerf_tpu_torch.core.rays import ndc_rays
+from intrinsicnerf_tpu_torch.utils import trace
 
 
 class RayBatch(NamedTuple):
@@ -237,17 +238,23 @@ def gather_ray_pairs_from_poses(
     """The paired batch of the given draws, its rays made from the image's
     pose: pixels first, then their neighbours (clamped to the frame).
     With ``ndc_focal`` the rays march in NDC with bounds [0, 1] and the
-    view directions stay in world space."""
-    nei_h = torch.clamp(idx_h + bias_h, 0, h - 1)
-    nei_w = torch.clamp(idx_w + bias_w, 0, w - 1)
-    idx = torch.cat([idx_h * w + idx_w, nei_h * w + nei_w])  # [2N]
-    img1 = img.reshape(1)  # a 1-element index: no read back to the host
-    c2w = poses[img1][0]
-    d_world = dirs_cam[idx] @ c2w[:3, :3].T
-    origins = c2w[:3, 3].expand(d_world.shape)
-    viewdirs = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
+    view directions stay in world space.  The pairing and the rays' build
+    are the device span ``sample.rays``, the projection ``sample.ndc``
+    (each with the id of the span it nests in: the step's)."""
+    with trace.device_span("sample.rays"):
+        nei_h = torch.clamp(idx_h + bias_h, 0, h - 1)
+        nei_w = torch.clamp(idx_w + bias_w, 0, w - 1)
+        idx = torch.cat([idx_h * w + idx_w, nei_h * w + nei_w])  # [2N]
+        img1 = img.reshape(1)  # a 1-element index: no read back to the host
+        c2w = poses[img1][0]
+        d_world = dirs_cam[idx] @ c2w[:3, :3].T
+        origins = c2w[:3, 3].expand(d_world.shape)
+        viewdirs = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
+        rgb = rgb_pool[img1, idx]
+        mask = mask_pool[img1, idx] if mask_pool is not None else None
     if ndc_focal is not None:
-        origins, d_world = ndc_rays(h, w, ndc_focal, 1.0, origins, d_world)
+        with trace.device_span("sample.ndc"):
+            origins, d_world = ndc_rays(h, w, ndc_focal, 1.0, origins, d_world)
         near, far = 0.0, 1.0
     # filled on the device: a host tensor copied in would break a graph capture
     nf = d_world.new_full((d_world.shape[0], 2), near)
@@ -255,9 +262,9 @@ def gather_ray_pairs_from_poses(
     rays = torch.cat([origins, d_world, nf, viewdirs], dim=-1)
     return RayBatch(
         rays=rays,
-        rgb=rgb_pool[img1, idx],
+        rgb=rgb,
         depth=None,
-        semantic=mask_pool[img1, idx] if mask_pool is not None else None,
+        semantic=mask,
         sem_flag=torch.zeros((), dtype=torch.float32, device=rays.device),
         image_idx=img,
     )

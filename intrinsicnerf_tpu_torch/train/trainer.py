@@ -5,7 +5,10 @@ Port of ``intrinsicnerf_tpu/train/trainer.py:Trainer``:
 - the step (``train/step.py:make_train_step``) every iteration, with the
   cluster term off (``w_c = 0``) until the first rebuild;
 - every ``step_log_tfb`` steps the loss terms, the schedule weights and
-  the raw-sigma histograms of a fixed 512-ray probe;
+  the raw-sigma histograms of a fixed 512-ray probe; the log's device work
+  is enqueued at its step and its host work done once the next block is
+  enqueued (``_stage_log``, ``_write_log``), so the card does not wait
+  on the host's writes;
 - every ``step_save_ckpt`` steps a checkpoint (``train/checkpoint.py``);
 - every ``step_vis_train`` steps the cluster rebuild: render the train
   views, mean-shift the rendered albedo per semantic class, swap in the
@@ -126,6 +129,26 @@ def make_object_sample_fn(cfg, bundle: SceneBundle, ndc_focal=None):
             precrop_frac=cfg.precrop_frac, ndc_focal=ndc_focal)
 
     return sample_fn
+
+
+def _to_host_async(x: torch.Tensor) -> torch.Tensor:
+    """A float32 host copy of ``x``, enqueued without waiting (into pinned
+    memory from a card); valid once the stream passes the copy."""
+    x = x.detach().float()
+    out = torch.empty(x.shape, dtype=torch.float32, pin_memory=x.is_cuda)
+    return out.copy_(x, non_blocking=True)
+
+
+@dataclasses.dataclass
+class _StagedLog:
+    """A log's values on their way to the host (``Trainer._stage_log``)."""
+
+    step: int
+    names: tuple
+    terms: torch.Tensor  # the report's terms, in ``names``' order
+    scalars: Dict[str, float]  # the rest of the row, as the host knew it at ``step``
+    sigmas: list  # the probe's raw sigma: coarse, then fine if any
+    done: Optional[torch.cuda.Event]  # recorded after the copies; None on the host
 
 
 def _host(x: torch.Tensor, *shape) -> np.ndarray:
@@ -435,6 +458,7 @@ class Trainer:
                 prof_stop = prof_start + self.profile_steps if prof_start is not None else None
             t0 = time.time()
             report = None
+            staged = None  # a log staged at the last block's end, written after this one's enqueue
             for i in it:
                 self.global_step = i
                 if i == prof_start:
@@ -448,10 +472,14 @@ class Trainer:
                     self._w_c_t.fill_(self.w_c if self.cluster_manager is not None else 0.0)
                     report = step_fn(self.state, self.bundle.pools, self.table, self._w_c_t,
                                      self.generator)
+                if staged is not None:
+                    with trace.span("fit.log", staged.step):
+                        self._write_log(staged)
+                    staged = None
                 did_work = False
                 if done % log.step_log_tfb == 0:
                     with trace.span("fit.log", done):
-                        self._log_scalars(done, report, time.time() - t0)
+                        staged = self._stage_log(done, report, time.time() - t0)
                     t0 = time.time()
                     did_work = True
                 if done % log.step_save_ckpt == 0:
@@ -469,6 +497,9 @@ class Trainer:
                 self.global_step = done
                 if hook is not None:
                     hook(done, enqueue.t0 * 1e-9, enqueue.t1 * 1e-9, did_work)
+            if staged is not None:
+                with trace.span("fit.log", staged.step):
+                    self._write_log(staged)
             if self._profiler is not None:  # --profile N past the end of the run
                 self._stop_profile()
             self.flush_io()
@@ -505,24 +536,45 @@ class Trainer:
         self._profiler = None
         print(f"profiler trace written to {path}")
 
-    def _log_scalars(self, step, report, dt):
-        vals = {f"Train/Loss/{k}": float(v) for k, v in report._asdict().items()}
-        trace.count("fit.host_syncs", len(report))
-        vals["Train/steps_per_s"] = self.cfg.logging.step_log_tfb / max(dt, 1e-9)
-        t = self.cfg.train
-        vals["Train/w_residual"] = t.w_res1 if step <= t.residual_switch else t.w_res2
-        vals["Train/w_intensity"] = t.w_i1 if step <= t.intensity_switch else t.w_i2
-        vals["Train/w_c_eff"] = self.w_c if self.cluster_manager is not None else 0.0
-        vals["Train/b_f"] = self.b_f
-        self._print_launches(step)  # before the row a watcher of scalars.csv waits for
-        self.logger.scalars(step, vals)
+    def _stage_log(self, step, report, dt) -> _StagedLog:
+        """A log's device work at ``step``: the report's terms and the
+        probe's raw sigma, copied to the host without waiting (the next
+        replay overwrites a graph's outputs, and moves the state the probe
+        renders), and an event after the copies; the launches line is
+        printed now.  ``_write_log`` does the rest."""
+        terms = torch.stack([v.detach().float().reshape(()) for v in report])
+        sigmas = []
         if self._probe_rays is not None and self.logger.writer is not None:
             with torch.no_grad():
                 out = render_rays(self.state.model_coarse, self.state.model_fine, self.mcfg,
                                   self._probe_rays, self.cfg.render, train=False)
-            self.logger.histogram(step, "trans_coarse", _host(out.coarse.sigma, -1))
-            if out.fine is not None:
-                self.logger.histogram(step, "trans_fine", _host(out.fine.sigma, -1))
+            sigmas = [out.coarse.sigma] + ([out.fine.sigma] if out.fine is not None else [])
+        terms, sigmas = _to_host_async(terms), [_to_host_async(x) for x in sigmas]
+        done = None
+        if report.total.is_cuda:
+            done = torch.cuda.Event()
+            done.record()
+        t = self.cfg.train
+        scalars = {
+            "Train/steps_per_s": self.cfg.logging.step_log_tfb / max(dt, 1e-9),
+            "Train/w_residual": t.w_res1 if step <= t.residual_switch else t.w_res2,
+            "Train/w_intensity": t.w_i1 if step <= t.intensity_switch else t.w_i2,
+            "Train/w_c_eff": self.w_c if self.cluster_manager is not None else 0.0,
+            "Train/b_f": self.b_f,
+        }
+        self._print_launches(step)  # before the row a watcher of scalars.csv waits for
+        return _StagedLog(step, report._fields, terms, scalars, sigmas, done)
+
+    def _write_log(self, staged: _StagedLog):
+        """A staged log's host work: one wait for its copies, then the
+        scalars and the histograms."""
+        if staged.done is not None:
+            staged.done.synchronize()
+        trace.count("fit.host_syncs")
+        vals = {f"Train/Loss/{k}": v for k, v in zip(staged.names, staged.terms.tolist())}
+        self.logger.scalars(staged.step, {**vals, **staged.scalars})
+        for name, sigma in zip(("trans_coarse", "trans_fine"), staged.sigmas):
+            self.logger.histogram(staged.step, name, sigma.numpy().reshape(-1))
 
     # ------------------------------------------------------ image panels
 

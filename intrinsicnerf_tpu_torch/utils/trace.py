@@ -77,6 +77,7 @@ class Stamps:
         self.blocks: List[torch.Tensor] = []
         self.n = 0
         self.spans: List[tuple] = []
+        self.open: List = []  # ids of the captured spans open now, innermost last
 
     def stamp(self) -> int:
         """Stamp the next slot on the current stream; returns the slot."""
@@ -232,9 +233,11 @@ class _Captured:
 
     def __enter__(self):
         self.slot = self.stamps.stamp()
+        self.stamps.open.append(self.id)
         return None
 
     def __exit__(self, *exc):
+        self.stamps.open.pop()
         self.stamps.spans.append((self.name, self.id, self.slot, self.stamps.stamp()))
         return False
 
@@ -260,12 +263,16 @@ def device_span(name: str, id=None):
     """:func:`span` with the device time of the work it encloses: a clock
     stamp at each bound on the current stream, when on.  Inside a
     captured training block (see :func:`capturing`) it stamps into the
-    block's slots whether on or off, and keeps no host interval."""
-    if RECORDER.capture is not None:
-        return _Captured(name, id, RECORDER.capture)
+    block's slots whether on or off, and keeps no host interval.  Given
+    no ``id``, it takes the id of the span it nests in."""
+    capture = RECORDER.capture
+    if capture is not None:
+        return _Captured(name, capture.open[-1] if id is None and capture.open else id, capture)
     profiling = torch._C._autograd._profiler_enabled()
     if not (profiling or RECORDER.depth > 0):
         return _OFF
+    if id is None and RECORDER.stack:
+        id = RECORDER.stack[-1].id
     device = torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing()
     return _Timed(name, id, profiling, RECORDER.stamps if device else None)
 

@@ -35,7 +35,10 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   bounds (``tests/test_train_step.py``: the total within rtol 1e-6, every
   parameter within atol 1e-6 + rtol 1e-5); the generator's state equal;
 - the packed training state against the unpacked one, from one generator,
-  over graphed steps: bitwise.
+  over graphed steps: bitwise;
+- 8 forward-facing object steps in NDC as one replay against the same 8
+  eager steps: bitwise, with 14 clock stamps a captured step (10 on
+  Replica's path).
 """
 
 import copy
@@ -495,6 +498,76 @@ def test_graphed_object_steps_cross_the_precrop_boundary(object_model):
     assert int(state.step_t) == state.step == start + GRAPH_K
     assert _agree(graphed, first, exact)
     assert not _agree(graphed, _run(state, snap, gen, eager(endless)), False)
+
+
+NDC_K = 8
+
+
+def test_graphed_ndc_object_steps_equal_eager_steps(object_model, graph_setup):
+    """8 forward-facing object steps in NDC (fern's field of view, the pose
+    sampler given the NDC focal, no precrop, 64 + 64 samples, sigma noise
+    1, 1,024 pairs) as one replay equal the same 8 eager steps bitwise.
+    The capture holds 14 clock stamps a step (the five phases' and the
+    sampler's ``sample.rays`` and ``sample.ndc``), Replica's 10; a
+    replay made with spans on gives the sampler's spans the steps' ids."""
+    import types
+
+    from intrinsicnerf_tpu_torch.core.rays import camera_ray_dirs
+    from intrinsicnerf_tpu_torch.train.step import PosePools
+    from intrinsicnerf_tpu_torch.train.trainer import SceneBundle, make_object_sample_fn
+    from intrinsicnerf_tpu_torch.utils import trace
+
+    def stamp_nodes():
+        return trace.snapshot()["counters"].get("graph.stamp_nodes", 0)
+
+    cfg, _ = object_model
+    h, w = 48, 64
+    focal = 0.5 * w / 0.6183  # fern's: 407.5658 px at 504
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    poses = torch.eye(4, device="cuda").repeat(3, 1, 1)
+    poses[:, :3, 3] = torch.tensor([[0.1, 0.0, 0.02], [-0.2, 0.1, 0.0], [0.0, -0.1, -0.03]],
+                                   device="cuda")
+    pools = PosePools(dirs_cam=camera_ray_dirs(h, w, focal, focal, w * 0.5, h * 0.5, "opengl",
+                                               device="cuda").reshape(-1, 3),
+                      poses=poses, rgb=torch.rand(3, h * w, 3, device="cuda", generator=gen),
+                      mask=torch.ones(3, h * w, device="cuda"))
+    bundle = SceneBundle(pools=pools, rays_vis=None, rays_test=None, h=h, w=w, h_scaled=h,
+                         w_scaled=w, num_valid_classes=0)
+    tcfg = TrainConfig(n_rays=1024, mask_mode="mask", no_semantic_tree=True)
+    ocfg = types.SimpleNamespace(depth_range=(0.0, 1.0), train=tcfg, precrop_iters=0,
+                                 precrop_frac=0.5)
+    rcfg = RenderConfig(n_coarse=64, n_importance=64, perturb=1.0, raw_noise_std=1.0)
+    step = make_train_step(cfg, rcfg, tcfg, h, w,
+                           sample_fn=make_object_sample_fn(ocfg, bundle, ndc_focal=focal))
+    state = create_train_state(cfg, tcfg, device="cuda")
+    table = empty_cluster_table(1, 64, device="cuda")
+    w_c = torch.tensor(0.1, device="cuda")
+    step(state, pools, table, w_c, gen)  # Adam's state made
+    snap = snapshot_state(state, gen)
+
+    def eager():
+        for _ in range(NDC_K):
+            rep = step(state, pools, table, w_c, gen)
+        return rep
+
+    first, second = _run(state, snap, gen, eager), _run(state, snap, gen, eager)
+    assert _agree(first, second, True)
+    multi = make_multi_step(step, NDC_K)
+    before = stamp_nodes()
+    graphed = _run(state, snap, gen, lambda: multi(state, pools, table, w_c, gen))
+    assert stamp_nodes() - before == 14 * NDC_K
+    assert _agree(graphed, first, True) and all(torch.isfinite(v) for v in graphed[0])
+    restore_state(state, snap, gen)
+    with trace.recording():
+        multi(state, pools, table, w_c, gen)
+    spans = trace.snapshot()["spans"]
+    steps = list(range(snap["step"], snap["step"] + NDC_K))
+    for name in ("sample.rays", "sample.ndc"):
+        assert [i for i, _, _ in spans[name]["intervals_s"][-NDC_K:]] == steps, name
+    r_step, r_state, r_pools, r_table, r_w_c, r_gen, _ = graph_setup
+    before = stamp_nodes()
+    make_multi_step(r_step, NDC_K)(r_state, r_pools, r_table, r_w_c, r_gen)
+    assert stamp_nodes() - before == 10 * NDC_K
 
 
 

@@ -289,6 +289,46 @@ def test_trainer_fit_falls_back_when_k_divides_no_cadence(tmp_path, capsys):
     assert [c[0] for c in calls] == list(range(1, 9)) and logged == [4, 8]
 
 
+def test_trainer_fit_logs_each_step_from_its_own_report(tmp_path):
+    """A log's row is written after the next step is enqueued; it holds
+    the terms of its own step although the step function returns the same
+    buffers every call, as a graph replay does."""
+    rng = np.random.default_rng(2)
+    rays, rgb, sem, _ = _scene(rng)
+    pools = _port_pools(rays, rgb, sem)
+    bundle = SceneBundle(pools=pools, rays_vis=pools.rays[:1], rays_test=pools.rays[:1],
+                         h=H, w=W, h_scaled=H, w_scaled=W, num_valid_classes=4)
+    cfg = tconfig.FrameworkConfig(
+        experiment=tconfig.ExperimentConfig(save_dir=str(tmp_path / "log")),
+        mlp=tm.MLPConfig(**MLP_KW),
+        render=tp.RenderConfig(n_coarse=NC, n_importance=NI, perturb=1.0, raw_noise_std=1.0),
+        train=tstep.TrainConfig(n_rays=PAIRS, n_iters=6, steps_per_call=1),
+        logging=tconfig.LoggingConfig(step_log_tfb=2, step_save_ckpt=10**9,
+                                      step_vis_train=10**9, step_val=10**9))
+    trainer = Trainer(cfg, bundle, seed=0, device="cpu")
+    step, held, seen = trainer.step_fn, None, {}
+
+    def fixed_buffers(*args):
+        nonlocal held
+        rep = step(*args)
+        if held is None:
+            held = type(rep)(*(v.detach().clone() for v in rep))
+        for buf, v in zip(held, rep):
+            buf.copy_(v)
+        seen[int(args[0].step)] = float(rep.total)
+        return held
+
+    trainer.step_fn = fixed_buffers
+    trainer.fit(n_iters=6, progress=False)
+    trainer.close()
+    with open(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv")) as f:
+        logged = {int(row[0]): float(row[2]) for row in csv.reader(f)
+                  if row[1] == "Train/Loss/total"}
+    assert sorted(logged) == [2, 4, 6]
+    assert logged == {s: seen[s] for s in logged}
+    assert len(set(seen.values())) == 6
+
+
 def test_checkpoint_keeps_a_number_lr_and_restores_the_counter(tmp_path):
     """The graphed step leaves a device tensor as Adam's LR; the checkpoint
     keeps a number (the ``.ckpt`` layout), and a restore sets the device

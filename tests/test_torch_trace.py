@@ -15,7 +15,9 @@ without the recorder.
 On the card (``-m cuda``; the file imports no JAX, so it runs with
 ``--noconftest``): a graphed block's five phase times, and an eager
 step's, are positive and sum to within 5% of events around the replay or
-the step, and ``graph.captures`` counts captures, not replays.
+the step, and ``graph.captures`` counts captures, not replays; a graphed
+block's log, written after the next replay is enqueued, holds its own
+block's terms and waits once.
 """
 
 import importlib.util
@@ -281,10 +283,11 @@ def test_last_rebuild_takes_its_seconds_from_the_rebuild_spans(tmp_path):
 
 
 def test_fit_counts_its_host_syncs_at_the_log(tmp_path):
-    trainer = _trainer(tmp_path, cadence=2, n_iters=2)
-    trainer.fit(n_iters=2, progress=False)
+    """One wait a log: for the copies its step staged (``_stage_log``)."""
+    trainer = _trainer(tmp_path, cadence=2, n_iters=4)
+    trainer.fit(n_iters=4, progress=False)
     trainer.close()
-    assert trace.snapshot()["counters"]["fit.host_syncs"] == len(tstep.LossReport._fields)
+    assert trace.snapshot()["counters"]["fit.host_syncs"] == 2
 
 
 # ---- the benchmark's readers ------------------------------------------
@@ -422,3 +425,50 @@ def test_eager_step_stamps_its_phases(card):
     starts = [spans[p]["intervals_s"][0][1] for p in PHASES]
     assert starts == sorted(starts)
     assert abs(sum(times) - whole) <= 0.05 * whole, (times, whole)
+
+
+class _Recorded:
+    """A trainer's multi-step that records each block's total (a sync of
+    the test's own) and passes the rest through."""
+
+    def __init__(self, multi, seen):
+        self.multi, self.seen, self.k = multi, seen, multi.k
+
+    def __getattr__(self, name):
+        return getattr(self.multi, name)
+
+    def __call__(self, state, *args):
+        report = self.multi(state, *args)
+        self.seen[state.step] = float(report.total)
+        return report
+
+
+@pytest.mark.cuda
+def test_a_staged_log_reads_its_own_block_on_the_card(card, tmp_path):
+    """``fit`` writes a block's log once the next replay is enqueued: its
+    row holds that block's terms, though the replay rewrites the graph's
+    outputs, and the log waits once."""
+    k, n = 4, 12
+    cfg = tconfig.FrameworkConfig(
+        experiment=tconfig.ExperimentConfig(save_dir=str(tmp_path / "run")),
+        mlp=tm.MLPConfig(**MLP_KW),
+        render=tp.RenderConfig(n_coarse=NC, n_importance=NI, perturb=1.0, raw_noise_std=1.0),
+        train=tstep.TrainConfig(n_rays=PAIRS, n_iters=n, steps_per_call=k), chunk=40,
+        logging=tconfig.LoggingConfig(step_log_tfb=k, step_save_ckpt=10**9,
+                                      step_vis_train=10**9, step_val=10**9))
+    b = _bundle()
+    bundle = SceneBundle(
+        pools=tstep.DataPools(*(None if t is None else t.cuda() for t in b.pools)),
+        rays_vis=b.rays_vis.cuda(), rays_test=b.rays_test.cuda(), h=H, w=W, h_scaled=H,
+        w_scaled=W, num_valid_classes=4)
+    trainer = Trainer(cfg, bundle, seed=0, device="cuda")
+    seen = {}
+    trainer.multi_step = _Recorded(tstep.make_multi_step(trainer.step_fn, k), seen)
+    trainer.fit(n_iters=n, progress=False)
+    trainer.close()
+    with open(os.path.join(cfg.experiment.save_dir, "tfb_logs", "scalars.csv")) as f:
+        logged = {int(r[0]): float(r[2]) for r in (line.rstrip("\n").split(",") for line in f)
+                  if r[1] == "Train/Loss/total"}
+    assert sorted(logged) == [4, 8, 12] and len(set(seen.values())) == 3
+    assert logged == seen
+    assert trace.snapshot()["counters"]["fit.host_syncs"] == 3

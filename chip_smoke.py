@@ -13,10 +13,11 @@ paths of the Replica scene configuration
 heads, C = 27 semantic classes, 64 + 128 samples) from seeded random
 weights:
 
-- kernel 1 (the fused-MLP forward) and its weight image against their
-  plain versions from one point to the view's fine chunk, bitwise across
-  two launches, then kernel 1 rebuilt with one part cut out at a time
-  (``tools/fwd_ablate.py``) and timed;
+- kernel 1 (the fused-MLP forward): its build without a spill and with
+  its register split honoured, then it and its weight image against
+  their plain versions from one point to the view's fine chunk, bitwise
+  across two launches, then kernel 1 rebuilt with one part cut out at a
+  time (``tools/fwd_ablate.py``) and timed;
 - serving: one full 320x240 view through ``render_views`` (32,768-ray
   chunks, the last one short), which must go through kernel 1 and agree
   with the plain version on a subset of its rays;
@@ -47,7 +48,8 @@ weights:
   step, the parameters, the Adam state and the palette exactly and
   train on; once one step per call, once ``steps_per_call`` 10 (blocks
   of 10 steps as graph replays, the cadences landing as before, and a
-  replay after the last rebuild reading the new table); the editing
+  replay after the last rebuild reading the new table; the share of
+  kernel 1's tiles whose PE ran ahead, ``fwd.tiles_ahead / fwd.tiles``); the editing
   session (``tools/editing.py``) on the second run's last rebuild, its
   cluster search on the card equal to the host's;
 - the bench (``tools/bench.py``) at 1 and 8 steps per call;
@@ -966,6 +968,7 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
     from intrinsicnerf_tpu_torch.train.prepare import prepare_replica_bundle
     from intrinsicnerf_tpu_torch.train.step import snapshot_state
     from intrinsicnerf_tpu_torch.train.trainer import Trainer
+    from intrinsicnerf_tpu_torch.utils import trace
 
     phase = "scene" if spc == 1 else f"scene_k{spc}"
     counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
@@ -1016,12 +1019,19 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
     trainer = Trainer(cfg, bundle, seed=0, device=dev)
     trainer.step_hook = hook
     zero_counts()
+    tiles0 = trace.snapshot()["counters"]
     t0 = time.perf_counter()
     m0 = trainer.evaluate(0)
     eval_s = time.perf_counter() - t0
     report_last = trainer.fit(progress=False)
     torch.cuda.synchronize()
     eager, captured, per_replay, replays, total = counts(trainer)
+    # kernel 1's tiles in the run (eager launches and replays), and the
+    # share whose PE its persistent blocks encoded while running the tile before
+    tiles = {k: trace.snapshot()["counters"].get(k, 0) - tiles0.get(k, 0)
+             for k in ("fwd.tiles", "fwd.tiles_ahead")}
+    say(f"{phase}_fwd_tiles", **{k.replace(".", "_"): v for k, v in tiles.items()},
+        ahead_share=f"{tiles['fwd.tiles_ahead'] / max(tiles['fwd.tiles'], 1):.4f}")
 
     # after the last rebuild, a replay reads the table copied in: one block
     # as a replay against the same steps run eagerly, on the new table and
@@ -3172,6 +3182,15 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         say("build", kernel=name, seconds=f"{secs:.1f}", ptxas=json.dumps(" | ".join(info)))
     say("build", total_seconds=f"{time.perf_counter() - t0:.1f}")
+    # kernel 1: no spill in any role, and its register split (setmaxnreg) honoured
+    fwd_log = builds[0][2]
+    fwd_spills = {k: u["spill_stores"] + u["spill_loads"]
+                  for k, u in build.ptxas_usage(fwd_log).items()}
+    reg_warnings = [ln.strip() for ln in fwd_log.splitlines()
+                    if "setmaxnreg" in ln and "warning" in ln.lower()]
+    say("fwd_build", spill_bytes=json.dumps(fwd_spills), setmaxnreg_warnings=len(reg_warnings))
+    if not fwd_spills or any(fwd_spills.values()) or reg_warnings:
+        raise AssertionError(f"kernel 1's build: spills {fwd_spills}, {reg_warnings}")
 
     # the configuration, as a user loads it
     fc = from_yaml(CONFIG)

@@ -17,14 +17,18 @@
 // byte of device memory, far above the card's ~295 FLOP/B balance point.
 // The padded packed layout (PE rows 63 -> 128, head outputs -> 128
 // columns) makes the kernel do 835,584 multiply-adds per point, 20% more.
-// On chip, two things stand between a tile and that bound: the weights
-// (all 1.67 MB of bf16 pass from L2 into shared memory once per 64-point
-// tile, about 64 FLOP of products per byte) and the tile's serial chain
-// (each layer's products need the whole previous layer, so products,
-// epilogues and barriers alternate).  The producer warp below takes the
-// weight stream off the consumers' path; on an H100 the stream costs the
-// kernel under 5% of its time (tools/fwd_ablate.py, PERF.md), and the
-// chain of epilogues and barriers holds the rest above the bound.
+// On chip, three things stand between a tile and that bound: the tile's
+// serial chain (each layer's products need the whole previous layer, so
+// products, epilogues and barriers alternate), the positional encoding
+// (8 dependent fp32 multiply-adds and an accurate sine for each of a
+// tile's 8,192 features, no tensor core: a third of the kernel when the
+// consumers computed it before their chain, tools/fwd_ablate.py, PERF.md)
+// and the weights (all 1.67 MB of bf16 pass from L2 into shared memory
+// once per 64-point tile, about 64 FLOP of products per byte).  The
+// design takes the encoding and the weight stream off the chain's path,
+// so the chain of epilogues and barriers is what holds the kernel above
+// its bound, and with the encoding hidden the L2 weight stream is the
+// next wall.
 //
 // Design.
 //  0. `fwd_wimg_kernel`: the weight image, every K-slab of the 20 weight
@@ -32,30 +36,48 @@
 //     them, 66 slabs, each laid out byte for byte as it sits in a stage of
 //     the ring below: N/64 atoms of 64 k-rows by 64 columns, 128-byte
 //     swizzled (hopper_mma.cuh).  Built once per set of weights.
-//  1. `fused_mlp_fwd_kernel`: one block per 64-point tile, one block per SM
-//     (193 KB of shared memory): two consumer warpgroups and a producer
-//     warp.  One thread of the producer moves the image slab by slab into a
-//     3-stage ring of 32 KB with one bulk copy each (the copy engine; an
-//     mbarrier per stage for full and one for empty), running ahead of the
-//     consumers across layer boundaries and epilogues.  The consumers keep
-//     the tile's activations in shared memory as K-major operands of
-//     64-column atoms (the PE features, two trunk buffers, a head buffer);
-//     every product is wgmma m64nNk16 with both operands in shared memory,
-//     the two warpgroups splitting the output columns (N = 128 each for a
-//     256-wide layer, 64 for a 128-wide one), one slab's products left in
-//     flight while the next is issued.  Epilogues work on the accumulator
-//     registers: the bias (loaded before the product), ReLU, and bf16 pairs
-//     straight into the next product's operand.  The packed output is
-//     accumulated in registers while the heads are computed (H@w_sig, then
-//     f, v and v@w_r, a1 and a1@w_a2, s1 and s1@w_s2, m1 and m1@w_m2), then
-//     gets the summed output bias, is rounded to bf16, staged in the freed
-//     feature buffer and stored 16 bytes at a time, rows past P masked.
-// No atomics: two launches on the same inputs give bitwise-equal outputs.
-// A lost mbarrier arrival or byte count traps (hopper_mma.cuh:mbar_wait),
-// so a pipeline fault fails the launch instead of hanging the card.
-// The PE angles are separately rounded fp32 multiplies and adds (no tensor
-// core), so they match the plain PyTorch version bit for bit; sinf is the
-// accurate libdevice sine (build without --use_fast_math).
+//  1. `fused_mlp_fwd_kernel`: persistent, one block per SM (218 KB of
+//     shared memory), min(tiles, SMs) blocks; block b walks the 64-point
+//     tiles b, b + grid, b + 2 grid, ... in order.  Three warpgroups:
+//     - two consumer warpgroups run each tile's chain.  They keep the
+//       tile's activations in shared memory as K-major operands of
+//       64-column atoms (the PE features, two trunk buffers, a head
+//       buffer); every product is wgmma m64nNk16 with both operands in
+//       shared memory, the two warpgroups splitting the output columns
+//       (N = 128 each for a 256-wide layer, 64 for a 128-wide one), one
+//       slab's products left in flight while the next is issued.
+//       Epilogues work on the accumulator registers: the bias (loaded
+//       before the product), ReLU, and bf16 pairs straight into the next
+//       product's operand.  The packed output is accumulated in registers
+//       while the heads are computed (H@w_sig, then f, v and v@w_r, a1 and
+//       a1@w_a2, s1 and s1@w_s2, m1 and m1@w_m2), then gets the summed
+//       output bias, is rounded to bf16, staged in the tile's feature
+//       buffer and stored 16 bytes at a time, rows past P masked;
+//     - in the third, one thread of its first warp (the producer) moves
+//       the image slab by slab, once per tile, into a 3-stage ring of
+//       32 KB with one bulk copy each (the copy engine; an mbarrier per
+//       stage for full and one for empty), running ahead of the consumers
+//       across layers, epilogues and tiles;
+//     - its other three warps (the PE warps) stage F and the sine mask in
+//       shared memory once, then for each tile its in8 rows (16-byte
+//       loads, into one of two slots) and its features into one of two
+//       feature buffers: tile j's buffer j % 2 as soon as the consumers
+//       release tile j - 2's, so they encode tile j + 1 while the
+//       consumers run tile j.  A buffer has a full mbarrier (each PE
+//       thread arrives after a proxy fence: wgmma reads through the async
+//       proxy) and an empty one (each consumer warp arrives after the
+//       tile's last read of it, the output staging).  A block with one
+//       tile pays its encoding up front.
+//     setmaxnreg gives the consumers the registers the third warpgroup
+//     does not need.
+// No atomics, and each tile's output depends on its own rows alone: two
+// launches on the same inputs, or on any 64-aligned slice of them, give
+// bitwise-equal rows.  A lost mbarrier arrival or byte count traps
+// (hopper_mma.cuh:mbar_wait), so a pipeline fault fails the launch
+// instead of hanging the card.
+// The PE angles are separately rounded fp32 multiplies and adds in the
+// plain version's order (no tensor core), so they match it bit for bit;
+// sinf is the accurate libdevice sine (build without --use_fast_math).
 
 #include <climits>
 
@@ -66,23 +88,37 @@ namespace {
 
 using namespace fmlp;
 
-// Shared memory of one 64-point tile (byte offsets from a 1 KB boundary).
+// Shared memory of one block (byte offsets from a 1 KB boundary).
 // Every activation buffer is K-major for the next product: 64-column atoms
 // of 64 rows (hopper_mma.cuh), 8 KB each.
-//  feat [0, 16K)  bufA [16K, 48K)  bufB [48K, 80K)  head [80K, 96K)
+//  feat: two buffers [0, 32K) of a tile's PE features, 16 KB each
+//  bufA [32K, 64K)  bufB [64K, 96K)  head [96K, 112K)
 //  weight ring: STAGES x 32 KB, one K-slab of 64 of a weight block each
-//  the ring's barriers: full and empty, one each per stage
-// The output tile is staged in feat once v has read it.
+//  the PE's inputs (fp32): F [8, 128] and the sine mask [128], then two
+//    slots of a tile's in8 rows [64, 8]
+//  barriers: the ring's full and empty, one each per stage, then the feat
+//    buffers' full and empty, one each per buffer
+// A tile's output is staged in its own feat buffer once v has read it.
 constexpr int ATOM = 64 * 128;  // one 64-row atom
-constexpr int OV_FEAT = 0, OV_BUFA = 16384, OV_BUFB = 49152, OV_HEAD = 81920;
-constexpr int SM_RING = 98304;
+constexpr int FEAT_BYTES = 2 * ATOM;  // a tile's 128 features
+constexpr int OV_FEAT = 0, OV_BUFA = 32768, OV_BUFB = 65536, OV_HEAD = 98304;
+constexpr int SM_RING = 114688;
 constexpr int STAGES = 3;
 constexpr int STAGE_BYTES = 32768;
-constexpr int SM_BARS = SM_RING + STAGES * STAGE_BYTES;
-constexpr int FWD_SMEM = SM_BARS + 2 * STAGES * 8 + 1024;  // + slack to align to 1 KB
+constexpr int SM_PE = SM_RING + STAGES * STAGE_BYTES;
+constexpr int IN_SLOT = TILE_M * IN8_W * 4;  // a tile's in8 rows
+constexpr int SM_IN = SM_PE + (IN8_W + 1) * IN_W * 4;
+constexpr int SM_BARS = SM_IN + 2 * IN_SLOT;
+constexpr int FWD_SMEM = SM_BARS + (2 * STAGES + 4) * 8 + 1024;  // + slack to align to 1 KB
 static_assert(FWD_SMEM <= 232448, "the forward exceeds a block's shared memory");
+static_assert(OV_FEAT + 2 * FEAT_BYTES == OV_BUFA && SM_RING % 1024 == 0, "the atoms' layout");
 static_assert(NTHREADS == 256, "two consumer warpgroups");
-constexpr int FWD_THREADS = NTHREADS + 32;  // + the producer warp
+// + the third warpgroup: the producer warp, then the PE warps
+constexpr int FWD_THREADS = NTHREADS + 128;
+constexpr int PE_THREADS = 96;
+// registers a thread after setmaxnreg: 128 x 88 + 256 x 208 = 384 x 168,
+// the block's share of the SM's 65,536 at launch
+constexpr int PE_REGS = 88, CONSUMER_REGS = 208;
 
 // The products' weight blocks W [in, out] in the order the consumers take
 // them, each streamed as in/64 K-slabs of 64 rows (MN-major: out/64 atoms).
@@ -140,22 +176,26 @@ fwd_wimg_kernel(const bf16* __restrict__ w, bf16* __restrict__ img) {
   }
 }
 
-// The producer: one thread of the extra warp moves the weight image into
-// the ring, slab by slab, STAGES ahead of the consumers at most; a stage's
-// `full` barrier completes when its bytes have landed, its `empty` barrier
-// when the eight consumer warps are done with it.
+// The producer: one thread of the third warpgroup moves the weight image
+// into the ring, slab by slab, once for each of the block's tiles, STAGES
+// ahead of the consumers at most; a stage's `full` barrier completes when
+// its bytes have landed, its `empty` barrier when the eight consumer warps
+// are done with it.  The ring's count runs on across tiles, so the next
+// tile's first slabs land while this tile's output is stored.
 __device__ __forceinline__ void produce(uint32_t ring, uint32_t full, uint32_t empty,
-                                        const bf16* __restrict__ img) {
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(img);
+                                        const bf16* __restrict__ img, int tiles) {
   int i = 0;
-  for (int seg = 0; seg < N_SEGS; ++seg) {
-    const uint32_t bytes = 128 * c_segs[seg].N;  // 64 x N bf16
-    for (int k = 0; k < c_segs[seg].K / 64; ++k, ++i) {
-      const int st = i % STAGES;
-      if (i >= STAGES) hmma::mbar_wait(empty + st * 8, ((i / STAGES) - 1) & 1);
-      hmma::mbar_expect_tx(full + st * 8, bytes);
-      hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
-      src += bytes;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(img);
+    for (int seg = 0; seg < N_SEGS; ++seg) {
+      const uint32_t bytes = 128 * c_segs[seg].N;  // 64 x N bf16
+      for (int k = 0; k < c_segs[seg].K / 64; ++k, ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) hmma::mbar_wait(empty + st * 8, ((i / STAGES) - 1) & 1);
+        hmma::mbar_expect_tx(full + st * 8, bytes);
+        hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
+        src += bytes;
+      }
     }
   }
 }
@@ -166,7 +206,7 @@ struct Ring {
   int it;
 };
 
-// the barrier of the 256 consumer threads (the producer warp stays out)
+// the barrier of the 256 consumer threads (the third warpgroup stays out)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
@@ -174,6 +214,11 @@ __device__ __forceinline__ void consumer_sync() {
 // the barrier of this thread's warpgroup
 __device__ __forceinline__ void wg_sync() {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+}
+
+// the barrier of the PE warps
+__device__ __forceinline__ void pe_sync() {
+  asm volatile("bar.sync 4, %0;\n" ::"n"(PE_THREADS) : "memory");
 }
 
 // acc[64 x NW] (this warpgroup's columns) += A[64, 64 * kslabs] @ the next
@@ -286,25 +331,56 @@ __device__ __forceinline__ void store_out(const float (&acc)[32], const float (&
   }
 }
 
-// PE features of the tile into the K-major buffer `feat` (two atoms): z =
-// in8 @ F as separately rounded fp32 products and sums (k = 0..7, as the
-// plain version adds them), then feat = m ? sin(z) : z; rows past n are 0.
-__device__ __forceinline__ void compute_feat(unsigned char* feat, const float* __restrict__ in8,
-                                             const float* __restrict__ pe_mat,
-                                             const float* __restrict__ sin_mask,
-                                             long long row0, long long n) {
-  for (int e = threadIdx.x; e < TILE_M * IN_W; e += NTHREADS) {
+// PE features of a tile into the K-major buffer `feat` (two atoms), by
+// the PE warps from the tile's in8 rows `x` and F and the mask `pe` in
+// shared memory: z = in8 @ F as separately rounded fp32 products and sums
+// (k = 0..7, as the plain version adds them), then feat = m ? sin(z) : z;
+// rows past n are 0.
+__device__ __forceinline__ void compute_feat(unsigned char* feat, const float* x_s,
+                                             const float* pe, long long row0, long long n) {
+  for (int e = threadIdx.x - (NTHREADS + 32); e < TILE_M * IN_W; e += PE_THREADS) {
     const int i = e / IN_W, c = e % IN_W;
-    const long long p = row0 + i;
     float f = 0.0f;
-    if (p < n) {
-      const float* x = in8 + p * IN8_W;
-      float z = __fmul_rn(x[0], pe_mat[c]);
+    if (row0 + i < n) {
+      const float* x = x_s + i * IN8_W;
+      float z = __fmul_rn(x[0], pe[c]);
 #pragma unroll
-      for (int k = 1; k < IN8_W; ++k) z = __fadd_rn(z, __fmul_rn(x[k], pe_mat[k * IN_W + c]));
-      f = sin_mask[c] != 0.0f ? sinf(z) : z;
+      for (int k = 1; k < IN8_W; ++k) z = __fadd_rn(z, __fmul_rn(x[k], pe[k * IN_W + c]));
+      f = pe[IN8_W * IN_W + c] != 0.0f ? sinf(z) : z;
     }
     *reinterpret_cast<bf16*>(feat + kmaj(i, c)) = __float2bfloat16(f);
+  }
+}
+
+// The PE warps: F and the sine mask staged once; then for the block's j-th
+// tile its in8 rows staged in slot j % 2 (16-byte loads, rows past n
+// zero) and its features computed into feat buffer j % 2 once the
+// consumers have released that buffer's last tile, j - 2: the encoding of
+// tile j runs while the consumers run tile j - 1.
+__device__ __forceinline__ void encode(unsigned char* sm, uint32_t feat_full,
+                                       uint32_t feat_empty, const float* __restrict__ in8,
+                                       const float* __restrict__ pe_mat,
+                                       const float* __restrict__ sin_mask, long long n,
+                                       int tiles) {
+  const int pt = threadIdx.x - (NTHREADS + 32);
+  float* pe = reinterpret_cast<float*>(sm + SM_PE);
+  for (int e = pt; e < IN8_W * IN_W; e += PE_THREADS) pe[e] = pe_mat[e];
+  for (int e = pt; e < IN_W; e += PE_THREADS) pe[IN8_W * IN_W + e] = sin_mask[e];
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int buf = j & 1;
+    const long long row0 = (long long)t * TILE_M;
+    float4* x_s = reinterpret_cast<float4*>(sm + SM_IN + buf * IN_SLOT);
+    const float4* x_g = reinterpret_cast<const float4*>(in8 + row0 * IN8_W);
+    for (int e = pt; e < TILE_M * IN8_W / 4; e += PE_THREADS)  // two 16-byte chunks a row
+      x_s[e] = row0 + e / 2 < n ? __ldg(x_g + e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // the slot (and F) written; every PE thread is past tile j - 2's reads of it
+    pe_sync();
+    if (j >= 2) hmma::mbar_wait(feat_empty + buf * 8, ((j >> 1) - 1) & 1);
+    compute_feat(sm + OV_FEAT + buf * FEAT_BYTES, reinterpret_cast<const float*>(x_s), pe, row0,
+                 n);
+    hmma::fence_proxy_async();  // the features, to wgmma's proxy
+    hmma::mbar_arrive(feat_full + buf * 8);
   }
 }
 
@@ -315,72 +391,107 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   extern __shared__ __align__(128) unsigned char fwd_smem[];
   unsigned char* sm = fwd_smem + ((1024u - (hmma::smem_u32(fwd_smem) & 1023u)) & 1023u);
   const uint32_t sa = hmma::smem_u32(sm);
-  const long long row0 = (long long)blockIdx.x * TILE_M;
+  const int tiles = (int)((n + TILE_M - 1) / TILE_M);
   Ring ring{sa + SM_RING, sa + SM_BARS, sa + SM_BARS + STAGES * 8, 0};
-  if (threadIdx.x == 0)
+  const uint32_t feat_full = sa + SM_BARS + 2 * STAGES * 8, feat_empty = feat_full + 16;
+  if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
       hmma::mbar_init(ring.full + st * 8, 1);   // the producer's expect_tx
       hmma::mbar_init(ring.empty + st * 8, 8);  // the eight consumer warps
     }
+    for (int f = 0; f < 2; ++f) {
+      hmma::mbar_init(feat_full + f * 8, PE_THREADS);  // every PE thread
+      hmma::mbar_init(feat_empty + f * 8, 8);          // the eight consumer warps
+    }
+  }
   hmma::fence_mbar_init();
   __syncthreads();
-  if (threadIdx.x >= NTHREADS) {  // the producer warp
-    if (threadIdx.x == NTHREADS) produce(ring.base, ring.full, ring.empty, img);
-    return;
+  if (threadIdx.x >= NTHREADS) {  // the third warpgroup: the producer, the PE warps
+    hmma::setmaxnreg_dec<PE_REGS>();
+    if (threadIdx.x == NTHREADS)
+      produce(ring.base, ring.full, ring.empty, img, tiles);
+    else if (threadIdx.x >= NTHREADS + 32)
+      encode(sm, feat_full, feat_empty, in8, pe_mat, sin_mask, n, tiles);
+  } else {  // the consumers
+    hmma::setmaxnreg_inc<CONSUMER_REGS>();
+    float acc2[64], bv2[32];  // a 256-wide product: 128 columns per warpgroup
+    float acc1[32], bv1[16];  // a 128-wide product: 64 columns per warpgroup
+    float oacc[32], bvo[16];  // the packed output, 64 columns per warpgroup
+    int j = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+      const int buf = j & 1;
+      const uint32_t feat = sa + OV_FEAT + buf * FEAT_BYTES;
+      hmma::mbar_wait(feat_full + buf * 8, (j >> 1) & 1);  // the tile's features
+
+      // ---- the trunk: 0 feat->A, 1 A->B, 2 B->A, 3 A->B, 4 B->A, 5 (A, feat)->B,
+      // 6 B->A, 7 A->B; H ends in bufB ----
+      uint32_t src = feat;
+      int kslabs = IN_W / 64;
+      for (int l = 0; l < 8; ++l) {
+        const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
+        zero_acc(acc2);
+        load_bias<128>(bv2, b + B_TRUNK + l * W);
+        mma_slabs<128>(acc2, ring, src, kslabs);
+        if (l == 5) mma_slabs<128>(acc2, ring, feat, IN_W / 64);
+        epilogue<128>(acc2, bv2, true, sm + dst);
+        src = sa + dst;
+        kslabs = W / 64;
+      }
+      const uint32_t Hs = sa + OV_BUFB;  // act7
+
+      // ---- the heads, the packed output accumulated beside them ----
+      zero_acc(oacc);
+      mma_slabs<64>(oacc, ring, Hs, 4);  // H@w_sig
+      zero_acc(acc2);  // f = H@w_f + b_f -> bufA (no ReLU)
+      load_bias<128>(bv2, b + B_F);
+      mma_slabs<128>(acc2, ring, Hs, 4);
+      epilogue<128>(acc2, bv2, false, sm + OV_BUFA);
+      zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v) -> head
+      load_bias<64>(bv1, b + B_V);
+      mma_slabs<64>(acc1, ring, sa + OV_BUFA, 4);
+      mma_slabs<64>(acc1, ring, feat, 2);
+      epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
+      mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // v@w_r
+      zero_acc(acc1);  // a1 = relu(H@w_a1 + b_a1) -> bufA's first two atoms
+      load_bias<64>(bv1, b + B_A1);
+      mma_slabs<64>(acc1, ring, Hs, 4);
+      epilogue<64>(acc1, bv1, true, sm + OV_BUFA);
+      mma_slabs<64>(oacc, ring, sa + OV_BUFA, 2);  // a1@w_a2
+      zero_acc(acc1);  // s1 -> bufA's last two atoms
+      load_bias<64>(bv1, b + B_S1);
+      mma_slabs<64>(acc1, ring, Hs, 4);
+      epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM);
+      mma_slabs<64>(oacc, ring, sa + OV_BUFA + 2 * ATOM, 2);  // s1@w_s2
+      zero_acc(acc1);  // m1 -> head (v is read)
+      load_bias<64>(bv1, b + B_M1);
+      mma_slabs<64>(acc1, ring, Hs, 4);
+      epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
+      load_bias<64>(bvo, b + B_OUT);
+      mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // m1@w_m2
+
+      // ---- out = bf16(sum of the five products + the summed output bias),
+      // staged in the tile's feat buffer, which is then released ----
+      store_out(oacc, bvo, sm + OV_FEAT + buf * FEAT_BYTES, out, (long long)t * TILE_M, n);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) hmma::mbar_arrive(feat_empty + buf * 8);
+    }
   }
-  float acc2[64], bv2[32];  // a 256-wide product: 128 columns per warpgroup
-  float acc1[32], bv1[16];  // a 128-wide product: 64 columns per warpgroup
-  float oacc[32], bvo[16];  // the packed output, 64 columns per warpgroup
+}
 
-  // ---- the trunk: 0 feat->A, 1 A->B, 2 B->A, 3 A->B, 4 B->A, 5 (A, feat)->B,
-  // 6 B->A, 7 A->B; H ends in bufB ----
-  compute_feat(sm + OV_FEAT, in8, pe_mat, sin_mask, row0, n);
-  uint32_t src = sa + OV_FEAT;
-  int kslabs = IN_W / 64;
-  for (int l = 0; l < 8; ++l) {
-    const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
-    zero_acc(acc2);
-    load_bias<128>(bv2, b + B_TRUNK + l * W);
-    mma_slabs<128>(acc2, ring, src, kslabs);
-    if (l == 5) mma_slabs<128>(acc2, ring, sa + OV_FEAT, IN_W / 64);
-    epilogue<128>(acc2, bv2, true, sm + dst);
-    src = sa + dst;
-    kslabs = W / 64;
+// The SM count of the current device, read once per device (a host
+// query, so it may run while a stream captures a graph).
+cudaError_t sm_count(int* sms) {
+  static int counts[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
   }
-  const uint32_t Hs = sa + OV_BUFB;  // act7
-
-  // ---- the heads, the packed output accumulated beside them ----
-  zero_acc(oacc);
-  mma_slabs<64>(oacc, ring, Hs, 4);  // H@w_sig
-  zero_acc(acc2);  // f = H@w_f + b_f -> bufA (no ReLU)
-  load_bias<128>(bv2, b + B_F);
-  mma_slabs<128>(acc2, ring, Hs, 4);
-  epilogue<128>(acc2, bv2, false, sm + OV_BUFA);
-  zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v) -> head
-  load_bias<64>(bv1, b + B_V);
-  mma_slabs<64>(acc1, ring, sa + OV_BUFA, 4);
-  mma_slabs<64>(acc1, ring, sa + OV_FEAT, 2);
-  epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
-  mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // v@w_r
-  zero_acc(acc1);  // a1 = relu(H@w_a1 + b_a1) -> bufA's first two atoms
-  load_bias<64>(bv1, b + B_A1);
-  mma_slabs<64>(acc1, ring, Hs, 4);
-  epilogue<64>(acc1, bv1, true, sm + OV_BUFA);
-  mma_slabs<64>(oacc, ring, sa + OV_BUFA, 2);  // a1@w_a2
-  zero_acc(acc1);  // s1 -> bufA's last two atoms
-  load_bias<64>(bv1, b + B_S1);
-  mma_slabs<64>(acc1, ring, Hs, 4);
-  epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM);
-  mma_slabs<64>(oacc, ring, sa + OV_BUFA + 2 * ATOM, 2);  // s1@w_s2
-  zero_acc(acc1);  // m1 -> head (v is read)
-  load_bias<64>(bv1, b + B_M1);
-  mma_slabs<64>(acc1, ring, Hs, 4);
-  epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
-  load_bias<64>(bvo, b + B_OUT);
-  mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // m1@w_m2
-
-  // ---- out = bf16(sum of the five products + the summed output bias) ----
-  store_out(oacc, bvo, sm + OV_FEAT, out, row0, n);
+  *sms = counts[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -394,18 +505,23 @@ extern "C" int fused_mlp_fwd_image(const void* w, void* img, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// in8 [n, 8] f32, pe_mat [8, 128] f32, sin_mask [128] f32, img: the
-// weight image from fused_mlp_fwd_image, b: flat f32 biases, out [n, 128]
-// bf16.  Launches on `stream` and returns the launch's cudaError_t.
+// in8 [n, 8] f32 (16-byte aligned), pe_mat [8, 128] f32, sin_mask [128]
+// f32, img: the weight image from fused_mlp_fwd_image, b: flat f32 biases,
+// out [n, 128] bf16.  Launches min(tiles, SMs) blocks on `stream` and
+// returns the launch's cudaError_t.
 extern "C" int fused_mlp_fwd(const void* in8, const void* pe_mat, const void* sin_mask,
                              const void* img, const void* b, void* out, long long n,
                              void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + TILE_M - 1) / TILE_M;
-  if (n <= 0 || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_mlp_fwd_kernel<<<(unsigned)blocks, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+  const long long tiles = (n + TILE_M - 1) / TILE_M;
+  if (n <= 0 || tiles > INT_MAX / 2) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(in8) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  const long long grid = tiles < sms ? tiles : sms;
+  fused_mlp_fwd_kernel<<<(unsigned)grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
       static_cast<const float*>(in8), static_cast<const float*>(pe_mat),
       static_cast<const float*>(sin_mask), static_cast<const bf16*>(img),
       static_cast<const float*>(b), static_cast<bf16*>(out), n);

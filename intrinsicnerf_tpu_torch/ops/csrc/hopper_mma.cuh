@@ -2,7 +2,8 @@
 // (fused_mlp_fwd.cu, fused_mlp_bwd.cu) and the forward's probe
 // (fwd_probe.cu): mbarriers, bulk copies between global memory and
 // 128-byte-swizzled shared tiles, wgmma shared-memory descriptors, and
-// bf16 wgmma with fp32 accumulators (n64, n128, n256).
+// bf16 wgmma with fp32 accumulators (n64, n128, n256), and register
+// reallocation between warpgroups.
 //
 // Shared tiles.  Every operand tile is a run of "atoms": 64 bf16 columns
 // (128 bytes) by R rows, row r at byte r * 128, its eight 16-byte chunks
@@ -123,6 +124,20 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Register reallocation between the warpgroups of a block (setmaxnreg):
+// every thread of the warpgroup runs it together, N is a multiple of 8 in
+// [24, 256].  A warpgroup that gives registers up lowers its limit (dec),
+// one that takes them waits until they are free (inc).  ptxas honours it
+// only where each warpgroup's role is one branch that never rejoins.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Accumulator layout of m64nNk16 (fp32, N/2 registers per thread): thread

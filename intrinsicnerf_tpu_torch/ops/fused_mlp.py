@@ -60,12 +60,14 @@ run counts them from its replays (``train/step.py:make_multi_step``).  The kerne
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from intrinsicnerf_tpu_torch.core.compositing import RawOutputs
+from intrinsicnerf_tpu_torch.utils import trace
 
 IN_W = 128  # packed PE width: pos-PE at 0, dir-PE at DIR_OFF
 DIR_OFF = 64
@@ -102,6 +104,7 @@ FWD_IMAGE_ORDER = (
     "w_m1", "w_m2",
 )
 FWD_IMAGE_SLABS = 66
+FWD_TILE = 64  # kernel 1's points per tile
 # point chunks of kernel 2's weight-gradient GEMM: about SPLIT_ROWS points
 # each, at most MAX_SPLITS, so that its 51 output tiles x 5 chunks = 255
 # blocks run as one wave at two blocks per SM on the H100's 132 SMs
@@ -594,11 +597,29 @@ def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
             raise ValueError("fused MLP operands must all lie on in8's device")
 
 
+def fwd_schedule(n: int, sms: int) -> Tuple[int, int, int]:
+    """Kernel 1's schedule of ``n`` points on a card of ``sms`` SMs:
+    (blocks, tiles, tiles ahead).  Each of the min(tiles, sms) persistent
+    blocks walks its 64-point tiles in turn, and its PE warps encode every
+    tile after its first while it runs the one before: tiles - blocks."""
+    tiles = -(-n // FWD_TILE)
+    blocks = min(tiles, sms)
+    return blocks, tiles, tiles - blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
     """``[P, 8]`` fp32 -> ``[P, 128]`` bf16 packed raw outputs.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one launch, counted in ``fused_mlp_forward.launches``)."""
+    (one launch, counted in ``fused_mlp_forward.launches``; its tiles and
+    the tiles whose PE ran ahead, ``fwd_schedule``, in the counters
+    ``fwd.tiles`` and ``fwd.tiles_ahead``, which a graphed block's
+    replays count too)."""
     if in8.device.type == "cpu":
         return fused_mlp_forward_plain(ops.packed, ops.pe, in8)
     if in8.device.type != "cuda":
@@ -621,9 +642,12 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
             ops.wimg.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n,
             torch.cuda.current_stream(in8.device).cuda_stream,
         )
+        _, tiles, ahead = fwd_schedule(n, _sm_count(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
     _count_launch(fused_mlp_forward)
+    trace.count("fwd.tiles", tiles)
+    trace.count("fwd.tiles_ahead", ahead)
     return out
 
 

@@ -15,12 +15,12 @@ the kernel in each with CUDA events at the training step's fine shape
 - ``no_output_stores``: the output tile's staging and its stores;
 - ``no_consumer_sync``: the barrier of the two consumer warpgroups before
   each product (it orders every epilogue before the next product's reads);
-- ``stages4``: a ring of four stages instead of three;
-- ``no_pe``: the positional encoding of the tile's points (the features
-  are whatever the buffer holds);
-- ``pe_staged``: the positional encoding fed from shared memory: the
-  tile's in8 rows and the PE matrix staged there by one pass of loads and
-  a barrier first (the output is right).
+- ``no_pe``: the PE warps' arithmetic (they still stage each tile's in8
+  rows and arrive on its feature buffer's full barrier, so the consumers
+  run on whatever the buffer holds and nothing waits forever);
+- ``pe_serial``: the PE warps encode a tile only once the consumers have
+  released the tile before it, so the encoding no longer overlaps the
+  chain: the staged feed alone, the overlap's worth measured apart.
 
 A cut computes garbage; only its time means anything.  The ``base``
 build of each source is also held against the plain version at the fine
@@ -33,7 +33,10 @@ limit:
     python -m intrinsicnerf_tpu_torch.tools.fwd_ablate [--iters 5]
 
 ``--sources a.cu,b.cu`` builds each listed copy of ``fused_mlp_fwd.cu``
-(an experiment beside the committed kernel) in every variant, in turns.
+(an experiment beside the committed kernel, or the parent's with
+``--variants base``) in every variant, in turns; each later source's
+``base`` row also says whether its output equals the first source's,
+bitwise, at each shape (``same_as_first``).
 """
 
 from __future__ import annotations
@@ -54,35 +57,26 @@ _MMA = """      if constexpr (NW == 128)
         hmma::wgmma_m64n128k16<0, 1>(acc, da, db, 1);
       else
         hmma::wgmma_m64n64k16<0, 1>(acc, da, db, 1);"""
-_LOADS = """      hmma::mbar_expect_tx(full + st * 8, bytes);
-      hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);"""
+_LOADS = """        hmma::mbar_expect_tx(full + st * 8, bytes);
+        hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);"""
 _EPI = "  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;\n"
 _STORE = "  unsigned char* A = S + wg * ATOM;\n"
 _SYNC = ("  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy\n"
          "  consumer_sync();\n")
-_FEAT = "  for (int e = threadIdx.x; e < TILE_M * IN_W; e += NTHREADS) {\n"
+_FEAT = "  for (int e = threadIdx.x - (NTHREADS + 32); e < TILE_M * IN_W; e += PE_THREADS) {\n"
+_PE_WAIT = "    if (j >= 2) hmma::mbar_wait(feat_empty + buf * 8, ((j >> 1) - 1) & 1);\n"
 
 PATCHES = {
     "base": [],
     "no_mma": [(_MMA, "      (void)da;\n      (void)db;")],
-    "no_weight_loads": [(_LOADS, "      hmma::mbar_arrive(full + st * 8);")],
+    "no_weight_loads": [(_LOADS, "        hmma::mbar_arrive(full + st * 8);")],
     "no_epilogues": [(_EPI, "  return;\n" + _EPI)],
     "no_output_stores": [(_STORE, "  return;\n" + _STORE)],
     "no_consumer_sync": [(_SYNC, "")],
-    "stages4": [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")],
     "no_pe": [(_FEAT, "  return;\n" + _FEAT)],
-    "pe_staged": [
-        (_FEAT, """  float* s_in = reinterpret_cast<float*>(feat + OV_BUFA);  // [64, 8]
-  float* s_pe = s_in + TILE_M * IN8_W;                      // [8, 128]
-  for (int e = threadIdx.x; e < TILE_M * IN8_W; e += NTHREADS)
-    s_in[e] = row0 + e / IN8_W < n ? in8[row0 * IN8_W + e] : 0.0f;
-  for (int e = threadIdx.x; e < IN8_W * IN_W; e += NTHREADS) s_pe[e] = pe_mat[e];
-  consumer_sync();
-""" + _FEAT),
-        ("      const float* x = in8 + p * IN8_W;\n      float z = __fmul_rn(x[0], pe_mat[c]);",
-         "      const float* x = s_in + i * IN8_W;\n      float z = __fmul_rn(x[0], s_pe[c]);"),
-        ("__fmul_rn(x[k], pe_mat[k * IN_W + c])", "__fmul_rn(x[k], s_pe[k * IN_W + c])"),
-    ],
+    # wait for the release of tile j - 1 (buffer j - 1 & 1) instead of j - 2
+    "pe_serial": [(_PE_WAIT, "    if (j >= 1) hmma::mbar_wait(feat_empty + (buf ^ 1) * 8, "
+                             "((j - 1) >> 1) & 1);\n")],
 }
 SOURCE = os.path.join(build.CSRC, "fused_mlp_fwd.cu")
 # the shapes timed: the step's fine call and the view's fine chunk
@@ -164,15 +158,25 @@ def check_base(lib, ops, in8) -> dict:
 
 def time_variants(built, ops, inputs, iters: int) -> list:
     """[{variant, source, ms: {shape: ms}}] for each built library; the
-    base builds also carry ``check_base`` at the fine step."""
-    rows = []
+    base builds also carry ``check_base`` at the fine step, and those of
+    every source after the first ``same_as_first``: {shape: whether its
+    output equals the first source's base output bitwise}."""
+    rows, first = [], None
     for (v, src), path in built:
         lib = bwd_ablate.load_variant(path, "fused_mlp_fwd")
-        ms = {label: event_ms(forward_call(lib, ops, in8), iters) for label, in8 in inputs.items()}
+        calls = {label: forward_call(lib, ops, in8) for label, in8 in inputs.items()}
+        ms = {label: event_ms(call, iters) for label, call in calls.items()}
         row = {"variant": v, "source": os.path.relpath(src), "ms": ms}
         if v == "base":
             row.update(check_base(lib, ops, inputs["fine_step"]))
+            outs = {label: call.out.view(torch.int16) for label, call in calls.items()}
+            if first is None:
+                first = outs
+            else:
+                row["same_as_first"] = {label: torch.equal(out, first[label])
+                                        for label, out in outs.items()}
         rows.append(row)
+        del calls  # its outputs, before the next variant allocates its own
     return rows
 
 

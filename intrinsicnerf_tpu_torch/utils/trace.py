@@ -21,12 +21,14 @@ graph owns: every replay rewrites them, and they are read
 read only when the recorder is read.
 
 Counters (:func:`count`) are always on, and are placed only at boundaries
-a call crosses anyway.  :func:`snapshot` gives, per span name, its count,
-host seconds, self seconds (host time less what its child spans cover),
-device seconds and the number of device intervals behind them, with the
-newest device intervals themselves (id, start, end: seconds on the
-device's clock), then the counters, with the kernel wrappers' launch
-counters and the live graphed blocks' replays read where they are kept.
+a call crosses anyway; a count made while a training block is captured
+belongs to the block, and each of its replays adds it.  :func:`snapshot`
+gives, per span name, its count, host seconds, self seconds (host time
+less what its child spans cover), device seconds and the number of
+device intervals behind them, with the newest device intervals
+themselves (id, start, end: seconds on the device's clock), then the
+counters, with the kernel wrappers' launch counters and the live graphed
+blocks' replays read where they are kept.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class Stamps:
         self.n = 0
         self.spans: List[tuple] = []
         self.open: List = []  # ids of the captured spans open now, innermost last
+        self.counts: Dict[str, int] = {}  # counts made in the capture: each replay adds them
 
     def stamp(self) -> int:
         """Stamp the next slot on the current stream; returns the slot."""
@@ -278,8 +281,11 @@ def device_span(name: str, id=None):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` (always on)."""
-    RECORDER.counters[name] = RECORDER.counters.get(name, 0) + n
+    """Add ``n`` to the counter ``name`` (always on).  Inside a block being
+    captured (:func:`capturing`) it adds ``n`` to the block's counts, which
+    each replay of the block adds to the counter (:func:`replayed`)."""
+    counts = RECORDER.counters if RECORDER.capture is None else RECORDER.capture.counts
+    counts[name] = counts.get(name, 0) + n
 
 
 @contextlib.contextmanager
@@ -309,9 +315,14 @@ def capturing():
 
 
 def replayed(stamps: Optional[Stamps]) -> None:
-    """A graph holding ``stamps`` was replayed: when on, its device spans
-    are read (from its newest replay's stamps) at the next snapshot."""
-    if stamps is not None and stamps.spans and enabled():
+    """A graph holding ``stamps`` was replayed: its captured counts are
+    counted again, and when on, its device spans are read (from its newest
+    replay's stamps) at the next snapshot."""
+    if stamps is None:
+        return
+    for name, n in stamps.counts.items():
+        RECORDER.counters[name] = RECORDER.counters.get(name, 0) + n
+    if stamps.spans and enabled():
         RECORDER.replays[id(stamps)] = stamps
 
 

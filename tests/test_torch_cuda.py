@@ -13,6 +13,12 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   round the same operands to bf16, so the observed error is bf16 output
   rounding (~1e-3); two launches give bitwise-equal outputs, and its
   weight image on the card equals the plain version's byte for byte;
+  around the sizes where its persistent schedule changes (n = 1, 64, 65,
+  S*64 - 1, S*64, S*64 + 1, 2*S*64 + 37 at the card's S SMs, the step's
+  fine call and a view's coarse chunk) the same, with the counters
+  ``fwd.tiles`` and ``fwd.tiles_ahead`` moved by ``fwd_schedule``'s
+  amounts; a 64-aligned slice's launch, and two replays of a captured
+  launch, give bitwise the full or eager launch's rows;
 - kernel 2: over the real parameter slots, overall and per block, cosine
   > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
   seeded squared-error loss on the output (coherent across points, as a
@@ -55,6 +61,7 @@ from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays_ch
 from intrinsicnerf_tpu_torch.train.step import (
     DataPools, TrainConfig, create_train_state, make_multi_step, make_train_step, restore_state,
     snapshot_state)
+from intrinsicnerf_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -77,30 +84,6 @@ def model(card):
     return cfg, IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 4_097, 20_003, 65_536, 100_003, 196_608])
-def test_kernel_matches_plain(model, n):
-    """Kernel 1 below, at and past one 64-point tile, at ragged counts and
-    at the training step's coarse and fine sizes, against its plain
-    version; and bitwise equal across launches."""
-    cfg, m = model
-    g = torch.Generator(device="cuda").manual_seed(n)
-    pts = torch.randn(n, 1, 3, device="cuda", generator=g) * 4
-    d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda", generator=g), dim=-1)
-    ops = m.fused_operands(cfg)
-    in8 = fm.build_in8(pts, d)
-    before = fm.fused_mlp_forward.launches
-    got = fm.fused_mlp_forward(ops, in8)
-    again = fm.fused_mlp_forward(ops, in8)
-    torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches == before + 2
-    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
-    ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
-    assert got.shape == (n, fm.OUT_W) and got.dtype == torch.bfloat16
-    for a, b in SLICES:
-        x, y = got[:, a:b].float(), ref[:, a:b].float()
-        assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
-
-
 def test_weight_image_matches_plain(model):
     """Kernel 1's weight image built on the card, byte for byte against the
     plain version's, and the one the model keeps with its operands."""
@@ -113,6 +96,90 @@ def test_weight_image_matches_plain(model):
     want = fm.fwd_weight_image_plain(ops.wbuf).view(torch.int16)
     assert torch.equal(img.view(torch.int16), want)
     assert torch.equal(ops.wimg.view(torch.int16), want)
+
+
+def _sms():
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
+def _tile_counters():
+    c = trace.snapshot()["counters"]
+    return c.get("fwd.tiles", 0), c.get("fwd.tiles_ahead", 0)
+
+
+# n = k * S * 64 + d, S the card's SM count (132 on the H100): below, at
+# and past one tile, ragged counts, the training step's coarse and fine
+# calls, a view's coarse chunk; and where the persistent schedule changes:
+# a block's second tile (S * 64 + 1), two waves and a ragged tail
+KERNEL_CASES = [(0, 1), (0, 63), (0, 64), (0, 65), (0, 1000), (0, 4_097), (0, 20_003),
+                (0, 65_536), (0, 100_003), (0, 196_608), (0, 2_097_152),
+                (1, -1), (1, 0), (1, 1), (2, 37)]
+
+
+@pytest.mark.parametrize("k,d", KERNEL_CASES,
+                         ids=[f"{k}S64{d:+d}" if k else str(d) for k, d in KERNEL_CASES])
+def test_kernel_matches_plain(model, k, d):
+    """Kernel 1 against its plain version per output slice, and bitwise
+    equal across launches; each launch adds its tiles and the tiles whose
+    PE ran ahead (``fwd_schedule``) to the counters, which read >= 99%
+    ahead at a view's coarse chunk."""
+    cfg, m = model
+    n = k * _sms() * 64 + d
+    in8, _ = _in8(n, n)
+    ops = m.fused_operands(cfg)
+    before = fm.fused_mlp_forward.launches
+    tiles0, ahead0 = _tile_counters()
+    got = fm.fused_mlp_forward(ops, in8)
+    again = fm.fused_mlp_forward(ops, in8)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_forward.launches == before + 2
+    _, tiles, ahead = fm.fwd_schedule(n, _sms())
+    tiles1, ahead1 = _tile_counters()
+    assert (tiles1 - tiles0, ahead1 - ahead0) == (2 * tiles, 2 * ahead)
+    if n == 2_097_152:
+        assert ahead / tiles >= 0.99
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+    assert got.shape == (n, fm.OUT_W) and got.dtype == torch.bfloat16
+    for a, b in SLICES:
+        x, y = got[:, a:b].float(), ref[:, a:b].float()
+        assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
+
+
+def test_kernel_rows_do_not_depend_on_the_launch(model):
+    """A launch over a 64-aligned slice of the points gives bitwise the
+    rows of the full launch, though its tiles land on other blocks, other
+    feature buffers and other turns of the weight ring: a feature buffer
+    read stale or released early would show here."""
+    cfg, m = model
+    s = _sms()
+    n = 2 * s * 64 + 37
+    in8, _ = _in8(n, 7)
+    ops = m.fused_operands(cfg)
+    full = fm.fused_mlp_forward(ops, in8).view(torch.int16)
+    for a, b in [(0, 1), (1, s + 3), (s - 1, 2 * s + 1), (3, 4), (2 * s, 2 * s + 1)]:
+        lo, hi = 64 * a, min(64 * b, n)
+        part = fm.fused_mlp_forward(ops, in8[lo:hi]).view(torch.int16)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[lo:hi]), (a, b)
+
+
+def test_kernel_in_a_cuda_graph_equals_eager(model):
+    """Kernel 1 captured in a CUDA graph (the SM count is read on the
+    host, once) and replayed twice gives bitwise the eager output."""
+    cfg, m = model
+    in8, _ = _in8(196_608 + 11, 3)
+    ops = m.fused_operands(cfg)
+    eager = fm.fused_mlp_forward(ops, in8)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fm.fused_mlp_forward(ops, in8)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
 
 
 def test_render_goes_through_kernel(model):

@@ -30,11 +30,11 @@ weights:
   the same state and generator (bitwise where two eager runs are),
   kernels 1 and 2 found by name 16 times each in a profiled replay, and
   80 device-clock stamp nodes captured (two a phase of each step,
-  ``utils/trace.py``); the
+  ``utils/trace.py``); a fresh
   packed training state (``PackedMLP``, what the step trains here)
-  against the unpacked one from one seed, 8 graphed steps each held
-  bitwise after every step, and both states' replays split by kernel
-  name (kernel 1, its image, kernel 2, the rest by kind);
+  through 8 graphed steps, its padded slots exactly zero after every
+  step, and its replays split by kernel name (kernel 1, its image,
+  kernel 2, the rest by kind);
 - the forward probe (kernel 3, ``tools/fwd_probe.py``): its build's
   registers and spills (none allowed), its weight image bitwise, every
   case of its sweep (each variant, tile, layer count and output type),
@@ -72,8 +72,8 @@ weights:
   ``half_res``): the step (its kernels by name, a slice against the
   host, kernels 1 and 2 at its 131,072 / 393,216-point calls against
   their plain versions), 8 steps as one graph replay across the end of
-  the precrop warm-up, the packed state against the unpacked one there
-  as on the Replica step, a 400x400 view, the CLI twin for 600 steps at 10
+  the precrop warm-up, a fresh packed state there as on the Replica
+  step, a 400x400 view, the CLI twin for 600 steps at 10
   per call with its rebuilds and evaluations, a resume in a second
   process, ``--render_only --render_test``, the blender_intrinsic loader,
   LLFF in NDC on five of its views, and the cube check of
@@ -508,77 +508,50 @@ def rest_by_kind(other, n_steps):
 def packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, seed, phase,
                  start=0, stamp_nodes_a_step=STAMP_NODES):
     """``phase``: the packed training state (``PackedMLP``, what
-    ``create_train_state`` makes here) against the unpacked one
-    (``IntrinsicMLP``), both from one seeded generator, the same draws and
-    generator state: PACKED_STEPS graphed steps each (a one-step graph
-    replayed once per step), the loss terms, the unpacked weights and
-    Adam's unpacked moments held bitwise after every step, the first step
-    and tensor that part named if any do.  Then both states' K-step
-    replays profiled by kernel name in the same call (``graph_phase``):
-    kernels 1 and 2 and the rest, by kind."""
+    ``create_train_state`` makes here) from a seeded generator:
+    PACKED_STEPS graphed steps (a one-step graph replayed once per step),
+    the loss terms finite and the padded slots of both levels exactly zero
+    after every step, the first step and buffer that broke either named if
+    any did.  Then its K-step replays profiled by kernel name
+    (``graph_phase``): kernels 1 and 2 and the rest, by kind."""
     from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
-    from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
     from intrinsicnerf_tpu_torch.train.step import create_train_state, make_multi_step
 
     w_c_t = torch.tensor(w_c, dtype=torch.float32, device=dev)
-    states, runs = {}, {}
-    for packed in (True, False):
-        st = create_train_state(mcfg, tcfg, device=dev, packed=packed,
-                                generator=torch.Generator().manual_seed(seed))
-        if isinstance(st.model_fine, PackedMLP) != packed:
-            raise AssertionError(f"create_train_state(packed={packed}) made {st.model_fine}")
-        st.step = start
-        st.step_t.fill_(start)
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        multi = make_multi_step(step_fn, 1)
-        after = []
-        for _ in range(PACKED_STEPS):
-            rep = torch.stack(list(multi(st, pools, table, w_c_t, gen)))
-            after.append(copy.deepcopy((rep, [m.state_dict() for m in (st.model_coarse,
-                                                                      st.model_fine)],
-                                           optimizer_state_dict(st)["state"])))
-        torch.cuda.synchronize()
-        states[packed], runs[packed] = (st, gen), after
-        del multi
-
-    def first_part():
-        for i, ((rp, wp, ap), (ru, wu, au)) in enumerate(zip(runs[True], runs[False])):
-            if not torch.equal(rp, ru):
-                return [i + 1, "loss terms", float((rp - ru).abs().max())]
-            for level, sp, su in zip(("coarse", "fine"), wp, wu):
-                for k in su:
-                    if not torch.equal(sp[k], su[k]):
-                        return [i + 1, f"{level} {k}", float((sp[k] - su[k]).abs().max())]
-            for j in au:
-                for n in ("exp_avg", "exp_avg_sq"):
-                    if not torch.equal(ap[j][n], au[j][n]):
-                        return [i + 1, f"adam {j} {n}", float((ap[j][n] - au[j][n]).abs().max())]
-        return None
-
-    part = first_part()
-    last = runs[True][-1][0]
-    say(phase, steps=PACKED_STEPS, bitwise=part is None, first_part=json.dumps(part),
-        total_after=json.dumps([float(f"{float(r[0][0]):.6g}") for r in runs[True]]),
-        finite=bool(torch.isfinite(last).all()), card=json.dumps(card))
-    del runs
-    graphs = {}
-    for packed, name in ((True, "packed"), (False, "unpacked")):
-        st, gen = states[packed]
-        graphs[name] = graph_phase(torch, np, step_fn, st, pools, table, w_c, gen, card,
-                                   phase=f"{phase}_graph_{name}",
-                                   stamp_nodes_a_step=stamp_nodes_a_step)
-    split = {name: {k: (round(g[k], 4) if isinstance(g[k], float) else g[k]) for k in (
+    st = create_train_state(mcfg, tcfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    if not isinstance(st.model_fine, PackedMLP):
+        raise AssertionError(f"create_train_state made {type(st.model_fine).__name__}")
+    st.step = start
+    st.step_t.fill_(start)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    multi = make_multi_step(step_fn, 1)
+    totals, part = [], None
+    for i in range(PACKED_STEPS):
+        rep = torch.stack(list(multi(st, pools, table, w_c_t, gen)))
+        totals.append(float(f"{float(rep[0]):.6g}"))
+        if part is None and not bool(torch.isfinite(rep).all()):
+            part = [i + 1, "loss terms"]
+        for level, m in (("coarse", st.model_coarse), ("fine", st.model_fine)):
+            for name, buf, mask in (("weight", m.weight, m.weight_mask),
+                                    ("bias", m.bias, m.bias_mask)):
+                if part is None and bool(buf.detach()[mask == 0].any()):
+                    part = [i + 1, f"{level} {name} padded slots"]
+    torch.cuda.synchronize()
+    del multi
+    say(phase, steps=PACKED_STEPS, ok=part is None, first_part=json.dumps(part),
+        total_after=json.dumps(totals), card=json.dumps(card))
+    graph = graph_phase(torch, np, step_fn, st, pools, table, w_c, gen, card,
+                        phase=f"{phase}_graph_packed", stamp_nodes_a_step=stamp_nodes_a_step)
+    split = {k: (round(graph[k], 4) if isinstance(graph[k], float) else graph[k]) for k in (
         "graph_ms", "eager_ms", "kernel1_ms", "image_ms", "kernel2_ms", "other_ms",
-        "other_by_kind", "busy_share")} for name, g in graphs.items()}
-    say(f"{phase}_split", per_step_ms=json.dumps(split),
-        rest_saved_ms=f"{graphs['unpacked']['other_ms'] - graphs['packed']['other_ms']:.4f}",
-        graph_saved_ms=f"{graphs['unpacked']['graph_ms'] - graphs['packed']['graph_ms']:.4f}",
-        card=json.dumps(card), clocks=json.dumps(smi(CLOCKS)))
-    if part is not None or not bool(torch.isfinite(last).all()):
-        raise AssertionError(f"the packed steps part from the unpacked steps at {part}")
-    del states
+        "other_by_kind", "busy_share")}
+    say(f"{phase}_split", per_step_ms=json.dumps(split), card=json.dumps(card),
+        clocks=json.dumps(smi(CLOCKS)))
+    if part is not None:
+        raise AssertionError(f"the packed steps broke at {part}")
+    del st
     torch.cuda.empty_cache()
-    return {"graphs": graphs}
+    return graph
 
 
 def step_vs_host(torch, state, sl, draws, table, w_c, mcfg, rcfg, tcfg, h, w, dev,
@@ -633,7 +606,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     from intrinsicnerf_tpu_torch.core.rays import create_rays
     from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
     from intrinsicnerf_tpu_torch.data.samplers import RayBatch, sample_ray_pairs
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.render.pipeline import draw_train_noise
     from intrinsicnerf_tpu_torch.tools import bwd_passes
@@ -646,14 +619,14 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
 
     # the backward's multiply-adds per point, counted on the network's own
     # layers (tools/bwd_passes.py:backward_macs)
-    probe = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
+    probe = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
     work = bwd_passes.backward_macs(probe)
     bwd_macs = sum(work.values())
     say("work", bwd_macs_per_point=bwd_macs, **work)
 
     # ---- kernel 2 vs plain at the step's shapes ----
     ops = probe.fused_operands(mcfg)
-    masks = fm.packed_grad_masks(dict(probe.named_parameters()), mcfg)
+    masks = fm.packed_grad_masks(probe.state_dict(), mcfg)
     r0 = view_rays[0, :n_rays]
     def in8_for(n_samples):
         z = stratified_z_vals(r0[:, 6:7], r0[:, 7:8], n_samples)
@@ -785,7 +758,7 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
 
     # K steps per call: eager against one CUDA graph replay
     graph = graph_phase(torch, np, step_fn, state, pools, table, w_c, gen, card)
-    # the packed state against the unpacked one, bitwise; both replays' split
+    # a fresh packed state: its padded slots through graphed steps, its replays' split
     packed = packed_phase(torch, np, dev, card, mcfg, tcfg, step_fn, pools, table, w_c, 8,
                           "train_packed")
 
@@ -1602,11 +1575,11 @@ def run_launches(trainer=None):
 def semantic_model(torch, c, dev, seed):
     """The scene network (8x256, the skip, view directions, the fused
     kernels) at ``c`` semantic classes from seeded weights, and its config."""
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+    from intrinsicnerf_tpu_torch.models.mlp import MLPConfig, PackedMLP
 
     mcfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=c,
                      compute_dtype=torch.bfloat16, use_fused_kernel=True)
-    return IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(seed)), mcfg
+    return PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(seed)), mcfg
 
 
 def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
@@ -3148,7 +3121,7 @@ def main() -> int:
     from intrinsicnerf_tpu_torch.config import from_yaml
     from intrinsicnerf_tpu_torch.core.rays import create_rays
     from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
     from intrinsicnerf_tpu_torch.ops import build
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
     from intrinsicnerf_tpu_torch.render.pipeline import render_rays_chunked
@@ -3201,8 +3174,8 @@ def main() -> int:
     if (fc.train.n_rays, rcfg.n_coarse, rcfg.n_importance, rcfg.perturb,
             rcfg.raw_noise_std) != (512, 64, 128, 1.0, 1.0):
         raise AssertionError(f"{CONFIG} no longer sets the Replica training step: {fc}")
-    model_c = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(1))
-    model_f = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(2))
+    model_c = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(1))
+    model_f = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(2))
     c2w = torch.eye(4, device=dev)
     c2w[:3, 3] = torch.tensor([0.3, -0.2, -1.0])
     near, far = fc.depth_range

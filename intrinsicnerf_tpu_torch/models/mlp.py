@@ -16,9 +16,11 @@ loads with ``load_state_dict``.  ``nn.Linear`` stores ``[out, in]``; the
 JAX pytree stores ``[in, out]`` (``tools/import_ckpt.py`` converts).
 
 :class:`PackedMLP` holds the same weights in the fused kernels' layout
-(``ops/fused_mlp.py:FlatBlocks``), the packed training state that
-``train/step.py:packs_state`` selects; its ``state_dict`` and
-``load_state_dict`` speak the reference layout all the same.
+(``ops/fused_mlp.py:FlatBlocks``), and is the only model the kernels run:
+where :func:`fuses` holds, ``train/step.py:create_train_state`` builds it
+and :func:`eval_points` refuses an :class:`IntrinsicMLP`.  Its
+``state_dict`` and ``load_state_dict`` speak the reference layout all the
+same.
 """
 
 from __future__ import annotations
@@ -74,40 +76,11 @@ def fuses(cfg: MLPConfig) -> bool:
     )
 
 
-class _FusedCache:
-    """The fused kernel's operands and PE constants, kept per model."""
-
-    def _init_cache(self):
-        self._fused: Optional[fm.FusedOperands] = None
-        self._fused_key: Optional[tuple] = None
-        self._pe: dict = {}
-
-    def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
-        """The fused kernel's operands for the current weights under
-        ``cfg`` (on the card with kernel 1's weight image), packed on the
-        first call and kept until ``cfg`` changes
-        or a parameter is changed in place (an optimizer step,
-        ``load_state_dict``), replaced or moved.  A write through
-        ``.data`` bypasses the version counter and is not seen."""
-        key = (cfg, *((p.data_ptr(), p._version) for p in self.parameters()))
-        if key != self._fused_key:
-            dev = next(self.parameters()).device
-            self._fused = fm.fused_operands(self._fused_params(), cfg, dev)
-            self._fused_key = key
-        return self._fused
-
-    def pe_constants(self, cfg: MLPConfig):
-        """The fused kernel's PE constants for ``cfg`` on the parameters'
-        device, made once (a host-to-device copy per step would stall)."""
-        dev = next(self.parameters()).device
-        key = (cfg.n_freqs_pos, cfg.n_freqs_dir, cfg.pos_scalar_factor, dev)
-        if key not in self._pe:
-            self._pe[key] = fm.pe_constants(cfg, dev)
-        return self._pe[key]
-
-
-class IntrinsicMLP(_FusedCache, nn.Module):
-    """Weights of one level (coarse or fine).  Built on ``device``
+class IntrinsicMLP(nn.Module):
+    """Weights of one level (coarse or fine) in the reference layout,
+    evaluated through the plain layers (where :func:`fuses` does not
+    hold; elsewhere its pack is :class:`PackedMLP`'s initial state).
+    Built on ``device``
     (default ``"cuda"``, which raises without a GPU) and initialised
     from ``generator`` with torch's ``U(+-1/sqrt(fan_in))`` Linear init."""
 
@@ -158,16 +131,12 @@ class IntrinsicMLP(_FusedCache, nn.Module):
                     m.weight.uniform_(-bound, bound, generator=g)
                     m.bias.uniform_(-bound, bound, generator=g)
         self.to(dev)
-        self._init_cache()
-
-    def _fused_params(self):
-        return self.state_dict()
 
     def forward(self, pts_embedded, dirs_embedded, want_endpoint_feat=False):
         return apply_mlp(self, self.cfg, pts_embedded, dirs_embedded, want_endpoint_feat)
 
 
-class PackedMLP(_FusedCache, nn.Module):
+class PackedMLP(nn.Module):
     """Weights of one level as the packed training state: ``weight`` and
     ``bias`` are the fused kernels' flat fp32 buffers
     (``fm.FlatBlocks``: every packed block ``[in, out]`` in the kernels'
@@ -199,7 +168,9 @@ class PackedMLP(_FusedCache, nn.Module):
         self.register_buffer("weight_mask", mask.weight.to(dev), persistent=False)
         self.register_buffer("bias_mask", mask.bias.to(dev), persistent=False)
         self.reference_keys = tuple(ref)  # in IntrinsicMLP's parameter order
-        self._init_cache()
+        self._fused: Optional[fm.FusedOperands] = None
+        self._fused_key: Optional[tuple] = None
+        self._pe: dict = {}
 
     def flat(self) -> fm.FlatBlocks:
         return fm.FlatBlocks(self.weight, self.bias)
@@ -213,8 +184,27 @@ class PackedMLP(_FusedCache, nn.Module):
         """Inverse of :meth:`unpack`."""
         return fm.flatten_blocks(fm.pack_weights(sd, self.cfg))
 
-    def _fused_params(self):
-        return self.flat()
+    def fused_operands(self, cfg: MLPConfig) -> fm.FusedOperands:
+        """The fused kernel's operands for the current buffers under
+        ``cfg`` (on the card with kernel 1's weight image), made on the
+        first call and kept until ``cfg`` changes or a buffer is changed
+        in place (an optimizer step, ``load_state_dict``), replaced or
+        moved.  A write through ``.data`` bypasses the version counter
+        and is not seen."""
+        key = (cfg, *((p.data_ptr(), p._version) for p in (self.weight, self.bias)))
+        if key != self._fused_key:
+            self._fused = fm.fused_operands(self.flat(), cfg)
+            self._fused_key = key
+        return self._fused
+
+    def pe_constants(self, cfg: MLPConfig):
+        """The fused kernel's PE constants for ``cfg`` on the buffers'
+        device, made once (a host-to-device copy per step would stall)."""
+        dev = self.weight.device
+        key = (cfg.n_freqs_pos, cfg.n_freqs_dir, cfg.pos_scalar_factor, dev)
+        if key not in self._pe:
+            self._pe[key] = fm.pe_constants(cfg, dev)
+        return self._pe[key]
 
     @torch.no_grad()
     def mask_grads(self) -> None:
@@ -344,23 +334,25 @@ def eval_points(
     viewdirs: Optional[torch.Tensor],  # [N, 3] unit view directions
     want_endpoint_feat: bool = False,
 ) -> RawOutputs:
-    """PE + MLP over a ray batch.  The reference architecture (D=8, skip
-    4, viewdirs on, PE and classes fitting the packed layout) goes
-    through the fused kernels when ``cfg.use_fused_kernel`` is set
-    (:func:`fuses`): with grad enabled, through the model's packed
-    buffers (a :class:`PackedMLP`) or a pack of its live parameters (an
-    :class:`IntrinsicMLP`), which autograd differentiates (kernel 1
-    forward, kernel 2 backward); without, through the operands the model
-    keeps (kernel 1 only).  Elsewhere a :class:`PackedMLP` is unpacked
-    first, as the JAX ``eval_points`` unpacks packed state."""
-    if fuses(cfg) and not want_endpoint_feat and viewdirs is not None:
-        if not torch.is_grad_enabled():
-            return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
-        params = (model.flat() if isinstance(model, PackedMLP)
-                  else dict(model.named_parameters()))
-        return fm.fused_eval_points(params, cfg, pts, viewdirs, pe=model.pe_constants(cfg))
+    """PE + MLP over a ray batch.  A :class:`PackedMLP` goes through the
+    fused kernels where :func:`fuses` holds for ``cfg``: with grad
+    enabled, through its flat buffers, which autograd differentiates
+    (kernel 1 forward, kernel 2 backward); without, through the operands
+    it keeps (kernel 1 only).  For ``want_endpoint_feat``, without
+    ``viewdirs`` or where ``cfg`` does not fuse, it is unpacked first, as
+    the JAX ``eval_points`` unpacks packed state.  An
+    :class:`IntrinsicMLP` takes the plain layers, and raises where
+    ``cfg`` fuses: the kernels run the packed layout alone."""
     if isinstance(model, PackedMLP):
+        if fuses(cfg) and not want_endpoint_feat and viewdirs is not None:
+            if not torch.is_grad_enabled():
+                return fm.fused_eval_points(model.fused_operands(cfg), cfg, pts, viewdirs)
+            return fm.fused_eval_points(model.flat(), cfg, pts, viewdirs,
+                                        pe=model.pe_constants(cfg))
         model = _layers(model.unpacked(), model.cfg)
+    elif fuses(cfg):
+        raise ValueError("the fused kernels run a PackedMLP alone: build the model with "
+                         "train/step.py:create_train_state, or as a PackedMLP")
     pe_pts = positional_encoding(pts, cfg.n_freqs_pos, scalar_factor=cfg.pos_scalar_factor)
     pe_dirs = None
     if cfg.use_viewdirs and viewdirs is not None:

@@ -15,8 +15,8 @@ output: ``[0]=sigma, [1:4]=albedo_logit, [4]=shading_logit,
 sigmoids.  The output crosses device memory in bf16 as in the JAX
 package: the logits carry bf16-matmul noise regardless.
 
-``fused_mlp_forward`` is its wrapper.  It takes ``FusedOperands``, the
-weights packed once (``fused_operands``; ``IntrinsicMLP`` keeps them
+``fused_mlp_forward`` is its wrapper.  It takes ``FusedOperands``, made
+once per set of weights (``fused_operands``; ``PackedMLP`` keeps them
 until its weights change), so a launch does no packing, casting or
 host-to-device copy.  This is the serving path, without gradients.  The
 kernel streams its weights from an image, every 64-row K-slab of the
@@ -39,12 +39,10 @@ bf16 weights are one cast of the weight buffer, and kernel 2's flat
 ``dw``/``db`` are the buffers' gradients as they stand.  The packed
 training state (the twin of the JAX ``packs_state``) holds these
 buffers, and the step projects their gradients with the
-:func:`packed_grad_masks` mask.  The unpacked state keeps the
-``nn.Linear`` parameters, which :func:`fused_mlp_apply` packs and
-flattens (pads, slices, a concat and the sum of the five output-bias
-rows), so autograd carries the flat gradients back to them, and the
-backward of the pack keeps only the real parameter slots, which is the
-same projection.
+:func:`packed_grad_masks` mask.  These buffers and the operands made
+from them are the only weights the kernels take; :func:`pack_weights`
+and :func:`unpack_weights` are the bridge to the reference layout (the
+initial weights, checkpoints, the JAX package).
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
@@ -253,11 +251,6 @@ def unpack_weights(p: Packed, cfg) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def is_packed(params) -> bool:
-    """True when ``params`` is already the kernel's packed dict."""
-    return isinstance(params, Mapping) and "w0" in params and "pts_linears.0.weight" not in params
-
-
 def packed_grad_masks(params: Mapping[str, torch.Tensor], cfg) -> Packed:
     """0/1 masks over the packed blocks marking real parameter slots: the
     pack of all-ones parameters.  The padded slots (e.g. ``w_sig[:, 1:]``,
@@ -329,15 +322,6 @@ def flat_blocks(flat: FlatBlocks, cfg) -> Packed:
         p[k] = torch.zeros_like(out)
         p[k][:, s:e] = out[:, s:e]
     return {k: p[k] for k in _PACKED_KEYS}
-
-
-def _flat(params, cfg) -> FlatBlocks:
-    """``params`` (:class:`FlatBlocks`, an already-packed dict, or a model
-    state_dict / ``named_parameters`` dict) as :class:`FlatBlocks`,
-    differentiable through the pack."""
-    if isinstance(params, FlatBlocks):
-        return params
-    return flatten_blocks(params if is_packed(params) else pack_weights(params, cfg))
 
 
 def build_in8(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
@@ -481,12 +465,11 @@ def fused_mlp_backward_plain(packed: Packed, pe_consts, in8: torch.Tensor,
     return {k: grads[k] for k in _PACKED_KEYS}
 
 
-def kernel_buffers(packed):
-    """The kernel's flat operands: all weights as one bf16 buffer (each
-    block ``[in, out]`` row-major, in ``_W_ORDER``) and all biases as one
-    fp32 buffer (``_B_ORDER`` then the summed output bias), from packed
-    blocks or from :class:`FlatBlocks`, which hold that layout already."""
-    flat = packed if isinstance(packed, FlatBlocks) else flatten_blocks(packed)
+def kernel_buffers(flat: FlatBlocks):
+    """The kernel's flat operands of :class:`FlatBlocks`: all weights as
+    one bf16 buffer (each block ``[in, out]`` row-major, in ``_W_ORDER``)
+    and all biases as one fp32 buffer (``_B_ORDER`` then the summed output
+    bias)."""
     return flat.weight.detach().to(torch.bfloat16), flat.bias.detach()
 
 
@@ -573,15 +556,14 @@ def _image_for(wbuf: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return fwd_weight_image(wbuf)
 
 
-def fused_operands(params, cfg, device) -> FusedOperands:
-    """Pack ``params`` (a model state_dict, an already-packed dict or
-    :class:`FlatBlocks`) on their device, build the PE constants on
-    ``device`` and, on the card, kernel 1's weight image."""
-    flat = _flat(params, cfg)
+def fused_operands(flat: FlatBlocks, cfg) -> FusedOperands:
+    """The forward's operands of the buffers ``flat``, detached, on their
+    device: the plain version's blocks, the kernels' bf16 weights and fp32
+    biases, the PE constants and, on the card, kernel 1's weight image."""
     flat = FlatBlocks(flat.weight.detach(), flat.bias.detach())
     wbuf, bbuf = kernel_buffers(flat)
-    return FusedOperands(flat_blocks(flat, cfg), pe_constants(cfg, device), wbuf, bbuf,
-                         _image_for(wbuf))
+    return FusedOperands(flat_blocks(flat, cfg), pe_constants(cfg, flat.weight.device), wbuf,
+                         bbuf, _image_for(wbuf))
 
 
 def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
@@ -789,17 +771,14 @@ class FusedMLP(torch.autograd.Function):
 def fused_mlp_apply(params, cfg, in8: torch.Tensor, pe=None) -> torch.Tensor:
     """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.
 
-    ``params`` is ``FusedOperands`` (packed once, no gradient: the serving
-    path), or anything :func:`fused_operands` takes, differentiated
-    through :class:`FusedMLP`: the packed training state's
-    :class:`FlatBlocks` as they are, a state_dict / ``named_parameters``
-    dict or an already-packed dict packed and flattened here.  ``pe``
-    overrides the PE constants built on ``in8``'s device."""
+    ``params`` is ``FusedOperands`` (made once, no gradient: the serving
+    path), or the packed training state's :class:`FlatBlocks`,
+    differentiated through :class:`FusedMLP`.  ``pe`` overrides the PE
+    constants built on ``in8``'s device."""
     if isinstance(params, FusedOperands):
         return fused_mlp_forward(params, in8).float()
     F, m = pe if pe is not None else pe_constants(cfg, in8.device)
-    flat = _flat(params, cfg)
-    return FusedMLP.apply(in8, F, m, flat.weight, flat.bias, cfg).float()
+    return FusedMLP.apply(in8, F, m, params.weight, params.bias, cfg).float()
 
 
 def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor,

@@ -133,7 +133,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablate: needs a CUDA device")
     from intrinsicnerf_tpu_torch.config import from_yaml
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     sources = args.sources.split(",")
@@ -145,7 +145,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     fc = from_yaml(bwd_passes.CONFIG)
     mcfg = dataclasses.replace(fc.mlp, num_semantic_classes=bwd_passes.N_CLASSES)
-    model = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
+    model = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
     ops = model.fused_operands(mcfg)
     in8 = bwd_passes.step_inputs(model, fc.render, 2 * fc.train.n_rays,
                                  fc.render.n_coarse + fc.render.n_importance, dev)

@@ -129,7 +129,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bwd_passes: needs a CUDA device")
     from intrinsicnerf_tpu_torch.config import from_yaml
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     dev = torch.device("cuda")
@@ -137,7 +137,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     fc = from_yaml(CONFIG)
     mcfg = dataclasses.replace(fc.mlp, num_semantic_classes=N_CLASSES)
-    model = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
+    model = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
     ops = model.fused_operands(mcfg)
     work = backward_macs(model)
     gen = torch.Generator(device=dev).manual_seed(6)

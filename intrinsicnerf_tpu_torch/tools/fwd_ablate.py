@@ -190,7 +190,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("fwd_ablate: needs a CUDA device")
     from intrinsicnerf_tpu_torch.config import from_yaml
-    from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP
+    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
 
     built = build_variants(args.variants.split(","), args.sources.split(","))
     dev = torch.device("cuda")
@@ -198,7 +198,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     fc = from_yaml(bwd_passes.CONFIG)
     mcfg = dataclasses.replace(fc.mlp, num_semantic_classes=bwd_passes.N_CLASSES)
-    model = IntrinsicMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
+    model = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
     ops = model.fused_operands(mcfg)
     for row in time_variants(built, ops, shape_inputs(model, fc, dev), args.iters):
         print(json.dumps({**row, "points": SHAPES, "card": card}), flush=True)

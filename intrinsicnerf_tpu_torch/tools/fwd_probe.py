@@ -28,9 +28,7 @@ import torch
 
 from intrinsicnerf_tpu_torch import resolve_device
 from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
-
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+from intrinsicnerf_tpu_torch.tools.bwd_passes import PEAK_BF16_FLOPS, PEAK_BYTES
 
 # (layers, variant, tile, output type): the sweep of tools_fwd_probe.main,
 # with the card's tiles in place of the TPU's

@@ -15,14 +15,14 @@ Port of ``intrinsicnerf_tpu/train/step.py:make_train_step``:
 The state is the coarse and fine models and one ``torch.optim.Adam``.
 Where :func:`packs_state` holds (the fused kernels take the
 configuration), the models are ``PackedMLP``s, the twin of the JAX
-packed state: Adam updates the kernels' flat weight and bias buffers,
-and the step multiplies their gradients by the 0/1 mask of the real
-parameter slots (``ops/fused_mlp.py:packed_grad_masks``) before the
-update, as the JAX step does, so the padded slots keep zero moments and
-never move.  Elsewhere they are ``IntrinsicMLP``s with the reference
-``nn.Linear`` parameters.  Adam being elementwise, both layouts take the
-same steps from the same weights.  All random draws come from the
-``torch.Generator`` handed to the step.
+packed state and the only models the kernels run: Adam updates the
+kernels' flat weight and bias buffers, and the step multiplies their
+gradients by the 0/1 mask of the real parameter slots
+(``ops/fused_mlp.py:packed_grad_masks``) before the update, as the JAX
+step does, so the padded slots keep zero moments and never move.
+Elsewhere they are ``IntrinsicMLP``s with the reference ``nn.Linear``
+parameters, evaluated through the plain layers.  All random draws come
+from the ``torch.Generator`` handed to the step.
 
 With a data-parallel group (``make_train_step(group=...)``, the twin of
 the JAX ``axis_name``) the step averages the masked gradients over the
@@ -154,19 +154,18 @@ def create_train_state(
     device="cuda",
     generator: Optional[torch.Generator] = None,
     with_fine: bool = True,
-    packed: Optional[bool] = None,
 ) -> TrainState:
     """Coarse and fine models initialised from ``generator`` (a CPU
     generator; default seed 0) on ``device`` (default ``"cuda"``, which
     raises without a GPU), and one Adam over both.  The models are
-    ``PackedMLP``s where ``packed`` (default :func:`packs_state`) holds,
-    else ``IntrinsicMLP``s; one generator gives the same weights in both.
+    ``PackedMLP``s where :func:`packs_state` holds, else
+    ``IntrinsicMLP``s; one generator gives the same network in both.
     On the card Adam is ``capturable`` (its step counts and LR stay on the
     device, so a CUDA graph can hold its update); the host's Adam does
     not take that option."""
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
-    model = PackedMLP if (packs_state(mcfg) if packed is None else packed) else IntrinsicMLP
+    model = PackedMLP if packs_state(mcfg) else IntrinsicMLP
     model_c = model(mcfg, device=dev, generator=g)
     model_f = model(mcfg, device=dev, generator=g) if with_fine else None
     params = list(model_c.parameters()) + (list(model_f.parameters()) if with_fine else [])

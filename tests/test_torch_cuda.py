@@ -40,21 +40,19 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   bitwise where two eager runs are bitwise, else the JAX scan test's
   bounds (``tests/test_train_step.py``: the total within rtol 1e-6, every
   parameter within atol 1e-6 + rtol 1e-5); the generator's state equal;
-- the packed training state against the unpacked one, from one generator,
-  over graphed steps: bitwise;
+- the packed training state over graphed steps: its padded slots, in the
+  buffers and in Adam's moments, exactly zero after every step;
 - 8 forward-facing object steps in NDC as one replay against the same 8
   eager steps: bitwise, with 14 clock stamps a captured step (10 on
   Replica's path).
 """
-
-import copy
 
 import pytest
 import torch
 
 from intrinsicnerf_tpu_torch.cluster.assign import empty_cluster_table, map_drgb, table_from_numpy
 from intrinsicnerf_tpu_torch.core.rays import create_rays
-from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+from intrinsicnerf_tpu_torch.models.mlp import MLPConfig, PackedMLP
 from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 from intrinsicnerf_tpu_torch.ops import fwd_probe as fp
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig, render_rays_chunked
@@ -81,7 +79,7 @@ def card():
 def model(card):
     cfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=C,
                     compute_dtype=torch.bfloat16, use_fused_kernel=True)
-    return cfg, IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(0))
+    return cfg, PackedMLP(cfg, device=card, generator=torch.Generator().manual_seed(0))
 
 
 def test_weight_image_matches_plain(model):
@@ -193,7 +191,7 @@ def test_render_goes_through_kernel(model):
     before = fm.fused_mlp_forward.launches
     with torch.no_grad():
         out = render_rays_chunked(m, m, cfg, rays, rcfg, chunk=64)
-        host = IntrinsicMLP(cfg, device="cpu")
+        host = PackedMLP(cfg, device="cpu")
         host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
         ref = render_rays_chunked(host, host, cfg, rays.cpu(), rcfg, chunk=64)
     assert fm.fused_mlp_forward.launches == before + 2 * 3
@@ -236,7 +234,7 @@ def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
     assert fm.fused_mlp_backward.launches == before + 2
     assert all(torch.equal(got[k], again[k]) for k in got)
     ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
-    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    masks = fm.packed_grad_masks(m.state_dict(), cfg)
     keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
     cos, rel = _cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
                         torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
@@ -456,7 +454,7 @@ def test_graph_reads_a_table_copied_in(graph_setup):
 def object_model(card):
     cfg = MLPConfig(pos_scalar_factor=1.0, enable_semantic=False, compute_dtype=torch.bfloat16,
                     use_fused_kernel=True)
-    return cfg, IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(1))
+    return cfg, PackedMLP(cfg, device=card, generator=torch.Generator().manual_seed(1))
 
 
 def test_object_kernel_semantic_columns_are_zero(object_model):
@@ -493,7 +491,7 @@ def test_object_backward_at_the_fine_step(object_model):
     again = fm.fused_mlp_backward(ops, in8, g)
     torch.cuda.synchronize()
     assert all(torch.equal(got[k], again[k]) for k in got)
-    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    masks = fm.packed_grad_masks(m.state_dict(), cfg)
     for k in ("w_m1", "b_m1", "w_m2"):
         assert float(got[k].abs().max()) == 0.0, k
     for k in ("w_m1", "b_m1", "w_m2", "b_m2"):  # b_m2 is a share of the summed output bias
@@ -639,15 +637,11 @@ def test_graphed_ndc_object_steps_equal_eager_steps(object_model, graph_setup):
 
 
 @pytest.mark.parametrize("classes", [C, 0], ids=["scene", "object"])
-def test_graphed_packed_steps_equal_unpacked_steps(card, classes):
-    """The packed training state and the unpacked one, made from one
-    generator, each taking GRAPH_K graphed steps (one replay each) on the
-    same draws: bitwise equal losses, unpacked weights and Adam moments
-    after every step (Adam is elementwise; the padded slots carry zero
-    gradients and moments)."""
-    from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
-    from intrinsicnerf_tpu_torch.train.checkpoint import optimizer_state_dict
-
+def test_graphed_packed_steps_keep_padded_slots(card, classes):
+    """The packed training state taking GRAPH_K graphed steps (one replay
+    each): finite losses after every step, the padded slots of both
+    levels exactly zero in the buffers and in Adam's moments, and the
+    real slots moved."""
     cfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=classes > 0,
                     num_semantic_classes=classes, compute_dtype=torch.bfloat16,
                     use_fused_kernel=True)
@@ -664,25 +658,21 @@ def test_graphed_packed_steps_equal_unpacked_steps(card, classes):
     step = make_train_step(cfg, RenderConfig(perturb=1.0, raw_noise_std=1.0), tcfg, h, w)
     table = empty_cluster_table(max(classes, 1), 64, device="cuda")
     w_c = torch.tensor(0.1, device="cuda")
-    runs = []
-    for packed in (True, False):
-        state = create_train_state(cfg, tcfg, device="cuda", packed=packed,
-                                   generator=torch.Generator().manual_seed(4))
-        assert isinstance(state.model_fine, PackedMLP) == packed
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        multi = make_multi_step(step, 1)
-        after = []
-        for _ in range(GRAPH_K):
-            rep = torch.stack(list(multi(state, pools, table, w_c, gen)))
-            after.append(copy.deepcopy((rep, [m.state_dict() for m in (state.model_coarse,
-                                                                         state.model_fine)],
-                                        optimizer_state_dict(state)["state"])))
-        runs.append(after)
-    for i, ((rp, wp, ap), (ru, wu, au)) in enumerate(zip(*runs)):
-        assert torch.equal(rp, ru), (i, rp, ru)
-        for sp, su in zip(wp, wu):
-            assert all(torch.equal(sp[k], su[k]) for k in su), i
-        assert all(torch.equal(ap[j][n], au[j][n]) for j in au for n in ("exp_avg", "exp_avg_sq"))
+    state = create_train_state(cfg, tcfg, device="cuda", generator=torch.Generator().manual_seed(4))
+    assert isinstance(state.model_fine, PackedMLP)
+    first = [p.detach().clone() for p in state.optimizer.param_groups[0]["params"]]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    multi = make_multi_step(step, 1)
+    for i in range(GRAPH_K):
+        rep = torch.stack(list(multi(state, pools, table, w_c, gen)))
+        assert torch.isfinite(rep).all(), (i, rep)
+        for m in (state.model_coarse, state.model_fine):
+            for p, mask in ((m.weight, m.weight_mask), (m.bias, m.bias_mask)):
+                assert not p.detach()[mask == 0].any(), i
+                assert all(not v[mask == 0].any() for k, v in state.optimizer.state[p].items()
+                           if k != "step"), i
+    for p, p0 in zip(state.optimizer.param_groups[0]["params"], first):
+        assert not torch.equal(p.detach(), p0)
 
 
 # ---- the other scene data: NYU widths, pixels across all images, mesh -----
@@ -698,7 +688,7 @@ def test_kernels_at_nyu_widths(card, c, n):
     launches."""
     cfg = MLPConfig(pos_scalar_factor=10.0, enable_semantic=True, num_semantic_classes=c,
                     compute_dtype=torch.bfloat16, use_fused_kernel=True)
-    m = IntrinsicMLP(cfg, device=card, generator=torch.Generator().manual_seed(c))
+    m = PackedMLP(cfg, device=card, generator=torch.Generator().manual_seed(c))
     ops = m.fused_operands(cfg)
     in8, gen = _in8(n, c + n)
     got = fm.fused_mlp_forward(ops, in8)
@@ -718,7 +708,7 @@ def test_kernels_at_nyu_widths(card, c, n):
     torch.cuda.synchronize()
     assert all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
     bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
-    masks = fm.packed_grad_masks(dict(m.named_parameters()), cfg)
+    masks = fm.packed_grad_masks(m.state_dict(), cfg)
     keys = [k for k in bref if float((bref[k] * masks[k]).abs().max()) > 0]
     assert {"w_m1", "b_m1", "w_m2", "b_m2"} <= set(keys)
     assert float(masks["w_m2"][:, 8:8 + c].min()) == 1.0
@@ -786,7 +776,7 @@ def test_density_grid_query_goes_through_kernel_1(model):
     before = fm.fused_mlp_forward.launches
     occ, sem = query_density_grid(m, cfg, pts, 0.05, chunk=131_072)
     assert fm.fused_mlp_forward.launches == before + 3
-    host = IntrinsicMLP(cfg, device="cpu")
+    host = PackedMLP(cfg, device="cpu")
     host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
     occ_p, _ = query_density_grid(host, cfg, pts[:20_000], 0.05, chunk=131_072)
     assert occ.shape == (300_000,) and sem.shape == (300_000,)

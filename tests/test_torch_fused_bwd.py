@@ -42,7 +42,7 @@ def _points(n, seed):
 def setup(request):
     jcfg, tcfg = _cfgs(request.param)
     params = jax.tree_util.tree_map(np.asarray, jm.init_mlp_params(jax.random.key(0), jcfg))
-    model = tm.IntrinsicMLP(tcfg, device="cpu")
+    model = tm.PackedMLP(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(params, device="cpu"))
     return jcfg, tcfg, params, model
 
@@ -112,8 +112,9 @@ def _loss_t(r, cfg):
 
 def test_parameter_gradients_match_jax_grad(setup):
     """A loss on ``eval_points`` output: the port's grad-enabled fused
-    path (live pack -> ``FusedMLP``) against ``jax.grad`` of the JAX
-    fused path, per parameter of every ``nn.Linear``."""
+    path (the packed buffers -> ``FusedMLP``, then the mask projection)
+    against ``jax.grad`` of the JAX fused path, per reference parameter
+    of every ``nn.Linear``."""
     jcfg, tcfg, params, model = setup
     pts, d = _points(96, 3)
     pts = pts.reshape(8, 12, 3)
@@ -123,7 +124,8 @@ def test_parameter_gradients_match_jax_grad(setup):
     ref = params_from_jax(jax.tree_util.tree_map(np.asarray, gj), device="cpu")
     model.zero_grad(set_to_none=True)
     _loss_t(tm.eval_points(model, tcfg, torch.from_numpy(pts), torch.from_numpy(d)), tcfg).backward()
-    got = {k: p.grad for k, p in model.named_parameters()}
+    model.mask_grads()
+    got = model.unpack(tf.FlatBlocks(model.weight.grad, model.bias.grad))
     assert sorted(got) == sorted(ref)
     allt = np.concatenate([got[k].numpy().ravel() for k in sorted(got)])
     allj = np.concatenate([ref[k].numpy().ravel() for k in sorted(got)])
@@ -136,29 +138,23 @@ def test_parameter_gradients_match_jax_grad(setup):
 
 
 def test_pack_backward_is_the_mask_projection(setup):
-    """The raw packed gradients are nonzero on padded slots (the shared
-    output product feeds them); what reaches the parameters, packed
-    again, equals the raw gradients times ``packed_grad_masks`` exactly,
-    so the padded slots get exactly zero."""
+    """The raw gradients of the packed buffers are nonzero on padded
+    slots (the shared output product feeds them); ``mask_grads`` leaves
+    exactly the raw gradients times ``packed_grad_masks``, so the padded
+    slots get exactly zero."""
     _, tcfg, _, model = setup
     pts, d = _points(64, 4)
-    named = dict(model.named_parameters())
-    packed = tf.pack_weights(named, tcfg)
-    for v in packed.values():
-        if v.requires_grad:
-            v.retain_grad()
     model.zero_grad(set_to_none=True)
-    r = tf.fused_eval_points(packed, tcfg, torch.from_numpy(pts), torch.from_numpy(d))
+    r = tm.eval_points(model, tcfg, torch.from_numpy(pts), torch.from_numpy(d))
     _loss_t(r, tcfg).backward()
-    masks = tf.packed_grad_masks(named, tcfg)
-    back = tf.pack_weights({k: p.grad for k, p in named.items()}, tcfg)
-    for k in tf._PACKED_KEYS:
-        if packed[k].grad is None:  # the zero semantic blocks of a model without them
-            assert not tcfg.enable_semantic and back[k].abs().max() == 0
-            continue
-        assert torch.equal(back[k], packed[k].grad * masks[k]), k
-        assert back[k][masks[k] == 0].abs().max() == 0 if (masks[k] == 0).any() else True
-    assert packed["w_sig"].grad[:, 1:].abs().max() > 0  # padded, yet fed by the other heads
+    raw = tf.FlatBlocks(model.weight.grad.clone(), model.bias.grad.clone())
+    model.mask_grads()
+    masks = tf.flatten_blocks(tf.packed_grad_masks(model.state_dict(), tcfg))
+    for got, g, mask in zip(model.flat(), raw, masks):
+        assert torch.equal(got.grad, g * mask)
+        assert not got.grad[mask == 0].any()
+    w_sig = tf.flat_blocks(raw, tcfg)["w_sig"]
+    assert w_sig[:, 1:].abs().max() > 0  # padded, yet fed by the other heads
 
 
 def test_in8_and_pe_get_no_gradient(setup):
@@ -166,10 +162,11 @@ def test_in8_and_pe_get_no_gradient(setup):
     pts, d = _points(32, 5)
     in8 = tf.build_in8(torch.from_numpy(pts), torch.from_numpy(d)).requires_grad_(True)
     F, m = (t.clone().requires_grad_(True) for t in tf.pe_constants(tcfg))
-    out = tf.fused_mlp_apply(dict(model.named_parameters()), tcfg, in8, pe=(F, m))
+    model.zero_grad(set_to_none=True)
+    out = tf.fused_mlp_apply(model.flat(), tcfg, in8, pe=(F, m))
     out.sum().backward()
     assert in8.grad is None and F.grad is None and m.grad is None
-    assert model.pts_linears[0].weight.grad is not None
+    assert model.weight.grad is not None and model.bias.grad is not None
 
 
 def test_cotangent_is_bf16_and_cpu_launches_nothing(setup, monkeypatch):
@@ -202,7 +199,7 @@ def test_kernel_flat_layout_round_trip(setup):
     dw = torch.cat([packed[k].reshape(-1) for k in tf._W_ORDER])
     out = torch.arange(tf.OUT_W, dtype=torch.float32)[None]
     db = torch.cat([packed[k].reshape(-1) for k in tf._B_ORDER] + [out.reshape(-1)])
-    wbuf, bbuf = tf.kernel_buffers(packed)
+    wbuf, bbuf = tf.kernel_buffers(tf.flatten_blocks(packed))
     assert (dw.numel(), db.numel()) == (wbuf.numel(), bbuf.numel()) == (835_584, 2_944)
     back = tf._unflatten_grads(dw, db, packed)
     for k in tf._PACKED_KEYS:

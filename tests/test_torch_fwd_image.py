@@ -58,7 +58,7 @@ def _flat_weights(seed, n_classes):
     model.load_state_dict({k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
                            for k, v in model.state_dict().items()})
     packed = fm.pack_weights(model.state_dict(), cfg)
-    wbuf, _ = fm.kernel_buffers(packed)
+    wbuf, _ = fm.kernel_buffers(fm.flatten_blocks(packed))
     return wbuf, packed
 
 

@@ -2,6 +2,7 @@
 and that its kernel module needs no compiler until a kernel launches."""
 
 import ast
+import dataclasses
 import glob
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 import intrinsicnerf_tpu_torch
-from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig
+from intrinsicnerf_tpu_torch.models.mlp import IntrinsicMLP, MLPConfig, PackedMLP, eval_points
 from intrinsicnerf_tpu_torch.ops import build, fused_mlp
 from intrinsicnerf_tpu_torch.render.pipeline import RenderConfig
 from intrinsicnerf_tpu_torch.tools.import_ckpt import params_from_jax, params_to_jax
@@ -101,11 +102,27 @@ def test_resolve_device_cpu_is_explicit(no_gpu):
 
 
 def test_kernel_wrapper_refuses_other_devices():
-    cfg = MLPConfig(pos_scalar_factor=10.0)
-    ops = IntrinsicMLP(cfg, device="cpu").fused_operands(cfg)
+    cfg = MLPConfig(pos_scalar_factor=10.0, use_fused_kernel=True)
+    ops = PackedMLP(cfg, device="cpu").fused_operands(cfg)
     in8 = torch.zeros(4, fused_mlp.IN8_W, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_mlp.fused_mlp_forward(ops, in8)
+
+
+def test_fused_config_refuses_the_reference_layout():
+    """Where the kernels take the configuration they run a ``PackedMLP``
+    alone: an ``IntrinsicMLP`` there raises on every path (with grad and
+    without, for the endpoint feature too) whatever the points' device,
+    and never falls back to the plain layers, which it takes elsewhere."""
+    cfg = MLPConfig(pos_scalar_factor=10.0, use_fused_kernel=True)
+    m = IntrinsicMLP(cfg, device="cpu")
+    for dev in ("cpu", "meta"):
+        pts, dirs = torch.zeros(2, 3, 3, device=dev), torch.zeros(2, 3, device=dev)
+        for grad, feat in ((True, False), (False, False), (True, True)):
+            with torch.set_grad_enabled(grad), pytest.raises(ValueError, match="PackedMLP"):
+                eval_points(m, cfg, pts, dirs, want_endpoint_feat=feat)
+    plain = dataclasses.replace(cfg, use_fused_kernel=False)
+    assert eval_points(m, plain, torch.zeros(2, 3, 3), torch.zeros(2, 3)).rgb.shape == (2, 3, 3)
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):

@@ -39,9 +39,9 @@ def _cfgs(sem=True, C=7, compute_dtype=torch.float32, **kw):
             tm.MLPConfig(compute_dtype=compute_dtype, **common))
 
 
-def _models(jcfg, tcfg, seed=0):
+def _models(jcfg, tcfg, seed=0, cls=tm.IntrinsicMLP):
     params = jax.tree_util.tree_map(np.asarray, jm.init_mlp_params(jax.random.key(seed), jcfg))
-    model = tm.IntrinsicMLP(tcfg, device="cpu")
+    model = cls(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(params, device="cpu"))
     return params, model
 
@@ -111,7 +111,7 @@ def test_pack_weights_bit_exact(sem):
     for k in tf._PACKED_KEYS:
         np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]), err_msg=k)
     back = tf.unpack_weights(b, tcfg)
-    assert tf.is_packed(b) and not tf.is_packed(back)
+    assert sorted(back) == sorted(model.state_dict())
     for k, v in model.state_dict().items():
         assert torch.equal(back[k], v), k
 
@@ -132,7 +132,7 @@ def test_pe_constants_and_in8():
 @pytest.fixture(scope="module")
 def fused_pair():
     jcfg, tcfg = _cfgs(compute_dtype=torch.bfloat16, use_fused_kernel=True)
-    params, model = _models(jcfg, tcfg)
+    params, model = _models(jcfg, tcfg, cls=tm.PackedMLP)
     return jcfg, tcfg, params, model
 
 
@@ -140,14 +140,15 @@ def test_plain_fused_matches_pallas(fused_pair):
     jcfg, tcfg, params, model = fused_pair
     pts, d = _points()
     a = jf.fused_eval_points(params, jcfg, jnp.asarray(pts), jnp.asarray(d))
-    b = tf.fused_eval_points(model.state_dict(), tcfg, torch.from_numpy(pts), torch.from_numpy(d))
+    b = tf.fused_eval_points(model.fused_operands(tcfg), tcfg, torch.from_numpy(pts),
+                             torch.from_numpy(d))
     for name in HEADS:
         x, y = np.asarray(getattr(a, name)), getattr(b, name).numpy()
         assert np.max(np.abs(x - y)) / max(np.abs(x).max(), 1.0) < 2e-2, name
     # the raw packed output, including the zero padding columns
     in8 = jf.build_in8(jcfg, jnp.asarray(pts), jnp.asarray(d))
     ra = np.asarray(jf.fused_mlp_apply(params, jcfg, in8))
-    rb = tf.fused_mlp_apply(model.state_dict(), tcfg, torch.from_numpy(np.array(in8))).numpy()
+    rb = tf.fused_mlp_apply(model.flat(), tcfg, torch.from_numpy(np.array(in8))).detach().numpy()
     assert np.max(np.abs(ra - rb)) / max(np.abs(ra).max(), 1.0) < 2e-2
     assert np.abs(rb[:, 8 + tcfg.num_semantic_classes:]).max() == 0.0
 
@@ -166,7 +167,7 @@ def test_eval_points_dispatches_to_plain_on_cpu(fused_pair):
 
 
 def test_fused_operands_kept_until_weights_change(fused_pair):
-    """The model packs its fused operands once, and packs them again
+    """The model makes its fused operands once, and makes them again
     after an in-place weight change (as an optimizer step or
     ``load_state_dict`` makes) or under another config."""
     _, tcfg, _, model = fused_pair
@@ -174,17 +175,38 @@ def test_fused_operands_kept_until_weights_change(fused_pair):
     ops = m.fused_operands(tcfg)
     assert m.fused_operands(tcfg) is ops
     with torch.no_grad():
-        m.pts_linears[0].weight.add_(1.0)
+        m.weight.add_(1.0)
     changed = m.fused_operands(tcfg)
     assert changed is not ops and m.fused_operands(tcfg) is changed
     m.load_state_dict(model.state_dict())
     for got in (m.fused_operands(tcfg), model.fused_operands(tcfg)):
         want = tf.pack_weights(model.state_dict(), tcfg)
         assert all(torch.equal(got.packed[k], v) for k, v in want.items())
-        made = (*tf.pe_constants(tcfg), *tf.kernel_buffers(want))
+        made = (*tf.pe_constants(tcfg), *tf.kernel_buffers(tf.flatten_blocks(want)))
         assert all(torch.equal(x, y) for x, y in zip((*got.pe, got.wbuf, got.bbuf), made))
     other = dataclasses.replace(tcfg, pos_scalar_factor=3.0)
     assert torch.equal(m.fused_operands(other).pe[0], tf.pe_constants(other)[0])
+
+
+def test_tools_operands_are_the_seeded_pack():
+    """The kernel tools' operands, ``PackedMLP(seed 5).fused_operands`` at
+    the Replica config they read, are bitwise the pack of the reference
+    model made from the same seed."""
+    from intrinsicnerf_tpu_torch.config import from_yaml
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+
+    mcfg = dataclasses.replace(from_yaml(bwd_passes.CONFIG).mlp,
+                               num_semantic_classes=bwd_passes.N_CLASSES)
+    assert tm.fuses(mcfg)
+    ops = tm.PackedMLP(mcfg, device="cpu",
+                       generator=torch.Generator().manual_seed(5)).fused_operands(mcfg)
+    sd = tm.IntrinsicMLP(mcfg, device="cpu", generator=torch.Generator().manual_seed(5)).state_dict()
+    want = tf.pack_weights(sd, mcfg)
+    assert list(ops.packed) == list(want)
+    assert all(torch.equal(ops.packed[k], v) for k, v in want.items())
+    wbuf, bbuf = tf.kernel_buffers(tf.flatten_blocks(want))
+    assert torch.equal(ops.wbuf.view(torch.int16), wbuf.view(torch.int16))
+    assert torch.equal(ops.bbuf, bbuf)
 
 
 @pytest.mark.parametrize("flavor", ["scene", "object"])

@@ -54,7 +54,7 @@ def _setup(bf16_fused: bool):
     pj = [jax.tree_util.tree_map(np.asarray, jm.init_mlp_params(k, jcfg)) for k in (kc, kf)]
     models = []
     for p in pj:
-        m = tm.IntrinsicMLP(tcfg, device="cpu")
+        m = (tm.PackedMLP if bf16_fused else tm.IntrinsicMLP)(tcfg, device="cpu")
         m.load_state_dict(params_from_jax(p, device="cpu"))
         models.append(m)
     rng = np.random.default_rng(12)

@@ -21,6 +21,8 @@ weights:
 - serving: one full 320x240 view through ``render_views`` (32,768-ray
   chunks, the last one short), which must go through kernel 1 and agree
   with the plain version on a subset of its rays;
+- kernel 2 (the fused-MLP backward): its build without a spill and with
+  its register split honoured;
 - training: ``train/step.py:make_train_step`` at 512 pairs per step on
   four synthetic 320x240 views, which must launch kernels 1 and 2 twice
   each per step, keep every loss term finite, move the parameters,
@@ -49,7 +51,9 @@ weights:
   train on; once one step per call, once ``steps_per_call`` 10 (blocks
   of 10 steps as graph replays, the cadences landing as before, and a
   replay after the last rebuild reading the new table; the share of
-  kernel 1's tiles whose PE ran ahead, ``fwd.tiles_ahead / fwd.tiles``); the editing
+  kernel 1's tiles whose PE ran ahead, ``fwd.tiles_ahead / fwd.tiles``,
+  and of kernel 2's whose inputs were staged ahead, ``bwd.tiles_ahead /
+  bwd.tiles``); the editing
   session (``tools/editing.py``) on the second run's last rebuild, its
   cluster search on the card equal to the host's;
 - the bench (``tools/bench.py``) at 1 and 8 steps per call;
@@ -999,12 +1003,14 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
     report_last = trainer.fit(progress=False)
     torch.cuda.synchronize()
     eager, captured, per_replay, replays, total = counts(trainer)
-    # kernel 1's tiles in the run (eager launches and replays), and the
-    # share whose PE its persistent blocks encoded while running the tile before
-    tiles = {k: trace.snapshot()["counters"].get(k, 0) - tiles0.get(k, 0)
-             for k in ("fwd.tiles", "fwd.tiles_ahead")}
-    say(f"{phase}_fwd_tiles", **{k.replace(".", "_"): v for k, v in tiles.items()},
-        ahead_share=f"{tiles['fwd.tiles_ahead'] / max(tiles['fwd.tiles'], 1):.4f}")
+    # the tiles of kernels 1 and 2 in the run (eager launches and replays), and
+    # the share whose inputs their persistent blocks prepared (kernel 1: the
+    # PE; kernel 2: the PE and the cotangent) while running the tile before
+    for kernel in ("fwd", "bwd"):
+        tiles = {k: trace.snapshot()["counters"].get(k, 0) - tiles0.get(k, 0)
+                 for k in (f"{kernel}.tiles", f"{kernel}.tiles_ahead")}
+        say(f"{phase}_{kernel}_tiles", **{k.replace(".", "_"): v for k, v in tiles.items()},
+            ahead_share=f"{tiles[f'{kernel}.tiles_ahead'] / max(tiles[f'{kernel}.tiles'], 1):.4f}")
 
     # after the last rebuild, a replay reads the table copied in: one block
     # as a replay against the same steps run eagerly, on the new table and
@@ -3155,15 +3161,16 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         say("build", kernel=name, seconds=f"{secs:.1f}", ptxas=json.dumps(" | ".join(info)))
     say("build", total_seconds=f"{time.perf_counter() - t0:.1f}")
-    # kernel 1: no spill in any role, and its register split (setmaxnreg) honoured
-    fwd_log = builds[0][2]
-    fwd_spills = {k: u["spill_stores"] + u["spill_loads"]
-                  for k, u in build.ptxas_usage(fwd_log).items()}
-    reg_warnings = [ln.strip() for ln in fwd_log.splitlines()
-                    if "setmaxnreg" in ln and "warning" in ln.lower()]
-    say("fwd_build", spill_bytes=json.dumps(fwd_spills), setmaxnreg_warnings=len(reg_warnings))
-    if not fwd_spills or any(fwd_spills.values()) or reg_warnings:
-        raise AssertionError(f"kernel 1's build: spills {fwd_spills}, {reg_warnings}")
+    # kernels 1 and 2: no spill in any role, and their register split
+    # (setmaxnreg) honoured
+    for label, (_, _, log) in (("fwd_build", builds[0]), ("bwd_build", builds[1])):
+        spills = {k: u["spill_stores"] + u["spill_loads"]
+                  for k, u in build.ptxas_usage(log).items()}
+        reg_warnings = [ln.strip() for ln in log.splitlines()
+                        if "setmaxnreg" in ln and "warning" in ln.lower()]
+        say(label, spill_bytes=json.dumps(spills), setmaxnreg_warnings=len(reg_warnings))
+        if not spills or any(spills.values()) or reg_warnings:
+            raise AssertionError(f"{label}: spills {spills}, {reg_warnings}")
 
     # the configuration, as a user loads it
     fc = from_yaml(CONFIG)

@@ -32,28 +32,49 @@
 //     an input product of the backward; 104 per tile, 2.98 MB in all),
 //     each laid out as it sits in shared memory (128-byte swizzle,
 //     hopper_mma.cuh), in the order the products consume them.
-//  1. `bwd_act_wgmma_kernel`: one block per 64-point tile, one block per
-//     SM (221 KB of shared memory): two consumer warpgroups and a producer
-//     warp.  The producer moves the weight image slab by slab into a
-//     3-stage ring of 32 KB with one bulk copy each (the copy engine, an
-//     mbarrier per stage for full and one for empty), running ahead of the
-//     consumers across layer boundaries and epilogues.  The consumers
-//     recompute the forward and run the backward chain with the tile's
-//     activations and gradients in shared memory, each a K-major operand
-//     of 64-column atoms; every product is wgmma m64nNk16 from shared
-//     memory with the two warpgroups splitting the output columns (N = 128
-//     each for a 256-wide layer, 64 for a 128-wide head) and one slab's
-//     products left in flight while the next is issued.  Epilogues work on
-//     the accumulator registers: bias (loaded before the product) and ReLU,
-//     the ReLU's mask kept as one bit per register in shared memory for
-//     the backward (no re-read of the arena), rows past P zeroed in the
-//     gradients, bf16 pairs into the next product's operand, then one bulk
-//     store of the warpgroup's atoms to the arena by one of its threads, and
-//     the bias partials as column sums in a fixed order (lane shuffles, then
-//     the four warps).  The arena holds 5,888 bf16 per point; each buffer
-//     keeps a tile's rows in the atoms of its shared buffer, byte for byte,
-//     so a warpgroup's columns are one contiguous run in both places.  Rows
-//     past P are zero-gradient padding up to a multiple of 64.
+//  1. `bwd_act_wgmma_kernel`: persistent, one block per SM (226 KB of
+//     shared memory), min(tiles, SMs) blocks; block b walks the 64-point
+//     tiles b, b + grid, b + 2 grid, ... in order.  Three warpgroups:
+//     - two consumer warpgroups recompute each tile's forward and run its
+//       backward chain with the tile's activations and gradients in shared
+//       memory, each a K-major operand of 64-column atoms; every product
+//       is wgmma m64nNk16 from shared memory with the two warpgroups
+//       splitting the output columns (N = 128 each for a 256-wide layer,
+//       64 for a 128-wide head) and one slab's products left in flight
+//       while the next is issued.  Epilogues work on the accumulator
+//       registers: bias (loaded before the product) and ReLU, the ReLU's
+//       mask kept as one bit per register in shared memory for the
+//       backward (no re-read of the arena), rows past P zeroed in the
+//       gradients, bf16 pairs into the next product's operand, then one
+//       bulk store of the warpgroup's atoms to the arena by one of its
+//       threads, and the bias partials as column sums in a fixed order
+//       (lane shuffles, then the four warps);
+//     - in the third, one thread of its first warp (the producer) moves
+//       the weight image slab by slab, once per tile, into a 3-stage ring
+//       of 32 KB with one bulk copy each (the copy engine, an mbarrier per
+//       stage for full and one for empty), running ahead of the consumers
+//       across layers, epilogues and tiles;
+//     - its other three warps (the staging warps) stage the next tile's
+//       inputs while the consumers run this one: its PE features (F and
+//       the sine mask in shared memory, staged once) and its cotangent
+//       (zero past P), each written 16 bytes at a time straight into the
+//       tile's atoms of the arena, and the output bias's gradient, the
+//       cotangent's 128 column sums over the tile's rows in order, into
+//       its bias partials.  The shared memory has no room for a second
+//       16 KB input buffer, so each input comes into the one slot [0, 16K)
+//       by a bulk copy from the arena (L2) when the chain frees it: the
+//       features once the previous tile's dH product has read its
+//       cotangent, the cotangent once the v head has read the features.
+//       Each of the two has a full mbarrier (the copy's bytes) and an
+//       empty one (the eight consumer warps), and one staging thread
+//       issues both copies.  A block with one tile pays its staging up
+//       front.
+//     setmaxnreg gives the consumers the registers the third warpgroup
+//     does not need.  The arena holds 5,888 bf16 per point; each buffer
+//     keeps a tile's rows in the atoms of its shared buffer, byte for
+//     byte, so a warpgroup's columns are one contiguous run in both
+//     places.  Rows past P are zero-gradient padding up to a multiple of
+//     64.
 //  2. `bwd_wgrad_gemm_kernel`: dW = A^T G for the 20 weight blocks as 51
 //     output tiles of 128x128, each over one of `splits` point chunks, so
 //     that 255 blocks of two warpgroups and a producer warp run as one wave
@@ -66,32 +87,44 @@
 //     835,584] straight from the registers.
 //  3. `reduce_rows_kernel` (twice): the partials and the per-tile bias
 //     partials summed in a fixed order.
-// No atomics anywhere: two launches on the same inputs give bitwise-equal
-// gradients.  The TPU kernel accumulates dW in place across its sequential
-// grid instead; a GPU grid runs in parallel and dW (3.3 MB in fp32) does
-// not fit in a block, hence the arena and the partials.
+// No atomics anywhere, and every sum in a fixed order whatever block runs
+// a tile: two launches on the same inputs give bitwise-equal gradients.
+// A lost mbarrier arrival or byte count traps (hopper_mma.cuh:mbar_wait),
+// so a pipeline fault fails the launch instead of hanging the card.  The
+// TPU kernel accumulates dW in place across its sequential grid instead; a
+// GPU grid runs in parallel and dW (3.3 MB in fp32) does not fit in a
+// block, hence the arena and the partials.
 //
-// Copies: every copy is a bulk copy (the copy engine without a tensor map),
-// since each one moves a contiguous run: a weight slab of the image, a
-// warpgroup's atoms of a buffer into the arena, an operand's two atoms of
-// a slab out of it.  TMA tensor maps are not needed for that, and would be
-// encoded per call through the driver API (the arena is a fresh
-// allocation; this plain-C build has no libcuda link).  A store is read
-// out of shared memory while the next product runs; a product's first
-// thread of each warpgroup waits, before the barrier that opens it, until
-// all but the warpgroup's newest store have read their buffers, since its
-// epilogue may overwrite them.  The stores mark their lines first to go
-// from L2 (hopper_mma.cuh:bulk_store), so that the 2.3 GB of arena a fine
-// call writes does not push out the weight image that every tile reads.
-// Measured on the card (PERF.md, PRs 5 and 19, at the fine shape): the
-// activation pass took 5.5 ms with the weights loaded by cp.async from
-// every thread behind a block barrier per slab, 3.4 ms with the producer's
-// bulk copies, 2.8 ms with one slab's products in flight and the bias
-// loaded ahead and the arena written by 16-byte copies from every thread;
-// 3.3 ms with the arena's bulk stores and the slab loops as the compiler
-// unrolled them, 2.4-2.5 ms with the loops rolled, 2.0 ms with the stores'
-// lines marked `evict_first`, the same as with no arena stores at all.  The GEMM took 1.10 ms with 16-byte cp.async behind a block
-// barrier per slab, 0.89 ms with the bulk-load ring (its byte bound 0.70).
+// Copies: every copy but the staging warps' is a bulk copy (the copy
+// engine without a tensor map), since each one moves a contiguous run: a
+// weight slab of the image, a warpgroup's atoms of a buffer into the
+// arena, a tile's two input atoms out of it into the slot, an operand's
+// two atoms of a slab out of it into the GEMM's ring.  TMA tensor maps
+// are not needed for that, and would be encoded per call through the
+// driver API (the arena is a fresh allocation; this plain-C build has no
+// libcuda link).  A store is read out of shared memory while the next
+// product runs; a product's first thread of each warpgroup waits, before
+// the barrier that opens it, until all but the warpgroup's newest store
+// have read their buffers, since its epilogue may overwrite them.  The
+// stores mark their lines first to go from L2 (hopper_mma.cuh:bulk_store),
+// and the weight image's loads mark theirs last (bulk_load_evict_last), so
+// that the 2.3 GB of arena a fine call writes does not push out the image
+// that every tile reads.
+// Measured on the card (PERF.md, at the fine shape): the activation pass
+// took 5.5 ms with the weights loaded by cp.async from every thread behind
+// a block barrier per slab, 3.4 ms with the producer's bulk copies, 2.8 ms
+// with one slab's products in flight and the bias loaded ahead and the
+// arena written by 16-byte copies from every thread; 3.3 ms with the
+// arena's bulk stores and the slab loops as the compiler unrolled them,
+// 2.4-2.5 ms with the loops rolled, 2.0 ms with the stores' lines marked
+// `evict_first`, the same as with no arena stores at all.  With a block a
+// tile, the PE features and the cotangent, staged by the consumers before
+// the chain, were 16-21% of that; staged ahead by the third warpgroup of a
+// persistent block, the pass took 1.75 ms, and 1.60-1.66 ms with the
+// image's lines kept in L2 (the same hint without the staging warps' plain
+// stores moved nothing).  The GEMM took 1.10 ms with 16-byte cp.async
+// behind a block barrier per slab, 0.89 ms with the bulk-load ring (its
+// byte bound 0.70).
 
 #include <climits>
 
@@ -127,32 +160,46 @@ static_assert(AR_COLS == 5888, "arena layout changed");
 
 // ---- the activation pass ----
 //
-// Shared memory of one 64-point tile (byte offsets from a 1 KB boundary).
-// Every activation or gradient buffer is K-major for the next product:
-// 64-column atoms of 64 rows (hopper_mma.cuh), 8 KB each.
+// Shared memory of one block (byte offsets from a 1 KB boundary).  Every
+// activation or gradient buffer is K-major for the next product: 64-column
+// atoms of 64 rows (hopper_mma.cuh), 8 KB each.
 //  overlay, forward:  feat [0, 16K)  bufA [16K, 48K)  bufB [48K, 80K)
 //                     head scratch [80K, 96K)
 //  overlay, backward: go [0, 16K)  gv / ga1 / gs1 / gm1 [16K, 64K), the
 //                     trunk gradients ping [16K, 48K) and pong [64K, 96K),
 //                     gf [64K, 96K)
+//  [0, 16K) is the inputs' slot: the bulk copies bring a tile's features,
+//    then its cotangent, then the next tile's features into it
 //  weight ring: ACT_STAGES x 32 KB, one K-slab of 64 of a weight block each
 //  ReLU masks: one bit per accumulator register of each thread, 12 layers
 //  column-sum scratch: [2 warpgroups][4 warps][128] fp32
-//  the ring's barriers: full and empty, one each per stage
+//  the PE's inputs (fp32): F [8, 128] and the sine mask [128]
+//  barriers: the ring's full and empty, one each per stage, then the
+//    slot's full and empty for the features, then for the cotangent
 constexpr int ATOM = 64 * 128;  // one 64-row atom
 constexpr int OV_FEAT = 0, OV_BUFA = 16384, OV_BUFB = 49152, OV_HEAD = 81920;
 constexpr int OV_GO = 0, OV_R1 = 16384, OV_R2 = 65536;
+constexpr int IN_BYTES = 2 * ATOM;  // a tile's 128 features, or its 128 cotangent columns
 constexpr int SM_RING = 98304;
 constexpr int ACT_STAGES = 3;
 constexpr int ACT_STAGE_BYTES = 32768;
 constexpr int SM_MASKS = SM_RING + ACT_STAGES * ACT_STAGE_BYTES;
 constexpr int N_MASKS = 12;  // act0..act7, v, a1, s1, m1
 constexpr int SM_COLSUM = SM_MASKS + N_MASKS * NTHREADS * 8;
-constexpr int SM_BARS = SM_COLSUM + 2 * 4 * 128 * 4;
-constexpr int ACT_SMEM = SM_BARS + 2 * ACT_STAGES * 8 + 1024;  // + slack to align to 1 KB
+constexpr int SM_PE = SM_COLSUM + 2 * 4 * 128 * 4;
+constexpr int SM_BARS = SM_PE + (IN8_W + 1) * IN_W * 4;
+constexpr int IN_FEAT = 0, IN_GO = 1;  // the slot's inputs, in their barriers' order
+constexpr int ACT_SMEM = SM_BARS + (2 * ACT_STAGES + 4) * 8 + 1024;  // + slack to align to 1 KB
 static_assert(ACT_SMEM <= 232448, "the activation pass exceeds a block's shared memory");
+static_assert(OV_FEAT == 0 && OV_GO == 0 && OV_BUFA == IN_BYTES && OV_R1 == IN_BYTES,
+              "the inputs' slot");
 static_assert(NTHREADS == 256, "two consumer warpgroups");
-constexpr int ACT_THREADS = NTHREADS + 32;  // + the producer warp
+// + the third warpgroup: the producer warp, then the staging warps
+constexpr int ACT_THREADS = NTHREADS + 128;
+constexpr int STAGE_THREADS = 96;
+// registers a thread after setmaxnreg: 128 x 88 + 256 x 208 = 384 x 168,
+// the block's share of the SM's 65,536 at launch
+constexpr int STAGE_REGS = 88, CONSUMER_REGS = 208;
 enum { MK_V = 8, MK_A1, MK_S1, MK_M1 };
 
 // One weight block as the products stream it, K-slab by K-slab: forward
@@ -226,22 +273,28 @@ bwd_act_wimg_kernel(const bf16* __restrict__ w, bf16* __restrict__ img) {
   }
 }
 
-// The producer: one thread of the extra warp moves the weight image into
-// the ring, slab by slab, ACT_STAGES ahead of the consumers at most; a
-// stage's `full` barrier completes when its bytes have landed, its
-// `empty` barrier when the eight consumer warps are done with it.
+// The producer: one thread of the third warpgroup moves the weight image
+// into the ring, slab by slab, once for each of the block's tiles,
+// ACT_STAGES ahead of the consumers at most; a stage's `full` barrier
+// completes when its bytes have landed, its `empty` barrier when the
+// eight consumer warps are done with it.  The ring's count runs on across
+// tiles, so the next tile's first slabs land while this tile's last
+// gradients are stored.  The image's lines are the last L2 evicts: the
+// arena's streams pass through L2 around it.
 __device__ __forceinline__ void produce(uint32_t ring, uint32_t full, uint32_t empty,
-                                        const bf16* __restrict__ img) {
-  long off = 0;
+                                        const bf16* __restrict__ img, int tiles) {
   int i = 0;
-  for (int seg = 0; seg < N_SEGS; ++seg) {
-    const uint32_t bytes = 128 * c_segs[seg].N;  // 64 x N bf16
-    for (int k = 0; k < c_segs[seg].K / 64; ++k, ++i) {
-      const int st = i % ACT_STAGES;
-      if (i >= ACT_STAGES) hmma::mbar_wait(empty + st * 8, ((i / ACT_STAGES) - 1) & 1);
-      hmma::mbar_expect_tx(full + st * 8, bytes);
-      hmma::bulk_load(ring + st * ACT_STAGE_BYTES, img + off, bytes, full + st * 8);
-      off += bytes / 2;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    long off = 0;
+    for (int seg = 0; seg < N_SEGS; ++seg) {
+      const uint32_t bytes = 128 * c_segs[seg].N;  // 64 x N bf16
+      for (int k = 0; k < c_segs[seg].K / 64; ++k, ++i) {
+        const int st = i % ACT_STAGES;
+        if (i >= ACT_STAGES) hmma::mbar_wait(empty + st * 8, ((i / ACT_STAGES) - 1) & 1);
+        hmma::mbar_expect_tx(full + st * 8, bytes);
+        hmma::bulk_load_evict_last(ring + st * ACT_STAGE_BYTES, img + off, bytes, full + st * 8);
+        off += bytes / 2;
+      }
     }
   }
 }
@@ -252,7 +305,7 @@ struct Ring {
   int it;
 };
 
-// the barrier of the 256 consumer threads (the producer warp stays out)
+// the barrier of the 256 consumer threads (the third warpgroup stays out)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
@@ -423,26 +476,125 @@ __device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2], const 
   }
 }
 
-// PE features of the tile into the K-major buffer `feat` (two atoms), as
-// kernel 1's compute_feat (fused_mlp_fwd.cu) computes them
-__device__ __forceinline__ void compute_feat_kmaj(unsigned char* feat,
-                                                  const float* __restrict__ in8,
-                                                  const float* __restrict__ pe_mat,
-                                                  const float* __restrict__ sin_mask,
-                                                  long long row0, long long n) {
-  for (int e = threadIdx.x; e < TILE_M * IN_W; e += NTHREADS) {
-    const int i = e / IN_W, c = e % IN_W;
-    const long long p = row0 + i;
-    float f = 0.0f;
-    if (p < n) {
-      const float* x = in8 + p * IN8_W;
-      float z = __fmul_rn(x[0], pe_mat[c]);
+// the barrier of the staging warps
+__device__ __forceinline__ void stage_sync() {
+  asm volatile("bar.sync 4, %0;\n" ::"n"(STAGE_THREADS) : "memory");
+}
+
+// A staging warp's 16-byte store of one chunk of a tile's input atoms into
+// the arena, the arena's one writer besides the consumers' bulk stores
+__device__ __forceinline__ void stage_put(unsigned char* dst, uint4 v) {
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+// Tile t's inputs, by the staging warps, into its atoms of the arena (rows
+// past n zero) and its row of the bias partials:
+//  - the PE features from the tile's in8 rows and F and the sine mask `pe`
+//    in shared memory, eight columns (one 16-byte chunk) at a time:
+//    z = in8 @ F as separately rounded fp32 products and sums (k = 0..7,
+//    as the plain version adds them), then feat = m ? sin(z) : z, rounded
+//    to bf16 as kernel 1 rounds them;
+//  - the cotangent's rows, 16 bytes at a time;
+//  - the five output biases' gradient: the cotangent's 128 column sums
+//    over the tile's 64 rows in order.
+// Each thread then fences its arena stores to the async proxy, through
+// which the slot's bulk copies read them.
+__device__ __forceinline__ void stage_tile(const float* pe, const float* __restrict__ in8,
+                                           const bf16* __restrict__ g, bf16* __restrict__ arena,
+                                           float* __restrict__ bpart, int t, long long n,
+                                           long long p_pad) {
+  const int pt = threadIdx.x - (NTHREADS + 32);
+  const long long row0 = (long long)t * TILE_M;
+  unsigned char* feat = reinterpret_cast<unsigned char*>(arena + AR_FEAT * p_pad + row0 * IN_W);
+  unsigned char* go = reinterpret_cast<unsigned char*>(arena + AR_GO * p_pad + row0 * OUT_W);
+  // chunk e: row e / 16, columns 8 (e % 16) .. + 8
+  for (int e = pt; e < TILE_M * 16; e += STAGE_THREADS) {
+    const int i = e >> 4, q = e & 15;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};  // eight bf16, column 8q + u at bits 16u
+    if (row0 + i < n) {
+      const float4* xp = reinterpret_cast<const float4*>(in8 + (row0 + i) * IN8_W);
+      const float4 x0 = __ldg(xp), x1 = __ldg(xp + 1);
+      const float x[IN8_W] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll 1
+      for (int u = 0; u < 8; ++u) {
+        const int c = q * 8 + u;
+        float z = __fmul_rn(x[0], pe[c]);
 #pragma unroll
-      for (int k = 1; k < IN8_W; ++k) z = __fadd_rn(z, __fmul_rn(x[k], pe_mat[k * IN_W + c]));
-      f = sin_mask[c] != 0.0f ? sinf(z) : z;
+        for (int k = 1; k < IN8_W; ++k) z = __fadd_rn(z, __fmul_rn(x[k], pe[k * IN_W + c]));
+        const float f = pe[IN8_W * IN_W + c] != 0.0f ? sinf(z) : z;
+        const bf16 h = __float2bfloat16(f);
+        // shift the chunk down one column and put this one on top
+        w[0] = __funnelshift_r(w[0], w[1], 16);
+        w[1] = __funnelshift_r(w[1], w[2], 16);
+        w[2] = __funnelshift_r(w[2], w[3], 16);
+        w[3] = __funnelshift_r(w[3], (uint32_t)__bfloat16_as_ushort(h), 16);
+      }
     }
-    *reinterpret_cast<bf16*>(feat + kmaj(i, c)) = __float2bfloat16(f);
+    stage_put(feat + (q >> 3) * ATOM + hmma::sw128(i, q & 7), make_uint4(w[0], w[1], w[2], w[3]));
   }
+  for (int e = pt; e < TILE_M * 16; e += STAGE_THREADS) {
+    const int i = e >> 4, q = e & 15;
+    const long long p = row0 + i;
+    stage_put(go + (q >> 3) * ATOM + hmma::sw128(i, q & 7),
+              p < n ? __ldg(reinterpret_cast<const uint4*>(g + p * OUT_W) + q)
+                    : make_uint4(0u, 0u, 0u, 0u));
+  }
+  for (int c = pt; c < OUT_W; c += STAGE_THREADS) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < TILE_M; ++i)
+      s += row0 + i < n ? __bfloat162float(g[(row0 + i) * OUT_W + c]) : 0.0f;
+    bpart[(long long)t * B_TOTAL + B_OUT + c] = s;
+  }
+  hmma::fence_proxy_async_global();
+}
+
+// tile t's atoms of the arena buffer at column offset `off` (width 128)
+// into the inputs' slot, by one bulk copy completing on `full`
+__device__ __forceinline__ void load_input(uint32_t slot, uint32_t full, const bf16* arena,
+                                           int off, int t, long long p_pad) {
+  hmma::mbar_expect_tx(full, IN_BYTES);
+  hmma::bulk_load(slot, arena + off * p_pad + (long long)t * TILE_M * 128, IN_BYTES, full);
+}
+
+// The staging warps: F and the sine mask staged once; the block's first
+// tile staged and its features loaded; then, while the consumers run the
+// block's j-th tile t, the next tile staged, and by the first staging
+// thread, the copies into the slot: t's cotangent once the consumers have
+// read t's features (in_empty, IN_FEAT), the next tile's features once
+// they have read t's cotangent (in_empty, IN_GO).
+__device__ __forceinline__ void stage_inputs(unsigned char* sm, uint32_t in_full,
+                                             uint32_t in_empty, const float* __restrict__ in8,
+                                             const float* __restrict__ pe_mat,
+                                             const float* __restrict__ sin_mask,
+                                             const bf16* __restrict__ g, bf16* __restrict__ arena,
+                                             float* __restrict__ bpart, long long n,
+                                             long long p_pad, int tiles) {
+  const int pt = threadIdx.x - (NTHREADS + 32);
+  const uint32_t slot = hmma::smem_u32(sm + OV_FEAT);
+  float* pe = reinterpret_cast<float*>(sm + SM_PE);
+  for (int e = pt; e < IN8_W * IN_W; e += STAGE_THREADS) pe[e] = pe_mat[e];
+  for (int e = pt; e < IN_W; e += STAGE_THREADS) pe[IN8_W * IN_W + e] = sin_mask[e];
+  stage_sync();
+  stage_tile(pe, in8, g, arena, bpart, blockIdx.x, n, p_pad);
+  stage_sync();
+  if (pt == 0) load_input(slot, in_full + IN_FEAT * 8, arena, AR_FEAT, blockIdx.x, p_pad);
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const int next = t + gridDim.x;
+    if (next < tiles) stage_tile(pe, in8, g, arena, bpart, next, n, p_pad);
+    stage_sync();  // the next tile staged by every staging thread
+    hmma::mbar_wait(in_empty + IN_FEAT * 8, j & 1);
+    if (pt == 0) load_input(slot, in_full + IN_GO * 8, arena, AR_GO, t, p_pad);
+    hmma::mbar_wait(in_empty + IN_GO * 8, j & 1);
+    if (pt == 0 && next < tiles)
+      load_input(slot, in_full + IN_FEAT * 8, arena, AR_FEAT, next, p_pad);
+  }
+}
+
+// a consumer warp is done reading the slot's input: one arrival per warp
+__device__ __forceinline__ void release(uint32_t empty) {
+  if ((threadIdx.x & 31) == 0) hmma::mbar_arrive(empty);
 }
 
 __global__ void __launch_bounds__(ACT_THREADS, 1)
@@ -454,130 +606,129 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   extern __shared__ __align__(128) unsigned char act_smem[];
   unsigned char* sm = act_smem + ((1024u - (hmma::smem_u32(act_smem) & 1023u)) & 1023u);
   const uint32_t sa = hmma::smem_u32(sm);
-  const long long row0 = (long long)blockIdx.x * TILE_M;
-  auto ar = [&](int off, int width) { return arena + (long)off * p_pad + row0 * width; };
-  float* bsum = bpart + (long)blockIdx.x * B_TOTAL;
-  float* colsum = reinterpret_cast<float*>(sm + SM_COLSUM);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(sm + SM_MASKS) + threadIdx.x * 2;
-  auto mask = [&](int layer) { return masks + layer * NTHREADS * 2; };
+  const int tiles = (int)(p_pad / TILE_M);
   Ring ring{sa + SM_RING, sa + SM_BARS, sa + SM_BARS + ACT_STAGES * 8, 0};
-  if (threadIdx.x == 0)
+  const uint32_t in_full = sa + SM_BARS + 2 * ACT_STAGES * 8, in_empty = in_full + 16;
+  if (threadIdx.x == 0) {
     for (int st = 0; st < ACT_STAGES; ++st) {
       hmma::mbar_init(ring.full + st * 8, 1);    // the producer's expect_tx
       hmma::mbar_init(ring.empty + st * 8, 8);   // the eight consumer warps
     }
+    for (int f = 0; f < 2; ++f) {
+      hmma::mbar_init(in_full + f * 8, 1);   // the staging thread's expect_tx
+      hmma::mbar_init(in_empty + f * 8, 8);  // the eight consumer warps
+    }
+  }
   hmma::fence_mbar_init();
   __syncthreads();
-  if (threadIdx.x >= NTHREADS) {  // the producer warp
-    if (threadIdx.x == NTHREADS) produce(ring.base, ring.full, ring.empty, img);
+  if (threadIdx.x >= NTHREADS) {  // the third warpgroup: the producer, the staging warps
+    hmma::setmaxnreg_dec<STAGE_REGS>();
+    if (threadIdx.x == NTHREADS)
+      produce(ring.base, ring.full, ring.empty, img, tiles);
+    else if (threadIdx.x >= NTHREADS + 32)
+      stage_inputs(sm, in_full, in_empty, in8, pe_mat, sin_mask, g, arena, bpart, n, p_pad,
+                   tiles);
     return;
   }
+  // the consumers
+  hmma::setmaxnreg_inc<CONSUMER_REGS>();
+  float* colsum = reinterpret_cast<float*>(sm + SM_COLSUM);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(sm + SM_MASKS) + threadIdx.x * 2;
+  auto mask = [&](int layer) { return masks + layer * NTHREADS * 2; };
   float acc2[64];  // a 256-wide product: 128 columns per warpgroup
   float acc1[32];  // a 128-wide product: 64 columns per warpgroup
-
-  // ---- forward recompute (kernel 1 without the output products) ----
-  compute_feat_kmaj(sm + OV_FEAT, in8, pe_mat, sin_mask, row0, n);
-  hmma::fence_proxy_async();
-  consumer_sync();
-  store_atoms<64>(sm + OV_FEAT, ar(AR_FEAT, IN_W));
-  uint32_t src = sa + OV_FEAT;
-  int kslabs = IN_W / 64;
   float bv2[32], bv1[16];  // the product's bias
-  for (int l = 0; l < 8; ++l) {
-    const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
-    zero_acc(acc2);
-    load_bias<128>(bv2, b + B_TRUNK + l * W);
-    mma_slabs<128, 0>(acc2, ring, src, kslabs);
-    if (l == 5) mma_slabs<128, 0>(acc2, ring, sa + OV_FEAT, IN_W / 64);
-    fwd_epilogue<128>(acc2, bv2, true, sm + dst, mask(l), ar(AR_ACT + l * W, W));
-    src = sa + dst;
-    kslabs = W / 64;
-  }
-  const uint32_t Hs = sa + OV_BUFB;  // act7
-  zero_acc(acc2);  // f = H@w_f + b_f -> bufA
-  load_bias<128>(bv2, b + B_F);
-  mma_slabs<128, 0>(acc2, ring, Hs, 4);
-  fwd_epilogue<128>(acc2, bv2, false, sm + OV_BUFA, nullptr, ar(AR_F, W));
-  zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v)
-  load_bias<64>(bv1, b + B_V);
-  mma_slabs<64, 0>(acc1, ring, sa + OV_BUFA, 4);
-  mma_slabs<64, 0>(acc1, ring, sa + OV_FEAT, 2);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_V), ar(AR_V, HW));
-  zero_acc(acc1);  // a1, s1, m1 = relu(H@w + b)
-  load_bias<64>(bv1, b + B_A1);
-  mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA, mask(MK_A1), ar(AR_A1, HW));
-  zero_acc(acc1);
-  load_bias<64>(bv1, b + B_S1);
-  mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, mask(MK_S1), ar(AR_S1, HW));
-  zero_acc(acc1);
-  load_bias<64>(bv1, b + B_M1);
-  mma_slabs<64, 0>(acc1, ring, Hs, 4);
-  fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_M1), ar(AR_M1, HW));
-  consumer_sync();  // the forward's buffers are read; the backward's overlay them
+  int j = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+    const long long row0 = (long long)t * TILE_M;
+    auto ar = [&](int off, int width) { return arena + (long)off * p_pad + row0 * width; };
+    float* bsum = bpart + (long)t * B_TOTAL;
 
-  // ---- backward chain ----
-  {
-    for (int e = threadIdx.x; e < TILE_M * OUT_W / 8; e += NTHREADS) {
-      const int i = e >> 4, c = (e & 15) * 8;
-      const long long p = row0 + i;
-      *reinterpret_cast<uint4*>(sm + OV_GO + kmaj(i, c)) =
-          p < n ? *reinterpret_cast<const uint4*>(g + p * OUT_W + c) : make_uint4(0, 0, 0, 0);
+    // ---- forward recompute (kernel 1 without the output products) ----
+    hmma::mbar_wait(in_full + IN_FEAT * 8, j & 1);  // the tile's features
+    uint32_t src = sa + OV_FEAT;
+    int kslabs = IN_W / 64;
+    for (int l = 0; l < 8; ++l) {
+      const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
+      zero_acc(acc2);
+      load_bias<128>(bv2, b + B_TRUNK + l * W);
+      mma_slabs<128, 0>(acc2, ring, src, kslabs);
+      if (l == 5) mma_slabs<128, 0>(acc2, ring, sa + OV_FEAT, IN_W / 64);
+      fwd_epilogue<128>(acc2, bv2, true, sm + dst, mask(l), ar(AR_ACT + l * W, W));
+      src = sa + dst;
+      kslabs = W / 64;
     }
-    hmma::fence_proxy_async();
-    consumer_sync();
-    store_atoms<64>(sm + OV_GO, ar(AR_GO, OUT_W));
-    if (threadIdx.x < OUT_W) {  // the five output biases' gradient: sum(go)
-      float s = 0.0f;
-      for (int i = 0; i < TILE_M; ++i)
-        s += __bfloat162float(*reinterpret_cast<const bf16*>(sm + OV_GO + kmaj(i, threadIdx.x)));
-      bsum[B_OUT + threadIdx.x] = s;
-    }
-  }
-  const uint32_t go = sa + OV_GO;
-  // gv = (go @ w_r^T) * (v > 0); gf = gv @ wv_f^T (f has no ReLU)
-  zero_acc(acc1);
-  mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_V), sm + OV_R1, ar(AR_GV, HW), bsum + B_V, colsum, row0, n);
-  zero_acc(acc2);
-  mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
-  grad_epilogue<128>(acc2, nullptr, sm + OV_R2, ar(AR_GF, W), bsum + B_F, colsum, row0, n);
-  // head gradients: g1 = (go @ w2^T) * (act1 > 0) -> ga1, gs1, gm1
-  zero_acc(acc1);
-  mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_A1), sm + OV_R1, ar(AR_GA1, HW), bsum + B_A1, colsum, row0, n);
-  zero_acc(acc1);
-  mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_S1), sm + OV_R1 + 2 * ATOM, ar(AR_GS1, HW), bsum + B_S1, colsum,
-                    row0, n);
-  zero_acc(acc1);
-  mma_slabs<64, 1>(acc1, ring, go, 2);
-  grad_epilogue<64>(acc1, mask(MK_M1), sm + OV_R1 + 4 * ATOM, ar(AR_GM1, HW), bsum + B_M1, colsum,
-                    row0, n);
-  // dH = go@w_sig^T + ga1@w_a1^T + gs1@w_s1^T + gm1@w_m1^T + gf@w_f^T
-  zero_acc(acc2);
-  mma_slabs<128, 1>(acc2, ring, go, 2);
-  mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
-  mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 2 * ATOM, 2);
-  mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 4 * ATOM, 2);
-  mma_slabs<128, 1>(acc2, ring, sa + OV_R2, 4);
-  consumer_sync();  // gh7 overlays the head gradients just read
-  grad_epilogue<128>(acc2, mask(7), sm + OV_R1, ar(AR_G + 7 * W, W), bsum + B_TRUNK + 7 * W, colsum,
-                     row0, n);
-  // trunk: gh_{l-1} = (gh_l @ w_l^T) * (act_{l-1} > 0), l = 7..1
-  int cur = OV_R1, other = OV_R2;
-  for (int l = 7; l >= 1; --l) {
+    const uint32_t Hs = sa + OV_BUFB;  // act7
+    zero_acc(acc2);  // f = H@w_f + b_f -> bufA
+    load_bias<128>(bv2, b + B_F);
+    mma_slabs<128, 0>(acc2, ring, Hs, 4);
+    fwd_epilogue<128>(acc2, bv2, false, sm + OV_BUFA, nullptr, ar(AR_F, W));
+    zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v)
+    load_bias<64>(bv1, b + B_V);
+    mma_slabs<64, 0>(acc1, ring, sa + OV_BUFA, 4);
+    mma_slabs<64, 0>(acc1, ring, sa + OV_FEAT, 2);
+    release(in_empty + IN_FEAT * 8);  // the features read: the cotangent may land
+    fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_V), ar(AR_V, HW));
+    zero_acc(acc1);  // a1, s1, m1 = relu(H@w + b)
+    load_bias<64>(bv1, b + B_A1);
+    mma_slabs<64, 0>(acc1, ring, Hs, 4);
+    fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA, mask(MK_A1), ar(AR_A1, HW));
+    zero_acc(acc1);
+    load_bias<64>(bv1, b + B_S1);
+    mma_slabs<64, 0>(acc1, ring, Hs, 4);
+    fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, mask(MK_S1), ar(AR_S1, HW));
+    zero_acc(acc1);
+    load_bias<64>(bv1, b + B_M1);
+    mma_slabs<64, 0>(acc1, ring, Hs, 4);
+    fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_M1), ar(AR_M1, HW));
+
+    // ---- backward chain ----
+    hmma::mbar_wait(in_full + IN_GO * 8, j & 1);  // the tile's cotangent
+    const uint32_t go = sa + OV_GO;
+    // gv = (go @ w_r^T) * (v > 0); gf = gv @ wv_f^T (f has no ReLU)
+    zero_acc(acc1);
+    mma_slabs<64, 1>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mask(MK_V), sm + OV_R1, ar(AR_GV, HW), bsum + B_V, colsum, row0, n);
     zero_acc(acc2);
-    mma_slabs<128, 1>(acc2, ring, sa + cur, 4);
-    grad_epilogue<128>(acc2, mask(l - 1), sm + other, ar(AR_G + (l - 1) * W, W),
-                       bsum + B_TRUNK + (l - 1) * W, colsum, row0, n);
-    const int t = cur;
-    cur = other;
-    other = t;
+    mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
+    grad_epilogue<128>(acc2, nullptr, sm + OV_R2, ar(AR_GF, W), bsum + B_F, colsum, row0, n);
+    // head gradients: g1 = (go @ w2^T) * (act1 > 0) -> ga1, gs1, gm1
+    zero_acc(acc1);
+    mma_slabs<64, 1>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mask(MK_A1), sm + OV_R1, ar(AR_GA1, HW), bsum + B_A1, colsum, row0, n);
+    zero_acc(acc1);
+    mma_slabs<64, 1>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mask(MK_S1), sm + OV_R1 + 2 * ATOM, ar(AR_GS1, HW), bsum + B_S1,
+                      colsum, row0, n);
+    zero_acc(acc1);
+    mma_slabs<64, 1>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mask(MK_M1), sm + OV_R1 + 4 * ATOM, ar(AR_GM1, HW), bsum + B_M1,
+                      colsum, row0, n);
+    // dH = go@w_sig^T + ga1@w_a1^T + gs1@w_s1^T + gm1@w_m1^T + gf@w_f^T
+    zero_acc(acc2);
+    mma_slabs<128, 1>(acc2, ring, go, 2);
+    release(in_empty + IN_GO * 8);  // the cotangent read: the next tile's features may land
+    mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
+    mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 2 * ATOM, 2);
+    mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 4 * ATOM, 2);
+    mma_slabs<128, 1>(acc2, ring, sa + OV_R2, 4);
+    consumer_sync();  // gh7 overlays the head gradients just read
+    grad_epilogue<128>(acc2, mask(7), sm + OV_R1, ar(AR_G + 7 * W, W), bsum + B_TRUNK + 7 * W,
+                       colsum, row0, n);
+    // trunk: gh_{l-1} = (gh_l @ w_l^T) * (act_{l-1} > 0), l = 7..1
+    int cur = OV_R1, other = OV_R2;
+    for (int l = 7; l >= 1; --l) {
+      zero_acc(acc2);
+      mma_slabs<128, 1>(acc2, ring, sa + cur, 4);
+      grad_epilogue<128>(acc2, mask(l - 1), sm + other, ar(AR_G + (l - 1) * W, W),
+                         bsum + B_TRUNK + (l - 1) * W, colsum, row0, n);
+      const int read = cur;
+      cur = other;
+      other = read;
+    }
   }
   // every store has read its source and written the arena before the
-  // block exits and its shared memory passes to the next tile's block
+  // block exits
   if ((threadIdx.x & 127) == 0) hmma::bulk_wait<0, 0>();
 }
 
@@ -751,12 +902,13 @@ extern "C" void fused_mlp_bwd_scratch(long long n, int splits, long long* arena_
   *ws_elems = (long long)splits * W_TOTAL;
 }
 
-// in8 [n, 8] f32, pe_mat [8, 128] f32, sin_mask [128] f32, w / b: the
-// forward kernel's flat bf16 weights and f32 biases, g [n, 128] bf16;
-// scratch from fused_mlp_bwd_scratch; dw [835,584] f32 in the weight
-// buffer's layout, db [2,944] f32 in the bias buffer's layout (its last
-// 128 entries are the gradient of each of the five output biases).
-// Launches on `stream`; returns the first failing launch's cudaError_t.
+// in8 [n, 8] f32 (16-byte aligned), pe_mat [8, 128] f32, sin_mask [128]
+// f32, w / b: the forward kernel's flat bf16 weights and f32 biases, g
+// [n, 128] bf16 (16-byte aligned); scratch from fused_mlp_bwd_scratch; dw
+// [835,584] f32 in the weight buffer's layout, db [2,944] f32 in the bias
+// buffer's layout (its last 128 entries are the gradient of each of the
+// five output biases).  Launches on `stream` (the activation pass as
+// min(tiles, SMs) blocks); returns the first failing launch's cudaError_t.
 extern "C" int fused_mlp_bwd(const void* in8, const void* pe_mat, const void* sin_mask,
                              const void* w, const void* b, const void* g, void* arena,
                              void* bpart, void* ws, void* dw, void* db, long long n, int splits,
@@ -764,7 +916,9 @@ extern "C" int fused_mlp_bwd(const void* in8, const void* pe_mat, const void* si
   if (n <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   const long long p_pad = (n + TILE_M - 1) / TILE_M * TILE_M;
   const long long tiles = p_pad / TILE_M;
-  if (tiles > INT_MAX || splits > 65535) return (int)cudaErrorInvalidValue;
+  if (tiles > INT_MAX / 2 || splits > 65535) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(in8) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const long long slabs = p_pad / SLAB;
   const long long chunk = (slabs + splits - 1) / splits * SLAB;
   cudaStream_t s = (cudaStream_t)stream;
@@ -777,7 +931,9 @@ extern "C" int fused_mlp_bwd(const void* in8, const void* pe_mat, const void* si
   bf16* img = static_cast<bf16*>(arena) + (long long)AR_COLS * p_pad;
   bwd_act_wimg_kernel<<<N_SLABS, NTHREADS, 0, s>>>(static_cast<const bf16*>(w), img);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bwd_act_wgmma_kernel<<<(unsigned)tiles, ACT_THREADS, ACT_SMEM, s>>>(
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  bwd_act_wgmma_kernel<<<(unsigned)(tiles < sms ? tiles : sms), ACT_THREADS, ACT_SMEM, s>>>(
       static_cast<const float*>(in8), static_cast<const float*>(pe_mat),
       static_cast<const float*>(sin_mask), img,
       static_cast<const float*>(b), static_cast<const bf16*>(g), static_cast<bf16*>(arena),

@@ -1,7 +1,7 @@
 // Constants shared by the fused-MLP forward (fused_mlp_fwd.cu) and
 // backward (fused_mlp_bwd.cu) kernels and the forward's attribution probe
-// (fwd_probe.cu): the tile and block sizes, the widths, and the packed
-// weight and bias layouts of kernels 1 and 2.  The device helpers live
+// (fwd_probe.cu): the tile and block sizes, the widths, the packed weight
+// and bias layouts of kernels 1 and 2, and the grid of a persistent kernel.  The device helpers live
 // beside them in hopper_mma.cuh; every product takes bf16 operands with
 // fp32 accumulation.
 #pragma once
@@ -56,5 +56,22 @@ constexpr int B_V = B_F + W;
 constexpr int B_M1 = B_V + HW;
 constexpr int B_OUT = B_M1 + HW;
 constexpr int B_TOTAL = B_OUT + OUT_W;
+
+// The SM count of the current device, read once per device (a host query,
+// so it may run while a stream captures a graph): the grid of a
+// persistent kernel.
+inline cudaError_t sm_count(int* sms) {
+  static int counts[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (counts[dev] == 0) {
+    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = counts[dev];
+  return cudaSuccess;
+}
 
 }  // namespace fmlp

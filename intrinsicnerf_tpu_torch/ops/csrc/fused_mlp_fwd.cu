@@ -478,22 +478,6 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   }
 }
 
-// The SM count of the current device, read once per device (a host
-// query, so it may run while a stream captures a graph).
-cudaError_t sm_count(int* sms) {
-  static int counts[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (counts[dev] == 0) {
-    err = cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = counts[dev];
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // w: the flat bf16 weights (_W_ORDER, each block [in, out] row-major);

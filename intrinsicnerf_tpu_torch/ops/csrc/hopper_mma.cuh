@@ -38,6 +38,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// generic-proxy writes to global memory (st.global) made visible to the
+// async proxy, through which a bulk copy reads them
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // mbarriers in shared memory (8 bytes each, at shared address `bar`)
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -74,6 +80,18 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// bulk_load of data that every block reads again (a weight image): its
+// lines are the last that L2 evicts, so that the streams of scratch
+// written and read around it do not push it out
+__device__ __forceinline__ void bulk_load_evict_last(uint32_t dst, const void* src, uint32_t bytes,
+                                                     uint32_t bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy) : "memory");
 }
 // Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
 // from shared to global memory by the copy engine, in this thread's open

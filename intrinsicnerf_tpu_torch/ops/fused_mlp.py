@@ -102,7 +102,7 @@ FWD_IMAGE_ORDER = (
     "w_m1", "w_m2",
 )
 FWD_IMAGE_SLABS = 66
-FWD_TILE = 64  # kernel 1's points per tile
+FWD_TILE = 64  # points per tile of kernels 1 and 2
 # point chunks of kernel 2's weight-gradient GEMM: about SPLIT_ROWS points
 # each, at most MAX_SPLITS, so that its 51 output tiles x 5 chunks = 255
 # blocks run as one wave at two blocks per SM on the H100's 132 SMs
@@ -589,6 +589,15 @@ def fwd_schedule(n: int, sms: int) -> Tuple[int, int, int]:
     return blocks, tiles, tiles - blocks
 
 
+def bwd_schedule(n: int, sms: int) -> Tuple[int, int, int]:
+    """Kernel 2's activation pass over ``n`` points on a card of ``sms``
+    SMs: (blocks, tiles, tiles ahead), as :func:`fwd_schedule`.  Its
+    persistent blocks' staging warps stage every tile after a block's
+    first (its features, its cotangent, its output-bias sums) while the
+    block runs the one before."""
+    return fwd_schedule(n, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -680,8 +689,11 @@ def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tens
     packed output at the points ``in8``.
 
     CPU tensors take the plain version; CUDA tensors launch kernel 2 (one
-    launch, counted in ``fused_mlp_backward.launches``).  Two launches on
-    the same inputs give bitwise-equal gradients."""
+    launch, counted in ``fused_mlp_backward.launches``; its activation
+    pass's tiles and the tiles staged ahead, ``bwd_schedule``, in the
+    counters ``bwd.tiles`` and ``bwd.tiles_ahead``, which a graphed
+    block's replays count too).  Two launches on the same inputs give
+    bitwise-equal gradients."""
     if in8.device.type == "cpu":
         return _flatten_grads(fused_mlp_backward_plain(ops.packed, ops.pe, in8, g))
     if in8.device.type != "cuda":
@@ -715,9 +727,12 @@ def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tens
             ws.data_ptr(), dw.data_ptr(), db.data_ptr(), n, splits,
             torch.cuda.current_stream(dev).cuda_stream,
         )
+        _, tiles, ahead = bwd_schedule(n, _sm_count(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
     _count_launch(fused_mlp_backward)
+    trace.count("bwd.tiles", tiles)
+    trace.count("bwd.tiles_ahead", ahead)
     return dw, db
 
 

@@ -6,20 +6,38 @@ a copy of the source, and times that pass in each at the training step's
 fine shape (196,608 points; ``tools/bwd_passes.py``'s inputs):
 
 - ``base``: the kernel as it is;
-- ``no_arena_stores``: the bulk stores of each buffer's atoms to the arena;
+- ``no_arena_stores``: every store into the arena: the consumers' bulk
+  stores of each buffer's atoms and the staging warps' 16-byte stores of
+  the next tile's inputs (with nothing stored, the compiler drops the
+  staging warps' arithmetic too);
 - ``no_epilogues``: every epilogue (bias, ReLU, masks, bf16 stores,
   column sums, arena stores);
 - ``no_mma``: the wgmma products (the ring still streams every slab);
 - ``no_weight_loads``: the producer's bulk copies into the ring (the
   products read whatever the stages hold);
 - ``loads_only``: no products and no epilogues, only the weight stream;
-- ``stages2``: a ring of two stages instead of three.
+- ``stages2``: a ring of two stages instead of three;
+- ``no_pe``: the staging warps' PE arithmetic (they still write each
+  tile's feature atoms, zeros, and the copies still bring them in, so
+  nothing waits forever);
+- ``staging_serial``: the staging warps stage a tile only once the
+  consumers have finished the tile before it (their release of its
+  cotangent moved to the tile's end), so the staging no longer overlaps
+  the chain: the staged feed alone, the overlap's worth measured apart.
 
-A variant computes garbage; only its time means anything.  The patched
+A cut computes garbage; only its time means anything.  The patched
 sources and libraries go to ``_build/ablate/``.  One JSON line per
-variant with the pass's device ms and the card's name and power limit:
+variant and source with the pass's device ms and the card's name and
+power limit:
 
     python -m intrinsicnerf_tpu_torch.tools.bwd_ablate [--iters 10]
+
+``--sources a.cu,b.cu`` builds each listed copy of ``fused_mlp_bwd.cu``
+(an experiment beside the committed kernel, or the parent's with
+``--variants base``) in every variant, in turns; each later source's
+``base`` row also says whether its gradients ``dw`` and ``db`` equal the
+first source's, bitwise, at the fine step and at each count of
+``SAME_AS_FIRST_N`` (``same_as_first``).
 """
 
 from __future__ import annotations
@@ -42,23 +60,42 @@ _MMA = """      if constexpr (NW == 128)
         hmma::wgmma_m64n128k16<0, WT ? 0 : 1>(acc, da, db, 1);
       else
         hmma::wgmma_m64n64k16<0, WT ? 0 : 1>(acc, da, db, 1);"""
-_LOADS = """      hmma::mbar_expect_tx(full + st * 8, bytes);
-      hmma::bulk_load(ring + st * ACT_STAGE_BYTES, img + off, bytes, full + st * 8);"""
+_LOADS = """        hmma::mbar_expect_tx(full + st * 8, bytes);
+        hmma::bulk_load_evict_last(ring + st * ACT_STAGE_BYTES, img + off, bytes, full + st * 8);"""
 _FWD_EPI = "  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, lane = lt & 31;\n"
 _GRAD_EPI = ("  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, warp = lt >> 5, "
              "lane = lt & 31;\n")
 _STORE = "  const uint32_t off = (threadIdx.x >> 7) * NW * 128;\n"
+_STAGE_PUT = "  *reinterpret_cast<uint4*>(dst) = v;\n"
+_PE = "    if (row0 + i < n) {\n"
+_GO_RELEASE = ("    release(in_empty + IN_GO * 8);  // the cotangent read: the next tile's "
+               "features may land\n")
+_TILE_END = "      other = read;\n    }\n"
+_STAGE_NEXT = ("    if (next < tiles) stage_tile(pe, in8, g, arena, bpart, next, n, p_pad);\n"
+               "    stage_sync();  // the next tile staged by every staging thread\n")
+_LOAD_NEXT = "    if (pt == 0 && next < tiles)\n"
 
 PATCHES = {
     "base": [],
-    "no_arena_stores": [(_STORE, "  return;\n" + _STORE)],
+    "no_arena_stores": [(_STORE, "  return;\n" + _STORE),
+                        (_STAGE_PUT, "  return;\n" + _STAGE_PUT)],
     "no_epilogues": [(_FWD_EPI, "  return;\n" + _FWD_EPI), (_GRAD_EPI, "  return;\n" + _GRAD_EPI)],
     "no_mma": [(_MMA, "      (void)da;\n      (void)db;")],
     "no_weight_loads": [(_LOADS, "      hmma::mbar_arrive(full + st * 8);")],
     "stages2": [("constexpr int ACT_STAGES = 3;", "constexpr int ACT_STAGES = 2;")],
+    "no_pe": [(_PE, "    if (false) {\n")],
+    # the consumers release the cotangent at the tile's end, and the staging
+    # warps stage the next tile only after that release
+    "staging_serial": [(_GO_RELEASE, ""),
+                       (_TILE_END, _TILE_END + "    release(in_empty + IN_GO * 8);\n"),
+                       (_STAGE_NEXT, ""), (_LOAD_NEXT, _STAGE_NEXT + _LOAD_NEXT)],
 }
 PATCHES["loads_only"] = PATCHES["no_mma"] + PATCHES["no_epilogues"]
 SOURCE = os.path.join(build.CSRC, "fused_mlp_bwd.cu")
+# the point counts besides the fine step at which a later source's base
+# build is held bitwise against the first's: one point, a ragged count,
+# one tile a block and a block's second tile on 132 SMs, fern's fine call
+SAME_AS_FIRST_N = (1, 4_097, 8_448, 8_512, 262_144)
 
 
 def patched_source(variant: str, source: str = SOURCE, patches=None) -> str:
@@ -120,7 +157,38 @@ def backward_call(lib, ops, in8, g, splits: int):
                                 db.data_ptr(), n, splits, stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp_bwd launch failed: cudaError {err}")
+    call.grads = (dw, db)
     return call
+
+
+def grad_inputs(ops, fine) -> dict:
+    """{label: (in8, g)}: the fine step's points ``fine`` and, for each
+    count of ``SAME_AS_FIRST_N``, those points repeated to it; g is the
+    cotangent (out - 0.5) / n of kernel 1's output at them."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    cases = {"fine_step": fine}
+    for n in SAME_AS_FIRST_N:
+        cases[str(n)] = fine.repeat(-(-n // fine.shape[0]), 1)[:n].contiguous()
+    inputs = {}
+    for label, in8 in cases.items():
+        out = fm.fused_mlp_forward(ops, in8)
+        inputs[label] = (in8, ((out.float() - 0.5) / out.shape[0]).to(torch.bfloat16))
+    return inputs
+
+
+def base_grads(lib, ops, inputs) -> dict:
+    """{label: ``lib``'s dw and db at that label's inputs, as one int32
+    buffer}: its gradients' bits, to compare bitwise."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    grads = {}
+    for label, (in8, g) in inputs.items():
+        call = backward_call(lib, ops, in8, g, fm.backward_splits(in8.shape[0]))
+        call()
+        grads[label] = torch.cat(call.grads).view(torch.int32)
+    torch.cuda.synchronize()
+    return grads
 
 
 def main(argv=None) -> int:
@@ -147,17 +215,23 @@ def main(argv=None) -> int:
     mcfg = dataclasses.replace(fc.mlp, num_semantic_classes=bwd_passes.N_CLASSES)
     model = PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(5))
     ops = model.fused_operands(mcfg)
-    in8 = bwd_passes.step_inputs(model, fc.render, 2 * fc.train.n_rays,
-                                 fc.render.n_coarse + fc.render.n_importance, dev)
-    out = fm.fused_mlp_forward(ops, in8)
-    g = ((out.float() - 0.5) / out.shape[0]).to(torch.bfloat16)
+    inputs = grad_inputs(ops, bwd_passes.step_inputs(
+        model, fc.render, 2 * fc.train.n_rays, fc.render.n_coarse + fc.render.n_importance, dev))
+    in8, g = inputs["fine_step"]
     splits = fm.backward_splits(in8.shape[0])
-    for (v, src, _), lib in zip(jobs, libs):
-        t = bwd_passes.pass_times(backward_call(load_variant(lib), ops, in8, g, splits),
-                                  args.iters)
-        print(json.dumps({"variant": v, "source": os.path.relpath(src), "points": in8.shape[0],
-                          "pass_ms": {p: t[p] for p in bwd_passes.PASSES}, "card": card}),
-              flush=True)
+    first = None
+    for (v, src, _), path in zip(jobs, libs):
+        lib = load_variant(path)
+        t = bwd_passes.pass_times(backward_call(lib, ops, in8, g, splits), args.iters)
+        row = {"variant": v, "source": os.path.relpath(src), "points": in8.shape[0],
+               "pass_ms": {p: t[p] for p in bwd_passes.PASSES}, "card": card}
+        if v == "base":
+            grads = base_grads(lib, ops, inputs)
+            if first is None:
+                first = grads
+            else:
+                row["same_as_first"] = {k: torch.equal(x, first[k]) for k, x in grads.items()}
+        print(json.dumps(row), flush=True)
     return 0
 
 

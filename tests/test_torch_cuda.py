@@ -22,7 +22,10 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
 - kernel 2: over the real parameter slots, overall and per block, cosine
   > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
   seeded squared-error loss on the output (coherent across points, as a
-  training loss's is); two launches give bitwise-equal gradients.
+  training loss's is); two launches give bitwise-equal gradients; each
+  launch moves the counters ``bwd.tiles`` and ``bwd.tiles_ahead`` by
+  ``bwd_schedule``'s amounts, and a captured training block's backward
+  calls move them by the same at each replay.
 - kernel 3 (the forward probe): max |d| / max(|plain|, 1) < 2e-2, the
   bound ``chip_smoke.py`` holds it to; both sides round the same operands
   to bf16, and a fp32 sum-order flip of an intermediate bf16 rounding
@@ -100,9 +103,9 @@ def _sms():
     return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
 
 
-def _tile_counters():
+def _tile_counters(kernel="fwd"):
     c = trace.snapshot()["counters"]
-    return c.get("fwd.tiles", 0), c.get("fwd.tiles_ahead", 0)
+    return c.get(f"{kernel}.tiles", 0), c.get(f"{kernel}.tiles_ahead", 0)
 
 
 # n = k * S * 64 + d, S the card's SM count (132 on the H100): below, at
@@ -213,12 +216,16 @@ def _cos_rel(a, b):
     return float(a @ b / (a.norm() * b.norm())), float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("n", [1, 64, 4_097, 65_536, 196_608, 100_003])
+@pytest.mark.parametrize("n", [1, 64, 4_097, 65_536, 196_608, 100_003, 8_448, 8_512, 131_072,
+                               262_144])
 def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
     """Kernel 2 below one 64-point tile, at exactly one, at a ragged count
-    that leaves a part-filled chunk of the weight products, at the
-    training step's coarse and fine sizes and at a ragged step size,
-    against its plain version; and bitwise equal across launches."""
+    that leaves a part-filled chunk of the weight products, at the Replica
+    step's coarse and fine sizes, at a ragged step size, at one tile a
+    block and at a block's second tile on 132 SMs (8,448 and 8,512), and
+    at fern's coarse and fine sizes, against its plain version; bitwise
+    equal across launches; each launch adds its tiles and those staged
+    ahead (``bwd_schedule``) to the counters."""
     cfg, m = model
     ops = m.fused_operands(cfg)
     in8, gen = _in8(n, n)
@@ -228,10 +235,14 @@ def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
     g[:, 8 + C:] = 0.0
     g = g.to(torch.bfloat16)
     before = fm.fused_mlp_backward.launches
+    tiles0, ahead0 = _tile_counters("bwd")
     got = fm.fused_mlp_backward(ops, in8, g)
     again = fm.fused_mlp_backward(ops, in8, g)
     torch.cuda.synchronize()
     assert fm.fused_mlp_backward.launches == before + 2
+    _, tiles, ahead = fm.bwd_schedule(n, _sms())
+    tiles1, ahead1 = _tile_counters("bwd")
+    assert (tiles1 - tiles0, ahead1 - ahead0) == (2 * tiles, 2 * ahead)
     assert all(torch.equal(got[k], again[k]) for k in got)
     ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
     masks = fm.packed_grad_masks(m.state_dict(), cfg)
@@ -391,6 +402,34 @@ def test_graphed_steps_equal_eager_steps(graph_setup):
     multi(state, pools, table, w_c, gen)
     assert state.model_fine.fused_operands(state.model_fine.cfg) is not ops
     assert not all(torch.equal(a, p) for a, p in zip(fine, state.model_fine.parameters()))
+
+
+def test_captured_step_counts_backward_tiles(graph_setup, monkeypatch):
+    """A replay of a captured block adds, for each kernel-2 call the
+    capture recorded, its tiles and those staged ahead (``bwd_schedule``)
+    to the counters: the wrapper runs only while the block is captured."""
+    step, state, pools, table, w_c, gen, snap = graph_setup
+    seen = []
+    inner = fm.fused_mlp_backward_flat
+
+    def spy(ops, in8, g):
+        seen.append(in8.shape[0])
+        return inner(ops, in8, g)
+
+    monkeypatch.setattr(fm, "fused_mlp_backward_flat", spy)
+    multi = make_multi_step(step, GRAPH_K)
+    restore_state(state, snap, gen)
+    multi(state, pools, table, w_c, gen)  # the warm-up step, the capture, a replay
+    torch.cuda.synchronize()
+    captured = seen[-2 * GRAPH_K:]
+    tiles0, ahead0 = _tile_counters("bwd")
+    multi(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    tiles1, ahead1 = _tile_counters("bwd")
+    assert multi.replayed["fused_mlp_bwd"] == multi.replays * len(captured) == 4 * GRAPH_K
+    want = [fm.bwd_schedule(n, _sms()) for n in captured]
+    assert (tiles1 - tiles0, ahead1 - ahead0) == (sum(w[1] for w in want), sum(w[2] for w in want))
+    assert sum(w[2] for w in want) > 0
 
 
 def test_generator_advances_across_replays(graph_setup):

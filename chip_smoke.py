@@ -154,10 +154,11 @@ SAVE_VIEW_FILES = ("rgb", "albedo", "shading", "residual", "disp", "depth", "vis
 TIMED_STEPS, WARM_STEPS, FIXED_STEPS = 20, 3, 30
 GRAPH_K, GRAPH_CALLS = 8, 5  # train_graph: steps per replay, replays per timed window
 # the kernels of one training step's graph (kernel 1 and its weight image;
-# kernel 2: its weight image, activation pass, weight GEMM and row sums),
-# launches per forward or backward call
+# kernel 2: its weight image, activation pass, weight GEMM and row sums;
+# the heads' forward and backward), launches per forward or backward call
 REPLAY_KERNELS = {"fused_mlp_fwd_kernel": 1, "fwd_wimg_kernel": 1, "bwd_act_wimg_kernel": 1,
-                  "bwd_act_wgmma_kernel": 1, "bwd_wgrad_gemm_kernel": 1, "reduce_rows_kernel": 2}
+                  "bwd_act_wgmma_kernel": 1, "bwd_wgrad_gemm_kernel": 1, "reduce_rows_kernel": 2,
+                  "packed_heads_fwd_kernel": 1, "packed_heads_bwd_kernel": 1}
 # the device-clock stamps a graphed step holds: one at each bound of each
 # of its five phase spans (utils/trace.py's clock_stamp_kernel); the
 # object's pose sampler adds one at each bound of its ``sample.rays`` span
@@ -173,7 +174,7 @@ SLICE_PAIRS = 64  # pairs of the step run on both the card and the host
 PACKED_STEPS = 8
 # the device time outside kernels 1 and 2, by what launched it: kernel
 # name substrings (a graph replay shows kernels, not host ops)
-REST_KINDS = (("adam", ("multi_tensor_apply", "adam", "Adam")),
+REST_KINDS = (("heads", ("packed_heads_",)), ("adam", ("multi_tensor_apply", "adam", "Adam")),
               ("clock_stamp", ("clock_stamp_kernel",)),
               ("pack_cat", ("CatArrayBatchedCopy",)), ("fill", ("FillFunctor",)),
               ("copy_cast", ("copy_kernel", "bfloat16_copy", "direct_copy")))
@@ -948,8 +949,7 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
     from intrinsicnerf_tpu_torch.utils import trace
 
     phase = "scene" if spc == 1 else f"scene_k{spc}"
-    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
-                "image": fm.fwd_weight_image}
+    counters = launch_counters()
 
     def zero_counts():
         for c in counters.values():
@@ -1074,6 +1074,7 @@ def scene_phases(torch, np, dev, card, spc=1, exact=True, other=None):
             # builds one per model at each set of weights and keeps it for its
             # chunks (eval at 0, then the sigma probes, or the rebuilds without them)
             "image": 2 * eager_steps + 2 * (1 + (probes or 2))}
+    want.update(heads_fwd=want["fwd"], heads_bwd=want["bwd"])
     want_captured = {k: (2 * spc if spc > 1 else 0) for k in counters}
     if (eager, captured) != (want, want_captured) or (spc > 1 and replays != SCENE_STEPS // spc):
         raise AssertionError(f"the {phase} run launched {eager} (want {want}), recorded "
@@ -1469,7 +1470,7 @@ def data_parallel_phase(torch, np, dev, card, room_dir):
     content = (plain["rgb"].max() > 0 and plain["depth"].max() > 0
                and plain["acc"].mean() > VIEW_ACC_FLOOR)  # two empty views agree too
     if (same != sorted(plain) or not content or view_launches["fwd"] != 2 * n_chunks
-            or gathers == 0):
+            or not heads_follow(view_launches) or gathers == 0):
         raise AssertionError(f"the split view differs from render_views in {sorted(plain)} - "
                              f"{same}, is empty (mean acc {float(plain['acc'].mean()):.4f} <= "
                              f"{VIEW_ACC_FLOOR}), or its launches {view_launches} / gathers "
@@ -1557,10 +1558,20 @@ def scene_yaml(src, path, changes):
 
 
 def launch_counters():
+    """The model path's kernel wrappers by short name: kernel 1, kernel 2,
+    kernel 1's weight image and the heads' two kernels (one heads launch
+    beside each kernel 1 / kernel 2 launch of ``fused_eval_points``)."""
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     return {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
-            "image": fm.fwd_weight_image}
+            "image": fm.fwd_weight_image, "heads_fwd": fm.packed_heads_forward,
+            "heads_bwd": fm.packed_heads_backward}
+
+
+def heads_follow(launches) -> bool:
+    """Each kernel 1 / kernel 2 launch of a path that only runs
+    ``fused_eval_points`` has its heads launch beside it."""
+    return launches["heads_fwd"] == launches["fwd"] and launches["heads_bwd"] == launches["bwd"]
 
 
 def zero_launches():
@@ -1588,6 +1599,53 @@ def semantic_model(torch, c, dev, seed):
     return PackedMLP(mcfg, device=dev, generator=torch.Generator().manual_seed(seed)), mcfg
 
 
+def heads_vs_plain(torch, got, c: int, seed: int, where: str, card):
+    """The heads' kernels on kernel 1's output ``got`` ``[P, 128]`` at ``c``
+    classes against their plain versions on the same card tensors: the
+    heads bitwise, the cotangent for seeded gradients of every head bitwise
+    but for the shading column, which may differ by one bf16 ulp where ATen
+    sums its three products in another order.  Times both ways beside the
+    kernels' byte bounds (``ops/csrc/packed_heads.cu``'s header)."""
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    p = got.shape[0]
+    heads = fm.packed_heads_forward(got, p, 1, c)
+    ref = fm.packed_heads_forward_plain(got, p, 1, c)
+    fwd_same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(heads, ref))
+    gen = torch.Generator(device=got.device).manual_seed(seed)
+    grads = [torch.randn(h.shape, generator=gen, device=got.device) for h in heads]
+    cot = fm.packed_heads_backward(grads, *heads[1:4], c)
+    cot_ref = fm.packed_heads_backward_plain(grads, *ref[1:4], c)
+    a, b = cot.view(torch.int16).int(), cot_ref.view(torch.int16).int()
+    others = torch.ones(fm.OUT_W, dtype=torch.bool, device=got.device)
+    others[4] = False
+    bwd_same = torch.equal(a[:, others], b[:, others])
+    shading_ulps = int((a[:, 4] - b[:, 4]).abs().max())
+    del a, b, cot_ref
+    fwd_bytes = p * (32 * math.ceil((16 + 2 * c) / 32) + 44 + 4 * c)
+    bwd_bytes = p * (44 + 4 * c + 28 + 256)
+    row = {
+        "fwd": dict(ms=cuda_ms(lambda: fm.packed_heads_forward(got, p, 1, c), 5, torch),
+                    plain_ms=cuda_ms(lambda: fm.packed_heads_forward_plain(got, p, 1, c), 2,
+                                     torch),
+                    bound_ms=1e3 * fwd_bytes / PEAK_BYTES),
+        "bwd": dict(ms=cuda_ms(lambda: fm.packed_heads_backward(grads, *heads[1:4], c), 5,
+                               torch),
+                    plain_ms=cuda_ms(lambda: fm.packed_heads_backward_plain(
+                        grads, *heads[1:4], c), 2, torch),
+                    bound_ms=1e3 * bwd_bytes / PEAK_BYTES)}
+    say("heads_vs_plain", at=where, classes=c, points=p, heads_bitwise=fwd_same,
+        cotangent_bitwise_but_shading=bwd_same, shading_ulps=shading_ulps,
+        **{f"{part}_{k}": f"{row[part][k]:.4f}" for part in ("fwd", "bwd")
+           for k in ("ms", "plain_ms", "bound_ms")}, bound_by="bytes", card=json.dumps(card))
+    if not (fwd_same and bwd_same and shading_ulps <= 1):
+        raise AssertionError(f"the heads' kernels disagree with their plain versions at {where}: "
+                             f"heads bitwise {fwd_same}, cotangent bitwise but shading "
+                             f"{bwd_same}, shading {shading_ulps} ulps")
+    return row
+
+
 def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
     """Kernels 1 and 2 on ``model``'s weights at a step's coarse and fine
     calls (``rays`` at n_coarse and n_coarse + n_importance samples)
@@ -1596,7 +1654,8 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
     bounds overall and per block, each bitwise across two launches.  At
     C > 0 the semantic blocks (the output block's columns 8 to 8 + C
     included) are among the blocks held; at C = 0 (an object) their
-    gradient is exactly 0.  Times, and bounds at the network's own
+    gradient is exactly 0.  The heads' kernels on kernel 1's output
+    (``heads_vs_plain``).  Times, and bounds at the network's own
     multiply-adds (its reference weights)."""
     from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
@@ -1660,7 +1719,8 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
                         plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
                             ops.packed, ops.pe, in8, g), 2, torch),
                         bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
-                        max_abs_err=bwd_err)}
+                        max_abs_err=bwd_err),
+            "heads": heads_vs_plain(torch, got, c, seed + n, f"{phase}.{label}", card)}
         out[label] = row
         out["max_fwd_err"] = max(out["max_fwd_err"], fwd_err)
         out["max_bwd_err"] = max(out["max_bwd_err"], bwd_err)
@@ -1920,7 +1980,8 @@ def scannet_view(torch, np, dev, card, trainer):
         median_ms_per_view=f"{view_ms:.2f}", rays_per_s=f"{n_view / view_ms * 1e3:.0f}",
         bound_ms_per_view=f"{view_bound:.2f}", card=json.dumps(card),
         clocks=json.dumps(smi(CLOCKS)))
-    if launches != {"fwd": 2 * chunks, "bwd": 0, "image": 2} or not shapes_ok:
+    if (launches != {"fwd": 2 * chunks, "bwd": 0, "image": 2, "heads_fwd": 2 * chunks,
+                     "heads_bwd": 0} or not shapes_ok):
         raise AssertionError(f"the ScanNet view: launches {launches}, maps ok {shapes_ok}")
     view_vs_plain(torch, np, mc, mf, mcfg, rcfg, rays[0], out, 36, "scannet_view_vs_plain")
     return {"median_ms": view_ms, "bound_ms": view_bound, "launches": launches["fwd"]}
@@ -2025,7 +2086,7 @@ def scannet_fit_phase(torch, np, dev, card, sd):
     after = [s for s in log_steps if s > rebuild]
     finite = all(math.isfinite(m[k]) for m in (m0, m_end) for k in ("psnr", "miou", "total_acc"))
     graphed = dev.type == "cuda"  # on the host a block of steps is a loop
-    ok = (eager["fwd"] == want["fwd"] and eager["bwd"] == want["bwd"]
+    ok = (eager["fwd"] == want["fwd"] and eager["bwd"] == want["bwd"] and heads_follow(eager)
           and captured == {k: (2 * SCANNET_K if graphed else 0) for k in captured}
           and replays == (SCANNET_STEPS // SCANNET_K if graphed else 0)
           and np.mean([img[s] for s in log_steps[-2:]]) < np.mean([img[s] for s in log_steps[:2]])
@@ -2600,8 +2661,7 @@ def object_fit_phase(torch, np, dev, card, od):
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     cfg, work = od["cfg"], od["work"]
-    counters = {"fwd": fm.fused_mlp_forward, "bwd": fm.fused_mlp_backward,
-                "image": fm.fwd_weight_image}
+    counters = launch_counters()
     calls = []
 
     def hook(done, t_start, t_enqueued, did_work):
@@ -2667,7 +2727,7 @@ def object_fit_phase(torch, np, dev, card, od):
     before = [s for s in log_steps if s <= rebuild]
     after = [s for s in log_steps if s > rebuild]
     graphed = dev.type == "cuda"  # on the host a block of steps is a loop
-    ok = (eager["bwd"] == want["bwd"] and eager["fwd"] == want["fwd"]
+    ok = (eager["bwd"] == want["bwd"] and eager["fwd"] == want["fwd"] and heads_follow(eager)
           and captured == {k: (2 * OBJ_K if graphed else 0) for k in counters}
           and replays == (OBJ_STEPS // OBJ_K if graphed else 0)
           and np.mean([img[s] for s in log_steps[-2:]]) < np.mean([img[s] for s in log_steps[:2]])
@@ -2935,7 +2995,8 @@ def bench_phase(torch, card):
 # the endurance tool's rig: the smoke cadences (log 200, checkpoint and
 # rebuild 400, eval 1000) for 2000 steps, killed past step 1100
 FULLRUN_RIG = ["--smoke", "--steps", "2000", "--kill-at", "1100"]
-FULLRUN_KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_image", "fused_mlp_bwd")
+FULLRUN_KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_image", "fused_mlp_bwd", "packed_heads_fwd",
+                   "packed_heads_bwd")
 
 
 def fullrun_rig_phase(card):
@@ -3080,8 +3141,9 @@ def import_cli_phase(torch, np, dev, card, scene):
                              cfg.chunk, device=dev))
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in fm.LAUNCH_COUNTERS.items()}
-    want = {"fused_mlp_fwd": 2 * math.ceil(H * W / cfg.chunk), "fused_mlp_fwd_image": 2,
-            "fused_mlp_bwd": 0}
+    chunks = math.ceil(H * W / cfg.chunk)
+    want = {"fused_mlp_fwd": 2 * chunks, "fused_mlp_fwd_image": 2, "fused_mlp_bwd": 0,
+            "packed_heads_fwd": 2 * chunks, "packed_heads_bwd": 0}
     same_maps = {k: bool(np.array_equal(mine[k], theirs["view"][k])) for k in mine}
     acc = float(mine["acc"].mean())
     say("import_cli", step=step, told=json.dumps(told), import_s=f"{import_s:.1f}",
@@ -3150,7 +3212,7 @@ def main() -> int:
     # 2. the kernel builds, one nvcc per kernel, all started together, and
     # beside them kernel 1's ablation variants
     t0 = time.perf_counter()
-    names = ("fused_mlp_fwd", "fused_mlp_bwd", "fwd_probe")
+    names = ("fused_mlp_fwd", "fused_mlp_bwd", "fwd_probe", "packed_heads")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         variants = pool.submit(fwd_ablate.build_variants, list(fwd_ablate.PATCHES),
                                [fwd_ablate.SOURCE])
@@ -3257,7 +3319,9 @@ def main() -> int:
         bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
         k_ms = cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch)
         p_ms = cuda_ms(lambda: plain(in8), 2, torch)
-        timing[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timing[label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             heads=heads_vs_plain(torch, got, N_CLASSES, 41 + n,
+                                                  f"kernel_vs_plain.{label}", card))
         say("kernel_vs_plain", shape=label, points=n, bitwise_repeat=bitwise,
             rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
             tol=KERNEL_TOL, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}",

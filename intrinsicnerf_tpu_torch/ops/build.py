@@ -52,6 +52,10 @@ SIGNATURES = {
     "clock_stamp": [
         ("clock_stamp", [_P, _P], ctypes.c_int),
     ],
+    "packed_heads": [
+        ("packed_heads_fwd", [_P, _I64, _I32] + [_P] * 7, ctypes.c_int),
+        ("packed_heads_bwd", [_P] * 9 + [_I64, _I32, _P, _P], ctypes.c_int),
+    ],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -11,9 +11,17 @@ the positional encoding on chip (``feat = m*sin(in8 @ F) + (1-m)*(in8 @
 F)`` in fp32), runs the 8x256 skip trunk and the five heads with bf16
 operands and fp32 accumulation, and writes one packed ``[P, 128]`` bf16
 output: ``[0]=sigma, [1:4]=albedo_logit, [4]=shading_logit,
-[5:8]=residual_logit, [8:8+C]=sem_logits``.  The caller applies the
-sigmoids.  The output crosses device memory in bf16 as in the JAX
-package: the logits carry bf16-matmul noise regardless.
+[5:8]=residual_logit, [8:8+C]=sem_logits``.  The output crosses device
+memory in bf16 as in the JAX package: the logits carry bf16-matmul noise
+regardless.
+
+Heads.  ``packed_heads_forward`` (``csrc/packed_heads.cu``, no TPU twin:
+XLA fuses these expressions in the JAX package) reads the bf16 output
+into the heads ``RawOutputs`` carries, sigmoids and ``rgb`` included,
+bitwise the eager fp32 expressions; ``packed_heads_backward`` writes the
+output's bf16 cotangent once from the heads' gradients.
+:class:`PackedHeads` pairs them, so that no fp32 copy of the ``[P, 128]``
+output, and no zero-filled gradient of each of its slices, is made.
 
 ``fused_mlp_forward`` is its wrapper.  It takes ``FusedOperands``, made
 once per set of weights (``fused_operands``; ``PackedMLP`` keeps them
@@ -45,9 +53,10 @@ and :func:`unpack_weights` are the bridge to the reference layout (the
 initial weights, checkpoints, the JAX package).
 
 On a CPU tensor each wrapper runs its plain PyTorch version
-(``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``); on a CUDA
-tensor it launches its kernel (counting the launch in
-``fused_mlp_forward.launches`` / ``fused_mlp_backward.launches``) or
+(``fused_mlp_forward_plain``, ``fused_mlp_backward_plain``,
+``packed_heads_*_plain``); on a CUDA tensor it launches its kernel
+(counting the launch in its ``.launches``, e.g.
+``fused_mlp_forward.launches``; :data:`LAUNCH_COUNTERS` names them) or
 raises.  A launch made while the stream captures a CUDA graph is
 recorded into the graph, not run, and counts in ``.captured`` instead:
 the graph's replays run it without passing through the wrapper, so a
@@ -744,9 +753,150 @@ def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -
 
 fused_mlp_backward.launches = fused_mlp_backward.captured = 0
 
-# the training path's kernel wrappers by kernel name (``chip_smoke.py``'s names)
+
+def packed_heads_forward_plain(out: torch.Tensor, n: int, s: int,
+                               c: int) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the heads' forward kernel: the eager
+    expressions over an fp32 copy of the output's first 8 + C columns,
+    sigma and the semantic logits made contiguous.  Returns ``(sigma [n,
+    s], albedo [n, s, 3], shading [n, s], residual [n, s, 3], rgb [n, s,
+    3], sem [n, s, c])``."""
+    o = out[:, : 8 + c].float().reshape(n, s, 8 + c)
+    albedo = torch.sigmoid(o[..., 1:4])
+    shading = torch.sigmoid(o[..., 4])
+    residual = torch.sigmoid(o[..., 5:8])
+    rgb = albedo * shading[..., None] + residual
+    return (o[..., 0].contiguous(), albedo, shading, residual, rgb,
+            o[..., 8 : 8 + c].contiguous())
+
+
+def packed_heads_backward_plain(grads, albedo: torch.Tensor, shading: torch.Tensor,
+                                residual: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain PyTorch version of the heads' backward kernel: the bf16
+    cotangent ``[P, 128]`` of the packed output for the gradients ``grads``
+    of :func:`packed_heads_forward`'s six outputs (``None``: zero), as
+    autograd forms it through the eager expressions, then rounded once to
+    bf16 (``+ 0.0`` first: the eager sum of zero-filled slice gradients
+    leaves no -0)."""
+    g_sigma, g_albedo, g_shading, g_residual, g_rgb, g_sem = grads
+
+    def add(a, b):
+        return b if a is None else a if b is None else a + b
+
+    n_pts = albedo.shape[0] * albedo.shape[1]
+    go = albedo.new_zeros((n_pts, OUT_W))
+    if g_sigma is not None:
+        go[:, 0] = g_sigma.reshape(n_pts)
+    ga = add(g_albedo, None if g_rgb is None else g_rgb * shading[..., None])
+    gs = add(g_shading, None if g_rgb is None else (g_rgb * albedo).sum(-1))
+    gr = add(g_residual, g_rgb)
+    for (a, b), g, y in (((1, 4), ga, albedo), ((4, 5), gs, shading), ((5, 8), gr, residual)):
+        if g is not None:
+            go[:, a:b] = torch.ops.aten.sigmoid_backward(g, y).reshape(n_pts, b - a)
+    if g_sem is not None and c > 0:
+        go[:, 8 : 8 + c] = g_sem.reshape(n_pts, c)
+    return (go + 0.0).to(torch.bfloat16)
+
+
+def _check_heads_input(out: torch.Tensor, n: int, s: int, c: int):
+    if out.dtype != torch.bfloat16 or tuple(out.shape) != (n * s, OUT_W):
+        raise ValueError(f"the packed output must be bfloat16 [{n * s}, {OUT_W}], got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if not 0 <= c <= OUT_W - 8:
+        raise ValueError(f"{c} semantic classes do not fit the packed output")
+
+
+def packed_heads_forward(out: torch.Tensor, n: int, s: int,
+                         c: int) -> Tuple[torch.Tensor, ...]:
+    """The heads of the packed bf16 output ``out`` ``[n*s, 128]`` of
+    ``n`` rays of ``s`` samples: ``(sigma [n, s], albedo [n, s, 3],
+    shading [n, s], residual [n, s, 3], rgb [n, s, 3], sem [n, s, c])``,
+    contiguous fp32, bitwise the eager expressions' values.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``packed_heads_fwd_kernel`` (one launch, counted in
+    ``packed_heads_forward.launches``, its points in the counter
+    ``heads.fwd_points``)."""
+    _check_heads_input(out, n, s, c)
+    if out.device.type == "cpu":
+        return packed_heads_forward_plain(out, n, s, c)
+    if out.device.type != "cuda":
+        raise ValueError(f"packed heads: unsupported device {out.device}")
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("packed_heads")
+    out = out.contiguous()
+    if out.data_ptr() % 16:
+        raise ValueError("the packed output must be 16-byte aligned")
+    new = functools.partial(torch.empty, dtype=torch.float32, device=out.device)
+    heads = (new(n, s), new(n, s, 3), new(n, s), new(n, s, 3), new(n, s, 3), new(n, s, c))
+    p = n * s
+    if p == 0:
+        return heads
+    with torch.cuda.device(out.device):
+        err = lib.packed_heads_fwd(out.data_ptr(), p, c, *(t.data_ptr() for t in heads),
+                                   torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packed_heads_fwd launch failed: cudaError {err}")
+    _count_launch(packed_heads_forward)
+    trace.count("heads.fwd_points", p)
+    return heads
+
+
+packed_heads_forward.launches = packed_heads_forward.captured = 0
+
+
+def packed_heads_backward(grads, albedo: torch.Tensor, shading: torch.Tensor,
+                          residual: torch.Tensor, c: int) -> torch.Tensor:
+    """The bf16 cotangent ``[P, 128]`` of the packed output, written once,
+    for the gradients ``grads`` of :func:`packed_heads_forward`'s six
+    outputs (each may be ``None``: zero), given the forward's ``albedo``,
+    ``shading`` and ``residual``.  Bitwise the eager backward's cotangent
+    where ATen sums the shading column's three products in the kernel's
+    order (``csrc/packed_heads.cu``).
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``packed_heads_bwd_kernel`` (one launch, counted in
+    ``packed_heads_backward.launches``, its points in the counter
+    ``heads.bwd_points``)."""
+    if shading.device.type == "cpu":
+        return packed_heads_backward_plain(grads, albedo, shading, residual, c)
+    if shading.device.type != "cuda":
+        raise ValueError(f"packed heads: unsupported device {shading.device}")
+    n, s = shading.shape
+    shapes = ((n, s), (n, s, 3), (n, s), (n, s, 3), (n, s, 3), (n, s, c))
+    ptrs = []
+    for g, shape in zip(grads, shapes):
+        if g is not None and (g.dtype != torch.float32 or tuple(g.shape) != shape
+                              or g.device != shading.device):
+            raise ValueError(f"a head's gradient must be float32 {shape} on {shading.device}, "
+                             f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+        ptrs.append(None if g is None or g.numel() == 0 else g.contiguous())
+    from intrinsicnerf_tpu_torch.ops.build import load_library
+
+    lib = load_library("packed_heads")
+    p = n * s
+    gout = torch.empty((p, OUT_W), dtype=torch.bfloat16, device=shading.device)
+    if p == 0:
+        return gout
+    saved = [t.contiguous() for t in (albedo, shading, residual)]
+    with torch.cuda.device(shading.device):
+        err = lib.packed_heads_bwd(*(None if g is None else g.data_ptr() for g in ptrs),
+                                   *(t.data_ptr() for t in saved), p, c, gout.data_ptr(),
+                                   torch.cuda.current_stream(shading.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"packed_heads_bwd launch failed: cudaError {err}")
+    _count_launch(packed_heads_backward)
+    trace.count("heads.bwd_points", p)
+    return gout
+
+
+packed_heads_backward.launches = packed_heads_backward.captured = 0
+
+# the kernel wrappers of the model's path by kernel name (``chip_smoke.py``'s names)
 LAUNCH_COUNTERS = {"fused_mlp_fwd": fused_mlp_forward, "fused_mlp_fwd_image": fwd_weight_image,
-                   "fused_mlp_bwd": fused_mlp_backward}
+                   "fused_mlp_bwd": fused_mlp_backward, "packed_heads_fwd": packed_heads_forward,
+                   "packed_heads_bwd": packed_heads_backward}
 
 
 class FusedMLP(torch.autograd.Function):
@@ -783,36 +933,58 @@ class FusedMLP(torch.autograd.Function):
         return None, None, None, dw, db, None
 
 
+class PackedHeads(torch.autograd.Function):
+    """The packed bf16 output ``[n*s, 128]`` -> its heads ``(sigma, albedo,
+    shading, residual, rgb, sem)`` (:func:`packed_heads_forward`), with
+    the cotangent of the output written once as bf16 by
+    :func:`packed_heads_backward`, which :class:`FusedMLP`'s backward takes
+    as it stands.  It saves the three sigmoid outputs; a head with no
+    gradient reaches the backward as ``None``."""
+
+    @staticmethod
+    def forward(ctx, out, n, s, c):
+        heads = packed_heads_forward(out, n, s, c)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*heads[1:4])
+        ctx.c = c
+        return heads
+
+    @staticmethod
+    def backward(ctx, *grads):
+        albedo, shading, residual = ctx.saved_tensors
+        return packed_heads_backward(grads, albedo, shading, residual, ctx.c), None, None, None
+
+
 def fused_mlp_apply(params, cfg, in8: torch.Tensor, pe=None) -> torch.Tensor:
-    """``[P, 8]`` point block -> ``[P, 128]`` fp32 raw outputs.
+    """``[P, 8]`` point block -> ``[P, 128]`` bf16 packed output, the
+    kernel's own (a caller that wants fp32 casts it).
 
     ``params`` is ``FusedOperands`` (made once, no gradient: the serving
     path), or the packed training state's :class:`FlatBlocks`,
     differentiated through :class:`FusedMLP`.  ``pe`` overrides the PE
     constants built on ``in8``'s device."""
     if isinstance(params, FusedOperands):
-        return fused_mlp_forward(params, in8).float()
+        return fused_mlp_forward(params, in8)
     F, m = pe if pe is not None else pe_constants(cfg, in8.device)
-    return FusedMLP.apply(in8, F, m, params.weight, params.bias, cfg).float()
+    return FusedMLP.apply(in8, F, m, params.weight, params.bias, cfg)
 
 
 def fused_eval_points(params, cfg, pts: torch.Tensor, viewdirs: torch.Tensor,
                       pe=None) -> RawOutputs:
     """Drop-in for ``models.mlp.eval_points`` on the reference
     architecture (D=8, skip 4, viewdirs on); ``params`` and ``pe`` as in
-    :func:`fused_mlp_apply`."""
+    :func:`fused_mlp_apply`.  Kernel 1's bf16 output goes straight to the
+    heads through :class:`PackedHeads`, never as a whole fp32 copy."""
     n, s, _ = pts.shape
-    c = cfg.num_semantic_classes
-    out = fused_mlp_apply(params, cfg, build_in8(pts, viewdirs), pe).reshape(n, s, OUT_W)
-    albedo = torch.sigmoid(out[..., 1:4])
-    shading = torch.sigmoid(out[..., 4])
-    residual = torch.sigmoid(out[..., 5:8])
+    c = cfg.num_semantic_classes if cfg.enable_semantic else 0
+    out = fused_mlp_apply(params, cfg, build_in8(pts, viewdirs), pe)
+    sigma, albedo, shading, residual, rgb, sem = PackedHeads.apply(out, n, s, c)
     return RawOutputs(
-        rgb=albedo * shading[..., None] + residual,
-        sigma=out[..., 0],
+        rgb=rgb,
+        sigma=sigma,
         albedo=albedo,
         shading=shading,
         residual=residual,
-        sem_logits=out[..., 8 : 8 + c] if cfg.enable_semantic else None,
+        sem_logits=sem if cfg.enable_semantic else None,
         endpoint_feat=None,
     )

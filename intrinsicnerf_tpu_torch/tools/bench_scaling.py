@@ -207,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if on_card:
         from intrinsicnerf_tpu_torch.ops import build
 
-        for name in ("fused_mlp_fwd", "fused_mlp_bwd"):  # once, before the ranks start
+        for name in ("fused_mlp_fwd", "fused_mlp_bwd", "packed_heads"):  # once, before the ranks
             build.build(name)
     from intrinsicnerf_tpu_torch.tools.bench import device_info
 

@@ -57,7 +57,8 @@ W, H = 320, 240
 GATES = {"psnr": 28.0, "miou": 0.85, "total_acc": 0.93}
 KILL_MARK = "=== SIGKILL by tools/fullrun"
 LAUNCH_LINE = "kernel launches: "
-KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_image", "fused_mlp_bwd")
+KERNELS = ("fused_mlp_fwd", "fused_mlp_fwd_image", "fused_mlp_bwd", "packed_heads_fwd",
+           "packed_heads_bwd")
 
 
 def make_cfg(workdir, data_dir, steps, smoke=False):
@@ -210,11 +211,12 @@ def resume_consistent(at_kill: dict, resumed: List[int], restored: List[int]) ->
 
 
 def build_kernels():
-    """Build kernels 1 and 2 before the first launch, so that no kill can
-    land inside a build (the CLIs find them in ``_build/``)."""
+    """Build kernels 1 and 2 and the heads' kernels before the first
+    launch, so that no kill can land inside a build (the CLIs find them in
+    ``_build/``)."""
     from intrinsicnerf_tpu_torch.ops import build
 
-    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd", "packed_heads"):
         build.build(name)
 
 

@@ -109,7 +109,7 @@ def kernel_rows(model, mcfg, sizes, iters: int, seed: int = 0) -> Dict[str, dict
 
         def fwd_bwd():
             model.weight.grad = model.bias.grad = None
-            fm.fused_mlp_apply(model.flat(), mcfg, in8).sum().backward()
+            fm.fused_mlp_apply(model.flat(), mcfg, in8).float().sum().backward()
 
         f_flops, f_bytes = fused_work(n, macs, n_w, n_b)
         b_flops, b_bytes = backward_work(n, bwd_macs, n_w, n_b)

@@ -47,8 +47,17 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   buffers and in Adam's moments, exactly zero after every step;
 - 8 forward-facing object steps in NDC as one replay against the same 8
   eager steps: bitwise, with 14 clock stamps a captured step (10 on
-  Replica's path).
+  Replica's path);
+- the heads' kernels (``csrc/packed_heads.cu``) against the eager
+  expressions they replace, run on the card: the heads bitwise; the
+  cotangent bitwise but for the shading logit's column, held to one bf16
+  ulp (the kernel sums that column's three products in the order ATen's
+  reduction was measured to take); a captured replay bitwise the eager
+  launches; a graphed step with no fill, sum, copy or cast of the packed
+  output's [P, 128].
 """
+
+import math
 
 import pytest
 import torch
@@ -484,6 +493,141 @@ def test_graph_reads_a_table_copied_in(graph_setup):
     exact = _agree(_run(state, snap, gen, eager(new)), on_new, True)
     assert _agree(graphed, on_new, exact)
     assert not _agree(graphed, on_old, False)
+
+
+# ---- the heads' kernels (csrc/packed_heads.cu) ---------------------------
+
+HEADS = ("sigma", "albedo", "shading", "residual", "rgb", "sem")
+
+
+def _heads_inputs(p, c, seed, absent=()):
+    """A packed bf16 output of ``p`` points (zero past the ``c`` classes,
+    as kernel 1 writes it) as ``(rays, samples)``, and seeded gradients of
+    the six heads, ``None`` where ``absent`` (and the semantic one at c = 0)."""
+    n, s = (p // 64, 64) if p % 64 == 0 else (p, 1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = torch.randn(p, fm.OUT_W, device="cuda", generator=g) * 3
+    out[:, 8 + c:] = 0.0
+    shapes = ((n, s), (n, s, 3), (n, s), (n, s, 3), (n, s, 3), (n, s, c))
+    grads = [None if h in absent or (h == "sem" and c == 0)
+             else torch.randn(shape, device="cuda", generator=g)
+             for h, shape in zip(HEADS, shapes)]
+    return out.to(torch.bfloat16), n, s, grads
+
+
+def _eager_heads(out, n, s, c, grads):
+    """The heads and the bf16 cotangent of the eager expressions on the
+    card: autograd through ``packed_heads_forward_plain``, the fp32 copy of
+    the output cut into slices, whose zero-filled gradients autograd sums
+    and casts back to bf16."""
+    x = out.clone().requires_grad_(True)
+    heads = fm.packed_heads_forward_plain(x, n, s, c)
+    used = [i for i, g in enumerate(grads) if g is not None]
+    torch.autograd.backward([heads[i] for i in used], [grads[i] for i in used])
+    return [h.detach() for h in heads], x.grad
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+HEADS_CASES = [(p, c, ()) for p in (1, 4_097, 196_608) for c in (0, C, 40)] + [
+    (4_097, C, ("rgb", "sem")), (65_536, 0, ("albedo", "shading")), (100_003, C, ("sigma",))]
+
+
+@pytest.mark.parametrize("p,c,absent", HEADS_CASES,
+                         ids=[f"{p}-C{c}" + "".join(f"-no_{h}" for h in a)
+                              for p, c, a in HEADS_CASES])
+def test_heads_kernels_match_the_eager_expressions(card, p, c, absent):
+    """The heads' forward kernel bitwise the eager expressions' values, and
+    bitwise across launches; the backward kernel's cotangent bitwise the
+    eager one in every column but the shading logit's, which may differ by
+    one bf16 ulp where ATen sums its three products in another order; both
+    at one point, at counts that are not a multiple of a block, at C = 0,
+    27 and 40, and with heads' gradients absent.  Each launch is counted."""
+    out, n, s, grads = _heads_inputs(p, c, p + c, absent)
+    before = (fm.packed_heads_forward.launches, fm.packed_heads_backward.launches)
+    counted = trace.snapshot()["counters"]
+    got = fm.packed_heads_forward(out, n, s, c)
+    again = fm.packed_heads_forward(out, n, s, c)
+    cot = fm.packed_heads_backward(grads, got[1], got[2], got[3], c)
+    torch.cuda.synchronize()
+    now = trace.snapshot()["counters"]
+    assert (fm.packed_heads_forward.launches, fm.packed_heads_backward.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert now["heads.fwd_points"] - counted.get("heads.fwd_points", 0) == 2 * p
+    assert now["heads.bwd_points"] - counted.get("heads.bwd_points", 0) == p
+    ref, ref_cot = _eager_heads(out, n, s, c, grads)
+    for h, x, y, z in zip(HEADS, got, again, ref):
+        assert x.shape == z.shape and x.is_contiguous(), h
+        assert torch.equal(_bits(x), _bits(y)) and torch.equal(_bits(x), _bits(z)), h
+    assert cot.dtype == torch.bfloat16 and cot.shape == (p, fm.OUT_W)
+    a, b = _bits(cot).int(), _bits(ref_cot).int()
+    others = torch.ones(fm.OUT_W, dtype=torch.bool, device="cuda")
+    others[4] = False
+    assert torch.equal(a[:, others], b[:, others])
+    ulps = (a[:, 4] - b[:, 4]).abs()
+    assert int(ulps.max()) <= 1, (int((ulps > 0).sum()), int(ulps.max()))
+    assert not cot[:, 8 + c:].any()
+
+
+def test_heads_kernels_in_a_cuda_graph_equal_eager(card):
+    """Both heads' kernels captured in one CUDA graph and replayed twice give
+    bitwise the eager heads and cotangent; the capture counts each once in
+    ``.captured``."""
+    out, n, s, grads = _heads_inputs(196_608 + 11, C, 9)
+    eager = fm.packed_heads_forward(out, n, s, C)
+    eager_cot = fm.packed_heads_backward(grads, *eager[1:4], C)
+    torch.cuda.synchronize()
+    before = (fm.packed_heads_forward.captured, fm.packed_heads_backward.captured)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        heads = fm.packed_heads_forward(out, n, s, C)
+        cot = fm.packed_heads_backward(grads, *heads[1:4], C)
+    assert (fm.packed_heads_forward.captured, fm.packed_heads_backward.captured) == (
+        before[0] + 1, before[1] + 1)
+    for _ in range(2):
+        for t in (*heads, cot):
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip((*heads, cot), (*eager, eager_cot)):
+            assert torch.equal(_bits(x), _bits(y))
+
+
+def test_graphed_step_makes_no_fp32_copy_of_the_packed_output(graph_setup):
+    """A graphed Replica-width block traced with shapes: its warm-up step
+    and its capture fill, add, copy or cast no tensor of the packed
+    output's [P, 128] (the eager heads' fp32 copy, zero-filled slice
+    gradients and their sums); a traced replay runs each heads' kernel
+    twice a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state, pools, table, w_c, gen, snap = graph_setup
+    multi = make_multi_step(step, GRAPH_K)
+    restore_state(state, snap, gen)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        multi(state, pools, table, w_c, gen)  # the warm-up step, the capture, a replay
+        torch.cuda.synchronize()
+    events = prof.events()
+    points = {e.input_shapes[0][0] for e in events if e.name == "FusedMLP" and e.input_shapes}
+    assert len(points) == 2, points  # the coarse and the fine call
+
+    def packed(shape):
+        return (isinstance(shape, list) and len(shape) >= 2 and shape[-1] == fm.OUT_W
+                and math.prod(shape[:-1]) in points)
+
+    touched = sorted({e.name for e in events if any(packed(x) for x in e.input_shapes or [])})
+    banned = [name for name in touched
+              if any(w in name for w in ("fill", "zero", "add", "copy", "to_copy"))]
+    assert not banned, touched
+    assert "PackedHeads" in {e.name for e in events}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        multi(state, pools, table, w_c, gen)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel in ("packed_heads_fwd_kernel", "packed_heads_bwd_kernel"):
+        assert sum(kernel in x for x in names) == 2 * GRAPH_K, kernel
 
 
 # ---- the object configuration (semantic head off) ----------------------

@@ -163,7 +163,7 @@ def test_in8_and_pe_get_no_gradient(setup):
     in8 = tf.build_in8(torch.from_numpy(pts), torch.from_numpy(d)).requires_grad_(True)
     F, m = (t.clone().requires_grad_(True) for t in tf.pe_constants(tcfg))
     model.zero_grad(set_to_none=True)
-    out = tf.fused_mlp_apply(model.flat(), tcfg, in8, pe=(F, m))
+    out = tf.fused_mlp_apply(model.flat(), tcfg, in8, pe=(F, m)).float()
     out.sum().backward()
     assert in8.grad is None and F.grad is None and m.grad is None
     assert model.weight.grad is not None and model.bias.grad is not None

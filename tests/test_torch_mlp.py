@@ -148,7 +148,7 @@ def test_plain_fused_matches_pallas(fused_pair):
     # the raw packed output, including the zero padding columns
     in8 = jf.build_in8(jcfg, jnp.asarray(pts), jnp.asarray(d))
     ra = np.asarray(jf.fused_mlp_apply(params, jcfg, in8))
-    rb = tf.fused_mlp_apply(model.flat(), tcfg, torch.from_numpy(np.array(in8))).detach().numpy()
+    rb = tf.fused_mlp_apply(model.flat(), tcfg, torch.from_numpy(np.array(in8))).detach().float().numpy()
     assert np.max(np.abs(ra - rb)) / max(np.abs(ra).max(), 1.0) < 2e-2
     assert np.abs(rb[:, 8 + tcfg.num_semantic_classes:]).max() == 0.0
 

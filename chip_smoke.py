@@ -263,6 +263,28 @@ def fused_work(n_points: int, macs_per_point: int, n_weights: int, n_bias: int):
     return flops, nbytes
 
 
+def slice_errs(got, ref, c: int):
+    """Kernel 1's packed output ``got`` against its plain version ``ref``
+    per output slice: max |d| / max(max |plain|, 1) of sigma, albedo,
+    shading, residual and, at C > 0, the semantic logits."""
+    slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
+              **({"semantic": (8, 8 + c)} if c else {})}
+    return {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
+            / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
+
+
+def saving_bound(n_points: int, macs_per_point: int, n_weights: int, n_bias: int):
+    """(ms, bound by) of kernel 1's saving instance over ``n_points``: the
+    forward's work (``fused_work``) plus the saved forward it writes,
+    6,272 bytes a point (``tools/bwd_passes.py:SAVED_BYTES``)."""
+    from intrinsicnerf_tpu_torch.tools import bwd_passes
+
+    flops, nbytes = fused_work(n_points, macs_per_point, n_weights, n_bias)
+    nbytes += n_points * bwd_passes.SAVED_BYTES
+    by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES), by
+
+
 def loss_cotangent(out, n_used: int, gen, torch):
     """The bf16 cotangent of ``0.5 * sum((out - target)^2) / P`` over the
     output columns the model reads, with a seeded uniform target: coherent
@@ -640,14 +662,27 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = (("coarse_step", in8_for(rcfg.n_coarse)), ("fine_step", in8_fine),
              ("ragged", in8_fine[:100_003]))
-    bwd_timing, bwd_max_err, fwd_step_ms = {}, 0.0, {}
-    n_used = 8 + mcfg.num_semantic_classes
+    bwd_timing, bwd_max_err, fwd_step_ms, fwd_serve_ms = {}, 0.0, {}, {}
+    c = mcfg.num_semantic_classes if mcfg.enable_semantic else 0
+    n_used = 8 + c
     for label, in8 in cases:
         n = in8.shape[0]
-        fwd_step_ms[label] = cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch)
-        g = loss_cotangent(fm.fused_mlp_forward(ops, in8), n_used, gen, torch)
-        got = fm.fused_mlp_backward(ops, in8, g)
-        again = fm.fused_mlp_backward(ops, in8, g)
+        # the step launches kernel 1's saving instance: its output bitwise the
+        # serving instance's and per slice within KERNEL_TOL of the plain
+        # version, its time beside a bound that counts the saved forward
+        served = fm.fused_mlp_forward(ops, in8)
+        out, saved = fm.fused_mlp_forward_saving(ops, in8)
+        torch.cuda.synchronize()
+        save_bitwise = torch.equal(out.view(torch.int16), served.view(torch.int16))
+        save_errs = slice_errs(out, fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8), c)
+        del served
+        fwd_serve_ms[label] = cuda_ms(lambda: fm.fused_mlp_forward(ops, in8), 5, torch)
+        fwd_step_ms[label] = cuda_ms(lambda: fm.fused_mlp_forward_saving(ops, in8), 5, torch)
+        save_bound_ms, save_bound_by = saving_bound(n, macs, ops.wbuf.numel(),
+                                                    ops.bbuf.numel())
+        g = loss_cotangent(out, n_used, gen, torch)
+        got = fm.fused_mlp_backward(ops, saved, g)
+        again = fm.fused_mlp_backward(ops, saved, g)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(got[k], again[k]) for k in got)
         ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
@@ -657,14 +692,16 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
         bwd_max_err = max(bwd_max_err, max(float(((got[k] - ref[k]) * masks[k]).abs().max())
                                            for k in got))
         flops = 2.0 * bwd_macs * n
-        # points and cotangent in; bf16 weights, fp32 biases in; fp32 gradients out
-        nbytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
+        # the saved forward and the cotangent in; bf16 weights, fp32 biases in;
+        # fp32 gradients out
+        nbytes = (n * (bwd_passes.SAVED_BYTES + 128 * 2) + ops.wbuf.numel() * (2 + 4)
+                  + ops.bbuf.numel() * (4 + 4))
         bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
         bound_ms = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
-        k_ms = cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch)
+        k_ms = cuda_ms(lambda: fm.fused_mlp_backward(ops, saved, g), 5, torch)
         p_ms = cuda_ms(lambda: fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g), 2, torch)
         # each pass's device time (profiled) beside its own bound
-        passes = bwd_passes.pass_times(lambda: fm.fused_mlp_backward(ops, in8, g), 5)
+        passes = bwd_passes.pass_times(lambda: fm.fused_mlp_backward(ops, saved, g), 5)
         pass_bounds = bwd_passes.pass_bounds(n, work, fm.backward_splits(n))
         pass_ms = {p: round(passes[p], 4) for p in bwd_passes.PASSES}
         pass_bound = {p: [round(b[0], 4), b[1]] for p, b in pass_bounds.items()}
@@ -681,15 +718,21 @@ def train_phases(torch, np, fc, mcfg, dev, card, macs, view_rays):
             plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
             arena_floor_ms=f"{arena_ms:.4f}", pass_ms=json.dumps(pass_ms),
             pass_bound_ms=json.dumps(pass_bound), achieved_tflops=f"{flops / k_ms / 1e9:.1f}",
-            fwd_kernel_ms=f"{fwd_step_ms[label]:.4f}",
-            fwd_bound_ms=f"{1e3 * 2.0 * macs * n / PEAK_BF16_FLOPS:.4f}", card=json.dumps(card))
+            fwd_save_bitwise_serving=save_bitwise,
+            fwd_save_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in save_errs.items()}),
+            fwd_kernel_ms=f"{fwd_step_ms[label]:.4f}", fwd_bound_ms=f"{save_bound_ms:.4f}",
+            fwd_bound_by=save_bound_by, fwd_serving_ms=f"{fwd_serve_ms[label]:.4f}",
+            card=json.dumps(card))
         ok = (bitwise and cos > BWD_COS and rel <= BWD_REL
-              and all(c > BWD_COS and r <= BWD_REL for c, r in per.values())
+              and all(cc > BWD_COS and r <= BWD_REL for cc, r in per.values())
               and all(bool(torch.isfinite(x).all()) for x in got.values()))
         if not ok:
             raise AssertionError(f"kernel 2 disagrees with its plain version at {label}: "
                                  f"bitwise={bitwise} overall={(cos, rel)} per block={per}")
-    del probe, ops, cases, in8_fine, got, again, ref
+        if not (save_bitwise and all(e < KERNEL_TOL for e in save_errs.values())):
+            raise AssertionError(f"kernel 1's saving instance at {label}: bitwise the serving "
+                                 f"output={save_bitwise}, against the plain version {save_errs}")
+    del probe, ops, cases, in8_fine, got, again, ref, out, saved
     torch.cuda.empty_cache()
 
     # ---- the training path ----
@@ -1668,8 +1711,6 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
     ops = model.fused_operands(mcfg)
     masks = fm.packed_grad_masks(model.state_dict(), mcfg)
     gen = torch.Generator(device=rays.device).manual_seed(seed)
-    slices = {"sigma": (0, 1), "albedo": (1, 4), "shading": (4, 5), "residual": (5, 8),
-              **({"semantic": (8, 8 + c)} if c else {})}
     out = {"c": c, "macs": macs, "bwd_macs": bwd_macs, "max_fwd_err": 0.0, "max_bwd_err": 0.0}
     for label, n_samples in (("coarse", rcfg.n_coarse), ("fine", rcfg.n_coarse + rcfg.n_importance)):
         z = stratified_z_vals(rays[:, 6:7], rays[:, 7:8], n_samples)
@@ -1681,12 +1722,17 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
         fwd_bitwise = torch.equal(got.view(torch.int16), again.view(torch.int16))
         zero_cols = bool((got[:, 8 + c:] == 0).all())
         ref = fm.fused_mlp_forward_plain(ops.packed, ops.pe, in8)
-        errs = {k: (got[:, a:b].float() - ref[:, a:b].float()).abs().max().item()
-                / max(ref[:, a:b].float().abs().max().item(), 1.0) for k, (a, b) in slices.items()}
+        errs = slice_errs(got, ref, c)
         fwd_err = (got[:, :8 + c].float() - ref[:, :8 + c].float()).abs().max().item()
         g = loss_cotangent(got, 8 + c, gen, torch)
-        bwd = fm.fused_mlp_backward(ops, in8, g)
-        bwd2 = fm.fused_mlp_backward(ops, in8, g)
+        # the training launch: kernel 1's saving instance, its output bitwise
+        # the serving instance's (and so held against the plain version too)
+        saving, saved = fm.fused_mlp_forward_saving(ops, in8)
+        torch.cuda.synchronize()
+        save_bitwise = torch.equal(saving.view(torch.int16), got.view(torch.int16))
+        del saving
+        bwd = fm.fused_mlp_backward(ops, saved, g)
+        bwd2 = fm.fused_mlp_backward(ops, saved, g)
         torch.cuda.synchronize()
         bwd_bitwise = all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
         bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
@@ -1703,7 +1749,9 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
             sem_ok = sem == 0.0
         f_flops, f_bytes = fused_work(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
         b_flops = 2.0 * bwd_macs * n
-        b_bytes = n * (8 * 4 + 128 * 2) + ops.wbuf.numel() * (2 + 4) + ops.bbuf.numel() * (4 + 4)
+        b_bytes = (n * (bwd_passes.SAVED_BYTES + 128 * 2) + ops.wbuf.numel() * (2 + 4)
+                   + ops.bbuf.numel() * (4 + 4))
+        save_bound = saving_bound(n, macs, ops.wbuf.numel(), ops.bbuf.numel())
         bounds = {}
         for part, (flops, nbytes) in (("fwd", (f_flops, f_bytes)), ("bwd", (b_flops, b_bytes))):
             by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
@@ -1715,7 +1763,9 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
                                                                             in8), 2, torch),
                         bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
                         max_abs_err=fwd_err),
-            "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, in8, g), 5, torch),
+            "fwd_save": dict(ms=cuda_ms(lambda: fm.fused_mlp_forward_saving(ops, in8), 5, torch),
+                             bound_ms=save_bound[0], bound_by=save_bound[1]),
+            "bwd": dict(ms=cuda_ms(lambda: fm.fused_mlp_backward(ops, saved, g), 5, torch),
                         plain_ms=cuda_ms(lambda: fm.fused_mlp_backward_plain(
                             ops.packed, ops.pe, in8, g), 2, torch),
                         bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1],
@@ -1727,7 +1777,10 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
         worst = min(per.items(), key=lambda kv: kv[1][0])
         say(phase, classes=c, call=label, points=n, fwd_bitwise_repeat=fwd_bitwise,
             fwd_rel_err=json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
-            columns_past_8_plus_c_zero=zero_cols, bwd_bitwise_repeat=bwd_bitwise,
+            columns_past_8_plus_c_zero=zero_cols, fwd_save_bitwise_serving=save_bitwise,
+            fwd_save_ms=f"{row['fwd_save']['ms']:.4f}",
+            fwd_save_bound_ms=f"{row['fwd_save']['bound_ms']:.4f}",
+            bwd_bitwise_repeat=bwd_bitwise,
             bwd_cos=f"{cos:.7f}", bwd_rel_err=f"{rel:.3g}", semantic_blocks=json.dumps(sem),
             worst_block_cos=json.dumps([worst[0], round(worst[1][0], 7)]),
             tol=json.dumps({"fwd": KERNEL_TOL, "cos": BWD_COS, "rel": BWD_REL}),
@@ -1735,12 +1788,13 @@ def kernel_checks(torch, np, model, mcfg, rays, rcfg, card, seed, phase):
             **{f"{part}_{k}": f"{row[part][k]:.4f}" for part in ("fwd", "bwd")
                for k in ("ms", "plain_ms", "bound_ms")}, card=json.dumps(card))
         ok = (fwd_bitwise and zero_cols and all(e < KERNEL_TOL for e in errs.values())
-              and bwd_bitwise and sem_ok and cos > BWD_COS and rel <= BWD_REL
+              and save_bitwise and bwd_bitwise and sem_ok and cos > BWD_COS and rel <= BWD_REL
               and all(cc > BWD_COS and r <= BWD_REL for cc, r in per.values())
               and bool(torch.isfinite(got.float()).all()))
         if not ok:
             raise AssertionError(f"kernels 1 and 2 disagree with their plain versions at C = {c}, "
-                                 f"the {label} call: {errs} {(cos, rel)} {per} {sem}")
+                                 f"the {label} call: {errs} saving bitwise={save_bitwise} "
+                                 f"{(cos, rel)} {per} {sem}")
         del in8, got, again, ref, g, bwd, bwd2, bref
     torch.cuda.empty_cache()
     return out

@@ -39,11 +39,11 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "fused_mlp_fwd": [
         ("fused_mlp_fwd", [_P] * 6 + [_I64, _P], ctypes.c_int),
+        ("fused_mlp_fwd_save", [_P] * 7 + [_I64, _P], ctypes.c_int),
         ("fused_mlp_fwd_image", [_P] * 3, ctypes.c_int),
     ],
     "fused_mlp_bwd": [
-        ("fused_mlp_bwd", [_P] * 11 + [_I64, _I32, _P], ctypes.c_int),
-        ("fused_mlp_bwd_scratch", [_I64, _I32] + [ctypes.POINTER(_I64)] * 3, None),
+        ("fused_mlp_bwd", [_P] * 8 + [_I64, _I32, _P], ctypes.c_int),
     ],
     "fwd_probe": [
         ("fwd_probe", [_P] * 6 + [_I64] + [_I32] * 4 + [_P], ctypes.c_int),

@@ -2,12 +2,16 @@
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of
 // intrinsicnerf_tpu/ops/fused_mlp.py, launched there by `_fused_bwd`.
-// Given the points in8 [P, 8] and the bf16 cotangent g [P, 128] of the
-// packed output, it recomputes the forward without the five output
-// products, backpropagates g through the heads and the trunk with ReLU
-// masks from the recomputed activations, and returns dW = act^T g for all
-// 20 packed weight blocks and db = sum(g) for the biases, in fp32.  The
-// points get no gradient (exact: NeRF samples are not parameters).
+// Given the bf16 cotangent g [P, 128] of the packed output and the saved
+// forward that the forward's training launch wrote (fused_mlp_fwd.cu's
+// saving instance: every activation the weight products read, bf16, and
+// every ReLU mask, fused_mlp_common.cuh), it backpropagates g through the
+// heads and the trunk and returns dW = act^T g for all 20 packed weight
+// blocks and db = sum(g) for the biases, in fp32.  The Pallas kernel
+// recomputes the forward, for VMEM has no room to keep it; here the
+// forward kernel computed the same activations from the same operands
+// moments earlier, so nothing is recomputed.  The points get no gradient
+// (exact: NeRF samples are not parameters).
 // Rounding follows `_bwd_kernel`: every product takes bf16 operands with
 // fp32 accumulation; each gradient is formed in fp32, its bias gradient
 // is the fp32 sum of that unrounded value, and it is rounded to bf16 only
@@ -15,62 +19,53 @@
 // cast them so anyway); the ReLU masks test the fp32 value, as the plain
 // version does.
 //
-// Bound, on an H100 (989 TFLOP/s bf16, 3.35 TB/s).  Operations: the
-// network needs 2,046,720 multiply-adds per point in the backward (C =
-// 27): 691,072 to recompute the forward, 695,680 for the weight products
-// and 659,968 for the input products of every layer whose input depends on
-// parameters; 0.81 ms for the fine call's 196,608 points.  Bytes: 32 B of
-// points and 256 B of cotangent per point, and the arena below, which the
-// split into two passes writes and reads back: 11,776 B per point each
-// way, 2.32 GB per fine call, 0.69 ms to write and 0.69 ms to read at the
-// memory's rate.  So each pass is bound by its arena bytes (0.71 / 0.70 ms
-// at fine), and a step's two calls by 1.84 ms of arena traffic.
+// Bound, on an H100 (989 TFLOP/s bf16, 3.35 TB/s).  Operations: 1,355,648
+// multiply-adds per point (C = 27): 695,680 for the weight products and
+// 659,968 for the input products of every layer whose input depends on
+// parameters; 0.54 ms for the fine call's 196,608 points.  Bytes: the
+// activation pass reads 256 B of cotangent and 384 B of masks and writes
+// the gradient arena below, 5,888 B per point (0.38 ms at fine); the
+// weight-gradient pass reads the saved activations and the arena, 11,776
+// B per point (0.69 ms).  So each pass is bound by its bytes.
 //
 // Design: four launches in one call.
 //  0. `bwd_act_wimg_kernel`: the weight image, every K-slab the activation pass
-//     streams (64 rows of W for a forward product, 64 columns of W^T for
-//     an input product of the backward; 104 per tile, 2.98 MB in all),
-//     each laid out as it sits in shared memory (128-byte swizzle,
-//     hopper_mma.cuh), in the order the products consume them.
-//  1. `bwd_act_wgmma_kernel`: persistent, one block per SM (226 KB of
+//     streams (64 columns of W^T for an input product; 50 per tile, 1.5 MB
+//     in all), each laid out as it sits in shared memory (128-byte
+//     swizzle, hopper_mma.cuh), in the order the products consume them.
+//  1. `bwd_act_wgmma_kernel`: persistent, one block per SM (197 KB of
 //     shared memory), min(tiles, SMs) blocks; block b walks the 64-point
 //     tiles b, b + grid, b + 2 grid, ... in order.  Three warpgroups:
-//     - two consumer warpgroups recompute each tile's forward and run its
-//       backward chain with the tile's activations and gradients in shared
-//       memory, each a K-major operand of 64-column atoms; every product
-//       is wgmma m64nNk16 from shared memory with the two warpgroups
-//       splitting the output columns (N = 128 each for a 256-wide layer,
-//       64 for a 128-wide head) and one slab's products left in flight
-//       while the next is issued.  Epilogues work on the accumulator
-//       registers: bias (loaded before the product) and ReLU, the ReLU's
-//       mask kept as one bit per register in shared memory for the
-//       backward (no re-read of the arena), rows past P zeroed in the
-//       gradients, bf16 pairs into the next product's operand, then one
-//       bulk store of the warpgroup's atoms to the arena by one of its
-//       threads, and the bias partials as column sums in a fixed order
-//       (lane shuffles, then the four warps);
+//     - two consumer warpgroups run each tile's backward chain with its
+//       gradients in shared memory, each a K-major operand of 64-column
+//       atoms; every product is wgmma m64nNk16 from shared memory with the
+//       two warpgroups splitting the output columns (N = 128 each for a
+//       256-wide layer, 64 for a 128-wide head) and one slab's products
+//       left in flight while the next is issued.  Each gradient epilogue
+//       takes the thread's mask words of its layer, loaded from the saved
+//       forward into registers before the product (as a bias would be),
+//       zeroes the masked registers and rows past P, writes bf16 pairs into
+//       the next product's operand, then one bulk store of the
+//       warpgroup's atoms to the arena by one of its threads, and the bias
+//       partials as column sums in a fixed order (lane shuffles, then the
+//       four warps);
 //     - in the third, one thread of its first warp (the producer) moves
 //       the weight image slab by slab, once per tile, into a 3-stage ring
 //       of 32 KB with one bulk copy each (the copy engine, an mbarrier per
 //       stage for full and one for empty), running ahead of the consumers
 //       across layers, epilogues and tiles;
 //     - its other three warps (the staging warps) stage the next tile's
-//       inputs while the consumers run this one: its PE features (F and
-//       the sine mask in shared memory, staged once) and its cotangent
-//       (zero past P), each written 16 bytes at a time straight into the
-//       tile's atoms of the arena, and the output bias's gradient, the
-//       cotangent's 128 column sums over the tile's rows in order, into
-//       its bias partials.  The shared memory has no room for a second
-//       16 KB input buffer, so each input comes into the one slot [0, 16K)
-//       by a bulk copy from the arena (L2) when the chain frees it: the
-//       features once the previous tile's dH product has read its
-//       cotangent, the cotangent once the v head has read the features.
-//       Each of the two has a full mbarrier (the copy's bytes) and an
-//       empty one (the eight consumer warps), and one staging thread
-//       issues both copies.  A block with one tile pays its staging up
+//       cotangent (zero past P) while the consumers run this one, 16 bytes
+//       at a time straight into the tile's atoms of the arena, and the
+//       output bias's gradient, the cotangent's 128 column sums over the
+//       tile's rows in order, into its bias partials.  The cotangent comes
+//       into the slot [0, 16K) by a bulk copy from the arena (L2) once the
+//       consumers have read the previous tile's, at its dH product; the
+//       slot has a full mbarrier (the copy's bytes) and an empty one (the
+//       eight consumer warps).  A block with one tile pays its staging up
 //       front.
 //     setmaxnreg gives the consumers the registers the third warpgroup
-//     does not need.  The arena holds 5,888 bf16 per point; each buffer
+//     does not need.  The arena holds 2,944 bf16 per point; each buffer
 //     keeps a tile's rows in the atoms of its shared buffer, byte for
 //     byte, so a warpgroup's columns are one contiguous run in both
 //     places.  Rows past P are zero-gradient padding up to a multiple of
@@ -78,10 +73,11 @@
 //  2. `bwd_wgrad_gemm_kernel`: dW = A^T G for the 20 weight blocks as 51
 //     output tiles of 128x128, each over one of `splits` point chunks, so
 //     that 255 blocks of two warpgroups and a producer warp run as one wave
-//     at two per SM.  The producer moves point slabs of A and G (64 x 128
-//     each, two atoms that lie side by side in the arena) into a 3-stage
-//     ring with one bulk copy per operand, as the activation pass moves its
-//     weights; both operands are MN-major and wgmma m64n128k16 takes both
+//     at two per SM.  A is a buffer of the saved forward, G one of the
+//     arena.  The producer moves point slabs of A and G (64 x 128 each, two
+//     atoms that lie side by side in their buffer) into a 3-stage ring with
+//     one bulk copy per operand, as the activation pass moves its weights;
+//     both operands are MN-major and wgmma m64n128k16 takes both
 //     transposed, one slab's products in flight while the next is issued.
 //     Each (tile, chunk) writes its fp32 partial to a workspace [splits,
 //     835,584] straight from the registers.
@@ -98,18 +94,18 @@
 // Copies: every copy but the staging warps' is a bulk copy (the copy
 // engine without a tensor map), since each one moves a contiguous run: a
 // weight slab of the image, a warpgroup's atoms of a buffer into the
-// arena, a tile's two input atoms out of it into the slot, an operand's
-// two atoms of a slab out of it into the GEMM's ring.  TMA tensor maps
-// are not needed for that, and would be encoded per call through the
-// driver API (the arena is a fresh allocation; this plain-C build has no
-// libcuda link).  A store is read out of shared memory while the next
-// product runs; a product's first thread of each warpgroup waits, before
-// the barrier that opens it, until all but the warpgroup's newest store
-// have read their buffers, since its epilogue may overwrite them.  The
-// stores mark their lines first to go from L2 (hopper_mma.cuh:bulk_store),
-// and the weight image's loads mark theirs last (bulk_load_evict_last), so
-// that the 2.3 GB of arena a fine call writes does not push out the image
-// that every tile reads.
+// arena, a tile's cotangent atoms out of it into the slot, an operand's
+// two atoms of a slab into the GEMM's ring.  TMA tensor maps are not
+// needed for that, and would be encoded per call by cuTensorMapEncode
+// (the arena is a fresh allocation; this plain-C build has no libcuda
+// link).  A store is read out of shared memory while the next product
+// runs; a product's first thread of each warpgroup waits, before the
+// barrier that opens it, until all but the warpgroup's newest store have
+// read their buffers, since its epilogue may overwrite them.  The stores
+// mark their lines first to go from L2 (hopper_mma.cuh:bulk_store), the
+// mask loads theirs likewise (ld.global.cs), and the weight image's loads
+// mark theirs last (bulk_load_evict_last), so that the arena streams do
+// not push out the image that every tile reads.
 // Measured on the card (PERF.md, at the fine shape): the activation pass
 // took 5.5 ms with the weights loaded by cp.async from every thread behind
 // a block barrier per slab, 3.4 ms with the producer's bulk copies, 2.8 ms
@@ -117,14 +113,11 @@
 // arena written by 16-byte copies from every thread; 3.3 ms with the
 // arena's bulk stores and the slab loops as the compiler unrolled them,
 // 2.4-2.5 ms with the loops rolled, 2.0 ms with the stores' lines marked
-// `evict_first`, the same as with no arena stores at all.  With a block a
-// tile, the PE features and the cotangent, staged by the consumers before
-// the chain, were 16-21% of that; staged ahead by the third warpgroup of a
-// persistent block, the pass took 1.75 ms, and 1.60-1.66 ms with the
-// image's lines kept in L2 (the same hint without the staging warps' plain
-// stores moved nothing).  The GEMM took 1.10 ms with 16-byte cp.async
-// behind a block barrier per slab, 0.89 ms with the bulk-load ring (its
-// byte bound 0.70).
+// `evict_first`.  Staged ahead by the third warpgroup of a persistent
+// block, the pass took 1.60-1.66 ms with the forward recomputed, and 0.85
+// ms with it read from the saved forward instead.  The GEMM took 1.10 ms
+// with 16-byte cp.async behind a block barrier per slab, 0.89 ms with the
+// bulk-load ring (its byte bound 0.70).
 
 #include <climits>
 
@@ -135,64 +128,47 @@ namespace {
 
 using namespace fmlp;
 
-// Arena layout: each buffer of `width` columns starts at (its offset
-// below) * p_pad elements and holds the points' 64-row tiles in order, each
-// as width / 64 atoms of 64 rows x 64 columns (8 KB), byte for byte as
-// the activation pass's shared buffers and the weight-gradient pass's
-// stages hold them (128-byte swizzle, hopper_mma.cuh): tile t of a buffer
-// starts t * 64 * width elements on, and its atom a a * 4,096 on.
-constexpr int AR_FEAT = 0;              // PE features, 128
-constexpr int AR_ACT = AR_FEAT + IN_W;  // trunk activations 0..7, W each
-constexpr int AR_A1 = AR_ACT + 8 * W;
-constexpr int AR_S1 = AR_A1 + HW;
-constexpr int AR_M1 = AR_S1 + HW;
-constexpr int AR_F = AR_M1 + HW;        // feature (no ReLU), W
-constexpr int AR_V = AR_F + W;
-constexpr int AR_GO = AR_V + HW;        // the cotangent, zero past P, 128
-constexpr int AR_G = AR_GO + OUT_W;     // trunk pre-activation gradients 0..7
-constexpr int AR_GA1 = AR_G + 8 * W;
-constexpr int AR_GS1 = AR_GA1 + HW;
-constexpr int AR_GM1 = AR_GS1 + HW;
-constexpr int AR_GV = AR_GM1 + HW;
-constexpr int AR_GF = AR_GV + HW;
-constexpr int AR_COLS = AR_GF + W;
-static_assert(AR_COLS == 5888, "arena layout changed");
+// The gradient arena: the gradients the activation pass writes and the
+// weight-gradient pass reads, in the saved forward's layout
+// (fused_mlp_common.cuh): each buffer of `width` columns starts at (its
+// offset below) * p_pad elements and holds the points' 64-row tiles in
+// order, each as width / 64 atoms of 64 rows x 64 columns (8 KB), byte for
+// byte as the activation pass's shared buffers and the weight-gradient
+// pass's stages hold them.
+constexpr int GR_GO = 0;              // the cotangent, zero past P, 128
+constexpr int GR_G = GR_GO + OUT_W;   // trunk pre-activation gradients 0..7
+constexpr int GR_GA1 = GR_G + 8 * W;
+constexpr int GR_GS1 = GR_GA1 + HW;
+constexpr int GR_GM1 = GR_GS1 + HW;
+constexpr int GR_GV = GR_GM1 + HW;
+constexpr int GR_GF = GR_GV + HW;
+constexpr int GR_COLS = GR_GF + W;
+static_assert(GR_COLS == 2944, "arena layout changed");
 
 // ---- the activation pass ----
 //
 // Shared memory of one block (byte offsets from a 1 KB boundary).  Every
-// activation or gradient buffer is K-major for the next product: 64-column
-// atoms of 64 rows (hopper_mma.cuh), 8 KB each.
-//  overlay, forward:  feat [0, 16K)  bufA [16K, 48K)  bufB [48K, 80K)
-//                     head scratch [80K, 96K)
-//  overlay, backward: go [0, 16K)  gv / ga1 / gs1 / gm1 [16K, 64K), the
-//                     trunk gradients ping [16K, 48K) and pong [64K, 96K),
-//                     gf [64K, 96K)
-//  [0, 16K) is the inputs' slot: the bulk copies bring a tile's features,
-//    then its cotangent, then the next tile's features into it
+// gradient buffer is K-major for the next product: 64-column atoms of 64
+// rows (hopper_mma.cuh), 8 KB each.
+//  go [0, 16K): the inputs' slot, into which the bulk copies bring each
+//    tile's cotangent
+//  gv / ga1 / gs1 / gm1 [16K, 64K), the trunk gradients ping [16K, 48K)
+//    and pong [64K, 96K), gf [64K, 96K)
 //  weight ring: ACT_STAGES x 32 KB, one K-slab of 64 of a weight block each
-//  ReLU masks: one bit per accumulator register of each thread, 12 layers
 //  column-sum scratch: [2 warpgroups][4 warps][128] fp32
-//  the PE's inputs (fp32): F [8, 128] and the sine mask [128]
 //  barriers: the ring's full and empty, one each per stage, then the
-//    slot's full and empty for the features, then for the cotangent
+//    slot's full and empty
 constexpr int ATOM = 64 * 128;  // one 64-row atom
-constexpr int OV_FEAT = 0, OV_BUFA = 16384, OV_BUFB = 49152, OV_HEAD = 81920;
 constexpr int OV_GO = 0, OV_R1 = 16384, OV_R2 = 65536;
-constexpr int IN_BYTES = 2 * ATOM;  // a tile's 128 features, or its 128 cotangent columns
+constexpr int IN_BYTES = 2 * ATOM;  // a tile's 128 cotangent columns
 constexpr int SM_RING = 98304;
 constexpr int ACT_STAGES = 3;
 constexpr int ACT_STAGE_BYTES = 32768;
-constexpr int SM_MASKS = SM_RING + ACT_STAGES * ACT_STAGE_BYTES;
-constexpr int N_MASKS = 12;  // act0..act7, v, a1, s1, m1
-constexpr int SM_COLSUM = SM_MASKS + N_MASKS * NTHREADS * 8;
-constexpr int SM_PE = SM_COLSUM + 2 * 4 * 128 * 4;
-constexpr int SM_BARS = SM_PE + (IN8_W + 1) * IN_W * 4;
-constexpr int IN_FEAT = 0, IN_GO = 1;  // the slot's inputs, in their barriers' order
-constexpr int ACT_SMEM = SM_BARS + (2 * ACT_STAGES + 4) * 8 + 1024;  // + slack to align to 1 KB
+constexpr int SM_COLSUM = SM_RING + ACT_STAGES * ACT_STAGE_BYTES;
+constexpr int SM_BARS = SM_COLSUM + 2 * 4 * 128 * 4;
+constexpr int ACT_SMEM = SM_BARS + (2 * ACT_STAGES + 2) * 8 + 1024;  // + slack to align to 1 KB
 static_assert(ACT_SMEM <= 232448, "the activation pass exceeds a block's shared memory");
-static_assert(OV_FEAT == 0 && OV_GO == 0 && OV_BUFA == IN_BYTES && OV_R1 == IN_BYTES,
-              "the inputs' slot");
+static_assert(OV_GO == 0 && OV_R1 == IN_BYTES, "the inputs' slot");
 static_assert(NTHREADS == 256, "two consumer warpgroups");
 // + the third warpgroup: the producer warp, then the staging warps
 constexpr int ACT_THREADS = NTHREADS + 128;
@@ -200,33 +176,25 @@ constexpr int STAGE_THREADS = 96;
 // registers a thread after setmaxnreg: 128 x 88 + 256 x 208 = 384 x 168,
 // the block's share of the SM's 65,536 at launch
 constexpr int STAGE_REGS = 88, CONSUMER_REGS = 208;
-enum { MK_V = 8, MK_A1, MK_S1, MK_M1 };
 
-// One weight block as the products stream it, K-slab by K-slab: forward
-// products read W [in, out] (K = in, N = out; MN-major: each slab is N/64
-// atoms of 64 k-rows), the input products of the backward read W^T (K =
-// out, N = in; K-major: each slab is N rows of 64 k).  `ldw` = out.
+// One weight block as the input products of the backward stream it,
+// K-slab by K-slab: they read W^T (K = out, N = in; K-major: each slab is N
+// rows of 64 k).  `ldw` = out.
 struct Seg {
-  int w_off, ldw, K, N, wt;
+  int w_off, ldw, K, N;
 };
-#define FWD(off, in, out) {(int)(off), out, in, out, 0}
-#define BWD(off, in, out) {(int)(off), out, out, in, 1}
+#define BWD(off, in, out) {(int)(off), out, out, in}
 #define SEG_TABLE                                                                             \
-  {FWD(OFF_W0, IN_W, W), FWD(OFF_W1, W, W), FWD(OFF_W2, W, W), FWD(OFF_W3, W, W),             \
-   FWD(OFF_W4, W, W), FWD(OFF_W5H, W, W), FWD(OFF_W5X, IN_W, W), FWD(OFF_W6, W, W),           \
-   FWD(OFF_W7, W, W), FWD(OFF_WF, W, W), FWD(OFF_WVF, W, HW), FWD(OFF_WVD, IN_W, HW),         \
-   FWD(OFF_WA1, W, HW), FWD(OFF_WS1, W, HW), FWD(OFF_WM1, W, HW),                             \
-   BWD(OFF_WR, HW, OUT_W), BWD(OFF_WVF, W, HW), BWD(OFF_WA2, HW, OUT_W),                      \
+  {BWD(OFF_WR, HW, OUT_W), BWD(OFF_WVF, W, HW), BWD(OFF_WA2, HW, OUT_W),                      \
    BWD(OFF_WS2, HW, OUT_W), BWD(OFF_WM2, HW, OUT_W),                                          \
    BWD(OFF_WSIG, W, OUT_W), BWD(OFF_WA1, W, HW), BWD(OFF_WS1, W, HW), BWD(OFF_WM1, W, HW),    \
    BWD(OFF_WF, W, W),                                                                         \
    BWD(OFF_W7, W, W), BWD(OFF_W6, W, W), BWD(OFF_W5H, W, W), BWD(OFF_W4, W, W),               \
    BWD(OFF_W3, W, W), BWD(OFF_W2, W, W), BWD(OFF_W1, W, W)}
-constexpr int N_SEGS = 32;
+constexpr int N_SEGS = 17;
 constexpr Seg kSegs[N_SEGS] = SEG_TABLE;
 __constant__ Seg c_segs[N_SEGS] = SEG_TABLE;
 #undef SEG_TABLE
-#undef FWD
 #undef BWD
 
 constexpr int count_slabs() {
@@ -239,12 +207,14 @@ constexpr long image_elems() {
   for (const Seg& s : kSegs) n += (long)s.K * s.N;
   return n;
 }
-constexpr int N_SLABS = count_slabs();       // 104 per tile
-constexpr long IMG_ELEMS = image_elems();    // 1,490,944 bf16
+constexpr int N_SLABS = count_slabs();       // 50 per tile
+constexpr long IMG_ELEMS = image_elems();    // 753,664 bf16
+static_assert(N_SLABS == 50 && IMG_ELEMS == 753664, "the backward's weight image changed");
 
 // The weight image: every slab of every tile's sequence, in c_segs order,
 // laid out byte for byte as it sits in a stage (64 * N bf16 each), so that
-// the producer moves a slab with one bulk copy.  One block per slab.
+// the producer moves a slab with one bulk copy: rows n of W^T's slab,
+// W[n, k0 : k0 + 64].  One block per slab.
 __global__ void __launch_bounds__(NTHREADS)
 bwd_act_wimg_kernel(const bf16* __restrict__ w, bf16* __restrict__ img) {
   int i = blockIdx.x, seg = 0;
@@ -257,19 +227,9 @@ bwd_act_wimg_kernel(const bf16* __restrict__ w, bf16* __restrict__ img) {
   unsigned char* st = reinterpret_cast<unsigned char*>(img + off + (long)i * 64 * s.N);
   const int k0 = i * 64;
   for (int e = threadIdx.x; e < 8 * s.N; e += NTHREADS) {
-    const bf16* src;
-    uint32_t dst;
-    if (s.wt) {  // rows n of W^T's slab: W[n, k0 : k0 + 64]
-      const int row = e >> 3, c = e & 7;
-      src = w + s.w_off + (long)row * s.ldw + k0 + c * 8;
-      dst = hmma::sw128(row, c);
-    } else {  // rows k of W's slab: W[k0 + k, :], 64 columns per atom
-      const int cpr = s.N >> 3;
-      const int row = e / cpr, c = e % cpr;
-      src = w + s.w_off + (long)(k0 + row) * s.ldw + c * 8;
-      dst = (c >> 3) * ATOM + hmma::sw128(row, c & 7);
-    }
-    *reinterpret_cast<uint4*>(st + dst) = *reinterpret_cast<const uint4*>(src);
+    const int row = e >> 3, c = e & 7;
+    *reinterpret_cast<uint4*>(st + hmma::sw128(row, c)) =
+        *reinterpret_cast<const uint4*>(w + s.w_off + (long)row * s.ldw + k0 + c * 8);
   }
 }
 
@@ -311,10 +271,10 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // acc[64 x NW] (this warpgroup's columns) += A[64, 64 * kslabs] @ the next
-// kslabs slabs of the ring.  A: a K-major activation buffer at shared
-// address `a`, written by both warpgroups' epilogues before this call.
-// WT: the slabs hold W^T (K-major) rather than W (MN-major).
-template <int NW, int WT>
+// kslabs slabs of the ring (W^T, K-major).  A: a K-major gradient buffer
+// at shared address `a`, written by both warpgroups' epilogues before this
+// call.
+template <int NW>
 __device__ __forceinline__ void mma_slabs(float (&acc)[NW / 2], Ring& r, uint32_t a, int kslabs) {
   const int wg = threadIdx.x >> 7;
   // The arena store before this warpgroup's newest may still read a buffer
@@ -324,7 +284,7 @@ __device__ __forceinline__ void mma_slabs(float (&acc)[NW / 2], Ring& r, uint32_
   if ((threadIdx.x & 127) == 0) hmma::bulk_wait<1, 1>();
   consumer_sync();  // A's writers fenced their writes to the async proxy before it
   int prev = -1;    // the stage of the slab whose products may still run
-#pragma unroll 1  // unrolled at its 19 call sites, the pass ran 25% slower on the card
+#pragma unroll 1  // unrolled at its call sites, the pass ran 25% slower on the card
   for (int s = 0; s < kslabs; ++s) {
     const int st = r.it % ACT_STAGES;
     hmma::mbar_wait(r.full + st * 8, (r.it / ACT_STAGES) & 1);
@@ -333,13 +293,11 @@ __device__ __forceinline__ void mma_slabs(float (&acc)[NW / 2], Ring& r, uint32_
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da = hmma::desc_sw128(a + s * ATOM + kk * 32, 16, 1024);
-      const uint64_t db =
-          WT ? hmma::desc_sw128(slab + wg * NW * 128 + kk * 32, 16, 1024)
-             : hmma::desc_sw128(slab + wg * (NW / 64) * ATOM + kk * 2048, ATOM, 1024);
+      const uint64_t db = hmma::desc_sw128(slab + wg * NW * 128 + kk * 32, 16, 1024);
       if constexpr (NW == 128)
-        hmma::wgmma_m64n128k16<0, WT ? 0 : 1>(acc, da, db, 1);
+        hmma::wgmma_m64n128k16<0, 0>(acc, da, db, 1);
       else
-        hmma::wgmma_m64n64k16<0, WT ? 0 : 1>(acc, da, db, 1);
+        hmma::wgmma_m64n64k16<0, 0>(acc, da, db, 1);
     }
     hmma::wgmma_commit();
     if (prev >= 0) {  // the previous slab's products are done: its stage is free
@@ -382,65 +340,31 @@ __device__ __forceinline__ void store_atoms(const unsigned char* S, bf16* G) {
   }
 }
 
-// the bias of this warpgroup's NW columns in the accumulator's column
-// order, loaded before the product so that its latency hides behind it
+// This thread's mask words of a ReLU layer (`mask`: the saved forward's),
+// loaded before the product so that their latency hides behind it; the
+// lines are read once
 template <int NW>
-__device__ __forceinline__ void load_bias(float (&bv)[NW / 4], const float* __restrict__ bias) {
-  const int col = (threadIdx.x >> 7) * NW + 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j) {
-    bv[2 * j] = __ldg(bias + col + j * 8);
-    bv[2 * j + 1] = __ldg(bias + col + j * 8 + 1);
+__device__ __forceinline__ void load_mask(uint32_t (&bits)[NW / 64], const uint32_t* mask) {
+  if constexpr (NW == 128) {
+    const uint2 m = __ldcs(reinterpret_cast<const uint2*>(mask));
+    bits[0] = m.x;
+    bits[1] = m.y;
+  } else {
+    bits[0] = __ldcs(mask);
   }
-}
-
-// Forward epilogue of this warpgroup's NW columns: bf16(act(acc + bias))
-// into the K-major buffer D (the next product's A), the ReLU's mask bits
-// into `mask`, then the columns to the arena tile G.
-template <int NW>
-__device__ __forceinline__ void fwd_epilogue(const float (&acc)[NW / 2], const float (&bv)[NW / 4],
-                                             bool relu, unsigned char* D, uint32_t* mask, bf16* G) {
-  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, lane = lt & 31;
-  const int r0 = (lt >> 5) * 16 + (lane >> 2);
-  uint32_t bits[NW / 64] = {};
-#pragma unroll
-  for (int j = 0; j < NW / 8; ++j) {
-    const int col = wg * NW + j * 8 + 2 * (lane & 3);
-    const float b0 = bv[2 * j], b1 = bv[2 * j + 1];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 4 * j + 2 * h;
-      float v0 = acc[i] + b0, v1 = acc[i + 1] + b1;
-      if (relu) {
-        bits[i >> 5] |= (v0 > 0.0f ? 1u : 0u) << (i & 31);
-        bits[i >> 5] |= (v1 > 0.0f ? 1u : 0u) << ((i + 1) & 31);
-        v0 = fmaxf(v0, 0.0f);
-        v1 = fmaxf(v1, 0.0f);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(D + kmaj(r0 + 8 * h, col)) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  if (relu)
-#pragma unroll
-    for (int q = 0; q < NW / 64; ++q) mask[q] = bits[q];
-  hmma::fence_proxy_async();
-  wg_sync();
-  store_atoms<NW>(D, G);
 }
 
 // Gradient epilogue of this warpgroup's NW columns: v = acc, zero where
-// the mask bit is clear (when `mask` is set) and past n; bf16(v) into D and
-// the arena tile G, and the fp32 column sums of v over the tile's 64 rows (lanes,
-// then the four warps in order) into bsum.
+// the mask bit is clear and past n; bf16(v) into D and the arena tile G,
+// and the fp32 column sums of v over the tile's 64 rows (lanes, then the
+// four warps in order) into bsum.
 template <int NW>
-__device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2], const uint32_t* mask,
-                                              unsigned char* D, bf16* G, float* bsum,
-                                              float* colsum, long long row0, long long n) {
+__device__ __forceinline__ void grad_epilogue(const float (&acc)[NW / 2],
+                                              const uint32_t (&bits)[NW / 64], unsigned char* D,
+                                              bf16* G, float* bsum, float* colsum, long long row0,
+                                              long long n) {
   const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, warp = lt >> 5, lane = lt & 31;
   const int r0 = warp * 16 + (lane >> 2);
-  uint32_t bits[NW / 64];
-#pragma unroll
-  for (int q = 0; q < NW / 64; ++q) bits[q] = mask ? mask[q] : 0xFFFFFFFFu;
   const bool live0 = row0 + r0 < n, live1 = row0 + r0 + 8 < n;
   float* cs = colsum + (wg * 4 + warp) * 128;
 #pragma unroll
@@ -481,57 +405,26 @@ __device__ __forceinline__ void stage_sync() {
   asm volatile("bar.sync 4, %0;\n" ::"n"(STAGE_THREADS) : "memory");
 }
 
-// A staging warp's 16-byte store of one chunk of a tile's input atoms into
-// the arena, the arena's one writer besides the consumers' bulk stores
+// A staging warp's 16-byte store of one chunk of a tile's cotangent atoms
+// into the arena, the arena's one writer besides the consumers' bulk stores
 __device__ __forceinline__ void stage_put(unsigned char* dst, uint4 v) {
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
 // Tile t's inputs, by the staging warps, into its atoms of the arena (rows
 // past n zero) and its row of the bias partials:
-//  - the PE features from the tile's in8 rows and F and the sine mask `pe`
-//    in shared memory, eight columns (one 16-byte chunk) at a time:
-//    z = in8 @ F as separately rounded fp32 products and sums (k = 0..7,
-//    as the plain version adds them), then feat = m ? sin(z) : z, rounded
-//    to bf16 as kernel 1 rounds them;
 //  - the cotangent's rows, 16 bytes at a time;
 //  - the five output biases' gradient: the cotangent's 128 column sums
 //    over the tile's 64 rows in order.
 // Each thread then fences its arena stores to the async proxy, through
-// which the slot's bulk copies read them.
-__device__ __forceinline__ void stage_tile(const float* pe, const float* __restrict__ in8,
-                                           const bf16* __restrict__ g, bf16* __restrict__ arena,
+// which the slot's bulk copy reads them.
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ g, bf16* __restrict__ arena,
                                            float* __restrict__ bpart, int t, long long n,
                                            long long p_pad) {
   const int pt = threadIdx.x - (NTHREADS + 32);
   const long long row0 = (long long)t * TILE_M;
-  unsigned char* feat = reinterpret_cast<unsigned char*>(arena + AR_FEAT * p_pad + row0 * IN_W);
-  unsigned char* go = reinterpret_cast<unsigned char*>(arena + AR_GO * p_pad + row0 * OUT_W);
+  unsigned char* go = reinterpret_cast<unsigned char*>(arena + GR_GO * p_pad + row0 * OUT_W);
   // chunk e: row e / 16, columns 8 (e % 16) .. + 8
-  for (int e = pt; e < TILE_M * 16; e += STAGE_THREADS) {
-    const int i = e >> 4, q = e & 15;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};  // eight bf16, column 8q + u at bits 16u
-    if (row0 + i < n) {
-      const float4* xp = reinterpret_cast<const float4*>(in8 + (row0 + i) * IN8_W);
-      const float4 x0 = __ldg(xp), x1 = __ldg(xp + 1);
-      const float x[IN8_W] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll 1
-      for (int u = 0; u < 8; ++u) {
-        const int c = q * 8 + u;
-        float z = __fmul_rn(x[0], pe[c]);
-#pragma unroll
-        for (int k = 1; k < IN8_W; ++k) z = __fadd_rn(z, __fmul_rn(x[k], pe[k * IN_W + c]));
-        const float f = pe[IN8_W * IN_W + c] != 0.0f ? sinf(z) : z;
-        const bf16 h = __float2bfloat16(f);
-        // shift the chunk down one column and put this one on top
-        w[0] = __funnelshift_r(w[0], w[1], 16);
-        w[1] = __funnelshift_r(w[1], w[2], 16);
-        w[2] = __funnelshift_r(w[2], w[3], 16);
-        w[3] = __funnelshift_r(w[3], (uint32_t)__bfloat16_as_ushort(h), 16);
-      }
-    }
-    stage_put(feat + (q >> 3) * ATOM + hmma::sw128(i, q & 7), make_uint4(w[0], w[1], w[2], w[3]));
-  }
   for (int e = pt; e < TILE_M * 16; e += STAGE_THREADS) {
     const int i = e >> 4, q = e & 15;
     const long long p = row0 + i;
@@ -549,46 +442,35 @@ __device__ __forceinline__ void stage_tile(const float* pe, const float* __restr
   hmma::fence_proxy_async_global();
 }
 
-// tile t's atoms of the arena buffer at column offset `off` (width 128)
-// into the inputs' slot, by one bulk copy completing on `full`
-__device__ __forceinline__ void load_input(uint32_t slot, uint32_t full, const bf16* arena,
-                                           int off, int t, long long p_pad) {
+// tile t's cotangent atoms of the arena into the inputs' slot, by one bulk
+// copy completing on `full`
+__device__ __forceinline__ void load_input(uint32_t slot, uint32_t full, const bf16* arena, int t,
+                                           long long p_pad) {
   hmma::mbar_expect_tx(full, IN_BYTES);
-  hmma::bulk_load(slot, arena + off * p_pad + (long long)t * TILE_M * 128, IN_BYTES, full);
+  hmma::bulk_load(slot, arena + GR_GO * p_pad + (long long)t * TILE_M * OUT_W, IN_BYTES, full);
 }
 
-// The staging warps: F and the sine mask staged once; the block's first
-// tile staged and its features loaded; then, while the consumers run the
-// block's j-th tile t, the next tile staged, and by the first staging
-// thread, the copies into the slot: t's cotangent once the consumers have
-// read t's features (in_empty, IN_FEAT), the next tile's features once
-// they have read t's cotangent (in_empty, IN_GO).
-__device__ __forceinline__ void stage_inputs(unsigned char* sm, uint32_t in_full,
-                                             uint32_t in_empty, const float* __restrict__ in8,
-                                             const float* __restrict__ pe_mat,
-                                             const float* __restrict__ sin_mask,
-                                             const bf16* __restrict__ g, bf16* __restrict__ arena,
-                                             float* __restrict__ bpart, long long n,
-                                             long long p_pad, int tiles) {
+// The staging warps: the block's first tile staged and its cotangent
+// loaded; then, while the consumers run the block's j-th tile, the next
+// tile staged and, by the first staging thread, its cotangent copied into
+// the slot once the consumers have read this tile's (go_empty).
+__device__ __forceinline__ void stage_inputs(unsigned char* sm, uint32_t go_full,
+                                             uint32_t go_empty, const bf16* __restrict__ g,
+                                             bf16* __restrict__ arena, float* __restrict__ bpart,
+                                             long long n, long long p_pad, int tiles) {
   const int pt = threadIdx.x - (NTHREADS + 32);
-  const uint32_t slot = hmma::smem_u32(sm + OV_FEAT);
-  float* pe = reinterpret_cast<float*>(sm + SM_PE);
-  for (int e = pt; e < IN8_W * IN_W; e += STAGE_THREADS) pe[e] = pe_mat[e];
-  for (int e = pt; e < IN_W; e += STAGE_THREADS) pe[IN8_W * IN_W + e] = sin_mask[e];
+  const uint32_t slot = hmma::smem_u32(sm + OV_GO);
+  stage_tile(g, arena, bpart, blockIdx.x, n, p_pad);
   stage_sync();
-  stage_tile(pe, in8, g, arena, bpart, blockIdx.x, n, p_pad);
-  stage_sync();
-  if (pt == 0) load_input(slot, in_full + IN_FEAT * 8, arena, AR_FEAT, blockIdx.x, p_pad);
+  if (pt == 0) load_input(slot, go_full, arena, blockIdx.x, p_pad);
   int j = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
     const int next = t + gridDim.x;
-    if (next < tiles) stage_tile(pe, in8, g, arena, bpart, next, n, p_pad);
+    if (next < tiles) stage_tile(g, arena, bpart, next, n, p_pad);
     stage_sync();  // the next tile staged by every staging thread
-    hmma::mbar_wait(in_empty + IN_FEAT * 8, j & 1);
-    if (pt == 0) load_input(slot, in_full + IN_GO * 8, arena, AR_GO, t, p_pad);
-    hmma::mbar_wait(in_empty + IN_GO * 8, j & 1);
+    hmma::mbar_wait(go_empty, j & 1);
     if (pt == 0 && next < tiles)
-      load_input(slot, in_full + IN_FEAT * 8, arena, AR_FEAT, next, p_pad);
+      load_input(slot, go_full, arena, next, p_pad);
   }
 }
 
@@ -598,26 +480,22 @@ __device__ __forceinline__ void release(uint32_t empty) {
 }
 
 __global__ void __launch_bounds__(ACT_THREADS, 1)
-bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe_mat,
-                     const float* __restrict__ sin_mask, const bf16* __restrict__ img,
-                     const float* __restrict__ b, const bf16* __restrict__ g,
-                     bf16* __restrict__ arena, float* __restrict__ bpart, long long n,
-                     long long p_pad) {
+bwd_act_wgmma_kernel(const bf16* __restrict__ img, const uint32_t* __restrict__ masks,
+                     const bf16* __restrict__ g, bf16* __restrict__ arena,
+                     float* __restrict__ bpart, long long n, long long p_pad) {
   extern __shared__ __align__(128) unsigned char act_smem[];
   unsigned char* sm = act_smem + ((1024u - (hmma::smem_u32(act_smem) & 1023u)) & 1023u);
   const uint32_t sa = hmma::smem_u32(sm);
   const int tiles = (int)(p_pad / TILE_M);
   Ring ring{sa + SM_RING, sa + SM_BARS, sa + SM_BARS + ACT_STAGES * 8, 0};
-  const uint32_t in_full = sa + SM_BARS + 2 * ACT_STAGES * 8, in_empty = in_full + 16;
+  const uint32_t go_full = sa + SM_BARS + 2 * ACT_STAGES * 8, go_empty = go_full + 8;
   if (threadIdx.x == 0) {
     for (int st = 0; st < ACT_STAGES; ++st) {
       hmma::mbar_init(ring.full + st * 8, 1);    // the producer's expect_tx
       hmma::mbar_init(ring.empty + st * 8, 8);   // the eight consumer warps
     }
-    for (int f = 0; f < 2; ++f) {
-      hmma::mbar_init(in_full + f * 8, 1);   // the staging thread's expect_tx
-      hmma::mbar_init(in_empty + f * 8, 8);  // the eight consumer warps
-    }
+    hmma::mbar_init(go_full, 1);   // the staging thread's expect_tx
+    hmma::mbar_init(go_empty, 8);  // the eight consumer warps
   }
   hmma::fence_mbar_init();
   __syncthreads();
@@ -626,101 +504,68 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
     if (threadIdx.x == NTHREADS)
       produce(ring.base, ring.full, ring.empty, img, tiles);
     else if (threadIdx.x >= NTHREADS + 32)
-      stage_inputs(sm, in_full, in_empty, in8, pe_mat, sin_mask, g, arena, bpart, n, p_pad,
-                   tiles);
+      stage_inputs(sm, go_full, go_empty, g, arena, bpart, n, p_pad, tiles);
     return;
   }
   // the consumers
   hmma::setmaxnreg_inc<CONSUMER_REGS>();
   float* colsum = reinterpret_cast<float*>(sm + SM_COLSUM);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(sm + SM_MASKS) + threadIdx.x * 2;
-  auto mask = [&](int layer) { return masks + layer * NTHREADS * 2; };
   float acc2[64];  // a 256-wide product: 128 columns per warpgroup
   float acc1[32];  // a 128-wide product: 64 columns per warpgroup
-  float bv2[32], bv1[16];  // the product's bias
+  uint32_t mk2[2], mk1[1];  // the product's mask words
+  const uint32_t all2[2] = {0xFFFFFFFFu, 0xFFFFFFFFu};  // f has no ReLU
   int j = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
     const long long row0 = (long long)t * TILE_M;
     auto ar = [&](int off, int width) { return arena + (long)off * p_pad + row0 * width; };
+    const uint32_t* mt = masks + (long long)t * MASK_WORDS + threadIdx.x * 2;
+    auto mask = [&](int layer) { return mt + layer * NTHREADS * 2; };
     float* bsum = bpart + (long)t * B_TOTAL;
 
-    // ---- forward recompute (kernel 1 without the output products) ----
-    hmma::mbar_wait(in_full + IN_FEAT * 8, j & 1);  // the tile's features
-    uint32_t src = sa + OV_FEAT;
-    int kslabs = IN_W / 64;
-    for (int l = 0; l < 8; ++l) {
-      const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
-      zero_acc(acc2);
-      load_bias<128>(bv2, b + B_TRUNK + l * W);
-      mma_slabs<128, 0>(acc2, ring, src, kslabs);
-      if (l == 5) mma_slabs<128, 0>(acc2, ring, sa + OV_FEAT, IN_W / 64);
-      fwd_epilogue<128>(acc2, bv2, true, sm + dst, mask(l), ar(AR_ACT + l * W, W));
-      src = sa + dst;
-      kslabs = W / 64;
-    }
-    const uint32_t Hs = sa + OV_BUFB;  // act7
-    zero_acc(acc2);  // f = H@w_f + b_f -> bufA
-    load_bias<128>(bv2, b + B_F);
-    mma_slabs<128, 0>(acc2, ring, Hs, 4);
-    fwd_epilogue<128>(acc2, bv2, false, sm + OV_BUFA, nullptr, ar(AR_F, W));
-    zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v)
-    load_bias<64>(bv1, b + B_V);
-    mma_slabs<64, 0>(acc1, ring, sa + OV_BUFA, 4);
-    mma_slabs<64, 0>(acc1, ring, sa + OV_FEAT, 2);
-    release(in_empty + IN_FEAT * 8);  // the features read: the cotangent may land
-    fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_V), ar(AR_V, HW));
-    zero_acc(acc1);  // a1, s1, m1 = relu(H@w + b)
-    load_bias<64>(bv1, b + B_A1);
-    mma_slabs<64, 0>(acc1, ring, Hs, 4);
-    fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA, mask(MK_A1), ar(AR_A1, HW));
-    zero_acc(acc1);
-    load_bias<64>(bv1, b + B_S1);
-    mma_slabs<64, 0>(acc1, ring, Hs, 4);
-    fwd_epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, mask(MK_S1), ar(AR_S1, HW));
-    zero_acc(acc1);
-    load_bias<64>(bv1, b + B_M1);
-    mma_slabs<64, 0>(acc1, ring, Hs, 4);
-    fwd_epilogue<64>(acc1, bv1, true, sm + OV_HEAD, mask(MK_M1), ar(AR_M1, HW));
-
-    // ---- backward chain ----
-    hmma::mbar_wait(in_full + IN_GO * 8, j & 1);  // the tile's cotangent
+    hmma::mbar_wait(go_full, j & 1);  // the tile's cotangent
     const uint32_t go = sa + OV_GO;
     // gv = (go @ w_r^T) * (v > 0); gf = gv @ wv_f^T (f has no ReLU)
+    load_mask<64>(mk1, mask(MK_V));
     zero_acc(acc1);
-    mma_slabs<64, 1>(acc1, ring, go, 2);
-    grad_epilogue<64>(acc1, mask(MK_V), sm + OV_R1, ar(AR_GV, HW), bsum + B_V, colsum, row0, n);
+    mma_slabs<64>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mk1, sm + OV_R1, ar(GR_GV, HW), bsum + B_V, colsum, row0, n);
     zero_acc(acc2);
-    mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
-    grad_epilogue<128>(acc2, nullptr, sm + OV_R2, ar(AR_GF, W), bsum + B_F, colsum, row0, n);
+    mma_slabs<128>(acc2, ring, sa + OV_R1, 2);
+    grad_epilogue<128>(acc2, all2, sm + OV_R2, ar(GR_GF, W), bsum + B_F, colsum, row0, n);
     // head gradients: g1 = (go @ w2^T) * (act1 > 0) -> ga1, gs1, gm1
+    load_mask<64>(mk1, mask(MK_A1));
     zero_acc(acc1);
-    mma_slabs<64, 1>(acc1, ring, go, 2);
-    grad_epilogue<64>(acc1, mask(MK_A1), sm + OV_R1, ar(AR_GA1, HW), bsum + B_A1, colsum, row0, n);
+    mma_slabs<64>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mk1, sm + OV_R1, ar(GR_GA1, HW), bsum + B_A1, colsum, row0, n);
+    load_mask<64>(mk1, mask(MK_S1));
     zero_acc(acc1);
-    mma_slabs<64, 1>(acc1, ring, go, 2);
-    grad_epilogue<64>(acc1, mask(MK_S1), sm + OV_R1 + 2 * ATOM, ar(AR_GS1, HW), bsum + B_S1,
-                      colsum, row0, n);
+    mma_slabs<64>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mk1, sm + OV_R1 + 2 * ATOM, ar(GR_GS1, HW), bsum + B_S1, colsum, row0,
+                      n);
+    load_mask<64>(mk1, mask(MK_M1));
     zero_acc(acc1);
-    mma_slabs<64, 1>(acc1, ring, go, 2);
-    grad_epilogue<64>(acc1, mask(MK_M1), sm + OV_R1 + 4 * ATOM, ar(AR_GM1, HW), bsum + B_M1,
-                      colsum, row0, n);
+    mma_slabs<64>(acc1, ring, go, 2);
+    grad_epilogue<64>(acc1, mk1, sm + OV_R1 + 4 * ATOM, ar(GR_GM1, HW), bsum + B_M1, colsum, row0,
+                      n);
     // dH = go@w_sig^T + ga1@w_a1^T + gs1@w_s1^T + gm1@w_m1^T + gf@w_f^T
+    load_mask<128>(mk2, mask(7));
     zero_acc(acc2);
-    mma_slabs<128, 1>(acc2, ring, go, 2);
-    release(in_empty + IN_GO * 8);  // the cotangent read: the next tile's features may land
-    mma_slabs<128, 1>(acc2, ring, sa + OV_R1, 2);
-    mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 2 * ATOM, 2);
-    mma_slabs<128, 1>(acc2, ring, sa + OV_R1 + 4 * ATOM, 2);
-    mma_slabs<128, 1>(acc2, ring, sa + OV_R2, 4);
+    mma_slabs<128>(acc2, ring, go, 2);
+    release(go_empty);  // the cotangent read: the next tile's may land
+    mma_slabs<128>(acc2, ring, sa + OV_R1, 2);
+    mma_slabs<128>(acc2, ring, sa + OV_R1 + 2 * ATOM, 2);
+    mma_slabs<128>(acc2, ring, sa + OV_R1 + 4 * ATOM, 2);
+    mma_slabs<128>(acc2, ring, sa + OV_R2, 4);
     consumer_sync();  // gh7 overlays the head gradients just read
-    grad_epilogue<128>(acc2, mask(7), sm + OV_R1, ar(AR_G + 7 * W, W), bsum + B_TRUNK + 7 * W,
-                       colsum, row0, n);
+    grad_epilogue<128>(acc2, mk2, sm + OV_R1, ar(GR_G + 7 * W, W), bsum + B_TRUNK + 7 * W, colsum,
+                       row0, n);
     // trunk: gh_{l-1} = (gh_l @ w_l^T) * (act_{l-1} > 0), l = 7..1
     int cur = OV_R1, other = OV_R2;
     for (int l = 7; l >= 1; --l) {
+      load_mask<128>(mk2, mask(l - 1));
       zero_acc(acc2);
-      mma_slabs<128, 1>(acc2, ring, sa + cur, 4);
-      grad_epilogue<128>(acc2, mask(l - 1), sm + other, ar(AR_G + (l - 1) * W, W),
+      mma_slabs<128>(acc2, ring, sa + cur, 4);
+      grad_epilogue<128>(acc2, mk2, sm + other, ar(GR_G + (l - 1) * W, W),
                          bsum + B_TRUNK + (l - 1) * W, colsum, row0, n);
       const int read = cur;
       cur = other;
@@ -732,7 +577,8 @@ bwd_act_wgmma_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   if ((threadIdx.x & 127) == 0) hmma::bulk_wait<0, 0>();
 }
 
-// One weight gradient dW[K, N] = A[P, K]^T @ G[P, N] (arena buffers).
+// One weight gradient dW[K, N] = A[P, K]^T @ G[P, N]: A a buffer of the
+// saved forward, G one of the gradient arena.
 struct Job {
   int a_off, lda, g_off, ldg, K, N;
   long w_off;
@@ -746,9 +592,9 @@ constexpr int N_JOBS = 20;
 // producer warp, over one point chunk.  The producer moves point slabs of
 // A [SLAB, 128] and G [SLAB, 128] into a ring of STAGES stages, each
 // operand's two 64-column atoms with one bulk copy (they lie side by side
-// in the arena's tile); a stage's `full` barrier completes when its bytes
-// have landed, its `empty` barrier when the eight consumer warps are done
-// with it.  The arena is point-major, so both operands are MN-major (the
+// in their buffer's tile); a stage's `full` barrier completes when its
+// bytes have landed, its `empty` barrier when the eight consumer warps are
+// done with it.  Both buffers are point-major, so both operands are MN-major (the
 // contraction runs down the slab's rows) and the wgmma takes both
 // transposed; one slab's products stay in flight while the next is issued.
 constexpr int TK = 128, TN = 128;
@@ -764,32 +610,32 @@ static_assert(TILE_M == SLAB, "a slab is one arena tile");
 
 #define JOB(a, la, g, lg, k, n, off) {a, la, g, lg, k, n, off}
 __constant__ Job c_jobs[N_JOBS] = {
-    JOB(AR_FEAT, IN_W, AR_G + 0 * W, W, IN_W, W, OFF_W0),
-    JOB(AR_ACT + 0 * W, W, AR_G + 1 * W, W, W, W, OFF_W1),
-    JOB(AR_ACT + 1 * W, W, AR_G + 2 * W, W, W, W, OFF_W2),
-    JOB(AR_ACT + 2 * W, W, AR_G + 3 * W, W, W, W, OFF_W3),
-    JOB(AR_ACT + 3 * W, W, AR_G + 4 * W, W, W, W, OFF_W4),
-    JOB(AR_FEAT, IN_W, AR_G + 5 * W, W, IN_W, W, OFF_W5X),
-    JOB(AR_ACT + 4 * W, W, AR_G + 5 * W, W, W, W, OFF_W5H),
-    JOB(AR_ACT + 5 * W, W, AR_G + 6 * W, W, W, W, OFF_W6),
-    JOB(AR_ACT + 6 * W, W, AR_G + 7 * W, W, W, W, OFF_W7),
-    JOB(AR_ACT + 7 * W, W, AR_GO, OUT_W, W, OUT_W, OFF_WSIG),
-    JOB(AR_ACT + 7 * W, W, AR_GA1, HW, W, HW, OFF_WA1),
-    JOB(AR_A1, HW, AR_GO, OUT_W, HW, OUT_W, OFF_WA2),
-    JOB(AR_ACT + 7 * W, W, AR_GS1, HW, W, HW, OFF_WS1),
-    JOB(AR_S1, HW, AR_GO, OUT_W, HW, OUT_W, OFF_WS2),
-    JOB(AR_ACT + 7 * W, W, AR_GF, W, W, W, OFF_WF),
-    JOB(AR_F, W, AR_GV, HW, W, HW, OFF_WVF),
-    JOB(AR_FEAT, IN_W, AR_GV, HW, IN_W, HW, OFF_WVD),
-    JOB(AR_V, HW, AR_GO, OUT_W, HW, OUT_W, OFF_WR),
-    JOB(AR_ACT + 7 * W, W, AR_GM1, HW, W, HW, OFF_WM1),
-    JOB(AR_M1, HW, AR_GO, OUT_W, HW, OUT_W, OFF_WM2),
+    JOB(SV_FEAT, IN_W, GR_G + 0 * W, W, IN_W, W, OFF_W0),
+    JOB(SV_ACT + 0 * W, W, GR_G + 1 * W, W, W, W, OFF_W1),
+    JOB(SV_ACT + 1 * W, W, GR_G + 2 * W, W, W, W, OFF_W2),
+    JOB(SV_ACT + 2 * W, W, GR_G + 3 * W, W, W, W, OFF_W3),
+    JOB(SV_ACT + 3 * W, W, GR_G + 4 * W, W, W, W, OFF_W4),
+    JOB(SV_FEAT, IN_W, GR_G + 5 * W, W, IN_W, W, OFF_W5X),
+    JOB(SV_ACT + 4 * W, W, GR_G + 5 * W, W, W, W, OFF_W5H),
+    JOB(SV_ACT + 5 * W, W, GR_G + 6 * W, W, W, W, OFF_W6),
+    JOB(SV_ACT + 6 * W, W, GR_G + 7 * W, W, W, W, OFF_W7),
+    JOB(SV_ACT + 7 * W, W, GR_GO, OUT_W, W, OUT_W, OFF_WSIG),
+    JOB(SV_ACT + 7 * W, W, GR_GA1, HW, W, HW, OFF_WA1),
+    JOB(SV_A1, HW, GR_GO, OUT_W, HW, OUT_W, OFF_WA2),
+    JOB(SV_ACT + 7 * W, W, GR_GS1, HW, W, HW, OFF_WS1),
+    JOB(SV_S1, HW, GR_GO, OUT_W, HW, OUT_W, OFF_WS2),
+    JOB(SV_ACT + 7 * W, W, GR_GF, W, W, W, OFF_WF),
+    JOB(SV_F, W, GR_GV, HW, W, HW, OFF_WVF),
+    JOB(SV_FEAT, IN_W, GR_GV, HW, IN_W, HW, OFF_WVD),
+    JOB(SV_V, HW, GR_GO, OUT_W, HW, OUT_W, OFF_WR),
+    JOB(SV_ACT + 7 * W, W, GR_GM1, HW, W, HW, OFF_WM1),
+    JOB(SV_M1, HW, GR_GO, OUT_W, HW, OUT_W, OFF_WM2),
 };
 #undef JOB
 
 __global__ void __launch_bounds__(WG_THREADS, 2)
-bwd_wgrad_gemm_kernel(const bf16* __restrict__ arena, float* __restrict__ ws, long long p_pad,
-                      long long chunk) {
+bwd_wgrad_gemm_kernel(const bf16* __restrict__ saved, const bf16* __restrict__ arena,
+                      float* __restrict__ ws, long long p_pad, long long chunk) {
   extern __shared__ __align__(128) unsigned char wg_smem[];
   const uint32_t ring = (hmma::smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t full = ring + STAGES * STAGE_BYTES, empty = full + STAGES * 8;
@@ -806,7 +652,7 @@ bwd_wgrad_gemm_kernel(const bf16* __restrict__ arena, float* __restrict__ ws, lo
   const int k0 = (t / tiles_n) * TK, n0 = (t % tiles_n) * TN;
   // a slab's columns [k0, k0 + 128) of A: atoms k0 / 64 and k0 / 64 + 1 of
   // its tile, 16 KB in a row (and G's likewise)
-  const bf16* A = arena + (long)job.a_off * p_pad + k0 * SLAB;
+  const bf16* A = saved + (long)job.a_off * p_pad + k0 * SLAB;
   const bf16* G = arena + (long)job.g_off * p_pad + n0 * SLAB;
   const long long p_begin = (long long)blockIdx.y * chunk;
   const long long p_end = p_begin + chunk < p_pad ? p_begin + chunk : p_pad;
@@ -892,32 +738,23 @@ reduce_rows_kernel(const float* __restrict__ in, long long rows, long long ld, l
 
 }  // namespace
 
-// Scratch sizes for n points and `splits` point chunks of the weight
-// products, in elements: arena (bf16) and bias partials, workspace (fp32).
-extern "C" void fused_mlp_bwd_scratch(long long n, int splits, long long* arena_elems,
-                                      long long* bpart_elems, long long* ws_elems) {
-  const long long p_pad = (n + TILE_M - 1) / TILE_M * TILE_M;
-  *arena_elems = (long long)AR_COLS * p_pad + IMG_ELEMS;  // + the weight image
-  *bpart_elems = p_pad / TILE_M * B_TOTAL;
-  *ws_elems = (long long)splits * W_TOTAL;
-}
-
-// in8 [n, 8] f32 (16-byte aligned), pe_mat [8, 128] f32, sin_mask [128]
-// f32, w / b: the forward kernel's flat bf16 weights and f32 biases, g
-// [n, 128] bf16 (16-byte aligned); scratch from fused_mlp_bwd_scratch; dw
-// [835,584] f32 in the weight buffer's layout, db [2,944] f32 in the bias
-// buffer's layout (its last 128 entries are the gradient of each of the
-// five output biases).  Launches on `stream` (the activation pass as
-// min(tiles, SMs) blocks); returns the first failing launch's cudaError_t.
-extern "C" int fused_mlp_bwd(const void* in8, const void* pe_mat, const void* sin_mask,
-                             const void* w, const void* b, const void* g, void* arena,
+// w: the forward kernel's flat bf16 weights, saved: the saved forward of
+// the n points (fused_mlp_fwd_save, 16-byte aligned), g [n, 128] bf16
+// (16-byte aligned); arena (bf16: GR_COLS x p_pad, then the weight image's
+// IMG_ELEMS), bpart (fp32, B_TOTAL a tile) and ws (fp32, W_TOTAL a split),
+// as ops/fused_mlp.py:backward_scratch sizes them; dw [835,584] f32 in the
+// weight buffer's layout, db [2,944] f32 in the bias buffer's layout (its
+// last 128 entries are the gradient of each of the five output biases).
+// Launches on `stream` (the activation pass as min(tiles, SMs) blocks);
+// returns the first failing launch's cudaError_t.
+extern "C" int fused_mlp_bwd(const void* w, const void* saved, const void* g, void* arena,
                              void* bpart, void* ws, void* dw, void* db, long long n, int splits,
                              void* stream) {
   if (n <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
   const long long p_pad = (n + TILE_M - 1) / TILE_M * TILE_M;
   const long long tiles = p_pad / TILE_M;
   if (tiles > INT_MAX / 2 || splits > 65535) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(in8) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0)
+  if (reinterpret_cast<uintptr_t>(saved) % 16 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   const long long slabs = p_pad / SLAB;
   const long long chunk = (slabs + splits - 1) / splits * SLAB;
@@ -928,19 +765,19 @@ extern "C" int fused_mlp_bwd(const void* in8, const void* pe_mat, const void* si
   err = cudaFuncSetAttribute(bwd_wgrad_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              WG_SMEM);
   if (err != cudaSuccess) return (int)err;
-  bf16* img = static_cast<bf16*>(arena) + (long long)AR_COLS * p_pad;
+  const bf16* sv = static_cast<const bf16*>(saved);
+  bf16* img = static_cast<bf16*>(arena) + (long long)GR_COLS * p_pad;
   bwd_act_wimg_kernel<<<N_SLABS, NTHREADS, 0, s>>>(static_cast<const bf16*>(w), img);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   bwd_act_wgmma_kernel<<<(unsigned)(tiles < sms ? tiles : sms), ACT_THREADS, ACT_SMEM, s>>>(
-      static_cast<const float*>(in8), static_cast<const float*>(pe_mat),
-      static_cast<const float*>(sin_mask), img,
-      static_cast<const float*>(b), static_cast<const bf16*>(g), static_cast<bf16*>(arena),
-      static_cast<float*>(bpart), n, p_pad);
+      img, reinterpret_cast<const uint32_t*>(sv + (long long)SV_COLS * p_pad),
+      static_cast<const bf16*>(g), static_cast<bf16*>(arena), static_cast<float*>(bpart), n,
+      p_pad);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   bwd_wgrad_gemm_kernel<<<dim3(N_TILES, splits), WG_THREADS, WG_SMEM, s>>>(
-      static_cast<const bf16*>(arena), static_cast<float*>(ws), p_pad, chunk);
+      sv, static_cast<const bf16*>(arena), static_cast<float*>(ws), p_pad, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 rb(32, 8);
   reduce_rows_kernel<<<(unsigned)((W_TOTAL + 31) / 32), rb, 0, s>>>(

@@ -57,6 +57,29 @@ constexpr int B_M1 = B_V + HW;
 constexpr int B_OUT = B_M1 + HW;
 constexpr int B_TOTAL = B_OUT + OUT_W;
 
+// The saved forward: what the forward's training launch writes and the
+// backward reads instead of recomputing the forward.  Each buffer of
+// `width` columns starts at (its offset below) * p_pad elements (p_pad: the
+// points padded to whole tiles) and holds the 64-row tiles in order, each
+// as width / 64 atoms of 64 rows x 64 columns (8 KB, 128-byte swizzle,
+// hopper_mma.cuh), byte for byte as the kernels' shared buffers hold them.
+constexpr int SV_FEAT = 0;              // PE features, 128
+constexpr int SV_ACT = SV_FEAT + IN_W;  // trunk activations 0..7, W each
+constexpr int SV_A1 = SV_ACT + 8 * W;
+constexpr int SV_S1 = SV_A1 + HW;
+constexpr int SV_M1 = SV_S1 + HW;
+constexpr int SV_F = SV_M1 + HW;        // feature (no ReLU), W
+constexpr int SV_V = SV_F + W;
+constexpr int SV_COLS = SV_V + HW;
+static_assert(SV_COLS == 2944, "saved layout changed");
+// Then the ReLU masks, SV_COLS * p_pad bf16 on: per tile, per ReLU layer
+// (act0..act7, v, a1, s1, m1), per consumer thread two 32-bit words, one
+// bit per accumulator register of the layer's epilogue (the second word
+// unused in a 128-wide layer).
+constexpr int N_MASKS = 12;
+enum { MK_V = 8, MK_A1, MK_S1, MK_M1 };
+constexpr int MASK_WORDS = N_MASKS * NTHREADS * 2;  // a tile's, 24 KB
+
 // The SM count of the current device, read once per device (a host query,
 // so it may run while a stream captures a graph): the grid of a
 // persistent kernel.

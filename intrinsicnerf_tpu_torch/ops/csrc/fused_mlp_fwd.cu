@@ -70,6 +70,26 @@
 //       tile pays its encoding up front.
 //     setmaxnreg gives the consumers the registers the third warpgroup
 //     does not need.
+//  2. The training launch (`fused_mlp_fwd_save`, the kernel's SAVE
+//     instance) runs the same chain and also writes the saved forward that
+//     the backward (fused_mlp_bwd.cu) reads instead of recomputing it
+//     (fused_mlp_common.cuh): after each of the 13 epilogues (act0..act7,
+//     f, v, a1, s1, m1) the warpgroup's first thread bulk-stores its atoms
+//     of the buffer, as they sit in shared memory, and the tile's features
+//     once; each ReLU epilogue also sets one bit per accumulator register
+//     where the fp32 value is positive and stores the thread's mask words
+//     (8 bytes, a warp's 256 in a row).  A product's first thread of each
+//     warpgroup waits, before the barrier that opens it, until all but the
+//     warpgroup's newest store have read their buffers, since its epilogue
+//     may overwrite them.  The stores mark their lines first to go from L2
+//     and the weight image's loads theirs last, so that the saved forward
+//     does not push the image out.  The packed output is bitwise the
+//     serving launch's, and the saved activations and masks are those the
+//     backward would recompute.  The serving instance writes none of it and
+//     has the shared memory and registers it had without the switch.
+//     Bytes: 6,272 per point (2,944 bf16 and 384 B of masks), 1.23 GB for
+//     the training step's fine call, 0.37 ms at the memory's rate beside
+//     the chain's 0.70.
 // No atomics, and each tile's output depends on its own rows alone: two
 // launches on the same inputs, or on any 64-aligned slice of them, give
 // bitwise-equal rows.  A lost mbarrier arrival or byte count traps
@@ -181,7 +201,10 @@ fwd_wimg_kernel(const bf16* __restrict__ w, bf16* __restrict__ img) {
 // ahead of the consumers at most; a stage's `full` barrier completes when
 // its bytes have landed, its `empty` barrier when the eight consumer warps
 // are done with it.  The ring's count runs on across tiles, so the next
-// tile's first slabs land while this tile's output is stored.
+// tile's first slabs land while this tile's output is stored.  A saving
+// launch marks the image's lines last to go from L2, so that the saved
+// buffer's streams pass around it.
+template <bool SAVE>
 __device__ __forceinline__ void produce(uint32_t ring, uint32_t full, uint32_t empty,
                                         const bf16* __restrict__ img, int tiles) {
   int i = 0;
@@ -193,7 +216,10 @@ __device__ __forceinline__ void produce(uint32_t ring, uint32_t full, uint32_t e
         const int st = i % STAGES;
         if (i >= STAGES) hmma::mbar_wait(empty + st * 8, ((i / STAGES) - 1) & 1);
         hmma::mbar_expect_tx(full + st * 8, bytes);
-        hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
+        if constexpr (SAVE)
+          hmma::bulk_load_evict_last(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
+        else
+          hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
         src += bytes;
       }
     }
@@ -224,9 +250,15 @@ __device__ __forceinline__ void pe_sync() {
 // acc[64 x NW] (this warpgroup's columns) += A[64, 64 * kslabs] @ the next
 // kslabs slabs of the ring.  A: a K-major activation buffer at shared
 // address `a`, written by both warpgroups' epilogues before this call.
-template <int NW>
+// In a saving launch, the saved-buffer store before this warpgroup's
+// newest may still read a buffer that this product's epilogue overwrites:
+// its first thread waits for it (the buffers alternate, so it is a product
+// old) before the barrier, which holds every consumer behind the wait.
+template <bool SAVE, int NW>
 __device__ __forceinline__ void mma_slabs(float (&acc)[NW / 2], Ring& r, uint32_t a, int kslabs) {
   const int wg = threadIdx.x >> 7;
+  if constexpr (SAVE)
+    if ((threadIdx.x & 127) == 0) hmma::bulk_wait<1, 1>();
   hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy
   consumer_sync();
   int prev = -1;  // the stage of the slab whose products may still run
@@ -280,14 +312,59 @@ __device__ __forceinline__ void load_bias(float (&bv)[NW / 4], const float* __re
   }
 }
 
+// Where a saving launch writes tile t of the saved forward (the layout of
+// fused_mlp_common.cuh).  Its fields are the kernel's parameters and the
+// tile's index, so the addresses below are formed where they are used and
+// hold no registers across the chain.
+struct SavedTile {
+  bf16* base;
+  long long p_pad;
+  int t;
+};
+
+// This warpgroup's NW columns of the K-major shared buffer S (its atoms
+// from wg * NW / 64) to the same atoms of the tile's saved buffer at
+// column offset `col` (a buffer 2 * NW wide): one bulk store by the
+// warpgroup's first thread, in a bulk group of its own.
+template <int NW>
+__device__ __forceinline__ void store_atoms(const unsigned char* S, const SavedTile& sv, int col) {
+  const uint32_t off = (threadIdx.x >> 7) * NW * 128;
+  if ((threadIdx.x & 127) == 0) {
+    unsigned char* G = reinterpret_cast<unsigned char*>(
+        sv.base + col * sv.p_pad + (long long)sv.t * TILE_M * (2 * NW));
+    hmma::bulk_store(G + off, hmma::smem_u32(S) + off, NW * 128);
+    hmma::bulk_commit();
+  }
+}
+
+// acc = (this warpgroup's columns of) A @ the next kslabs slabs, and the
+// bias of a head's product into bv: the serving launch loads the bias
+// before the product, so that its latency hides behind it; a saving launch
+// after, for beside the packed output's accumulators its registers would
+// spill.
+template <bool SAVE, int NW>
+__device__ __forceinline__ void head_product(float (&acc)[NW / 2], float (&bv)[NW / 4],
+                                             const float* __restrict__ bias, Ring& r, uint32_t a,
+                                             int kslabs) {
+  zero_acc(acc);
+  if constexpr (!SAVE) load_bias<NW>(bv, bias);
+  mma_slabs<SAVE, NW>(acc, r, a, kslabs);
+  if constexpr (SAVE) load_bias<NW>(bv, bias);
+}
+
 // Epilogue of this warpgroup's NW columns: bf16(act(acc + bias)) into the
 // K-major buffer D, the next product's A (accumulator layout:
-// hopper_mma.cuh).
-template <int NW>
+// hopper_mma.cuh).  A saving launch also stores the thread's mask words of
+// ReLU layer `layer` (a bit per register, set where the fp32 value is
+// positive; lines first to go from L2) and the columns to the tile's saved
+// forward (buffer column `col`).
+template <bool SAVE, int NW>
 __device__ __forceinline__ void epilogue(const float (&acc)[NW / 2], const float (&bv)[NW / 4],
-                                         bool relu, unsigned char* D) {
+                                         bool relu, unsigned char* D, const SavedTile& sv,
+                                         int col, int layer = 0) {
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
   const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  uint32_t bits[NW / 64] = {};
 #pragma unroll
   for (int j = 0; j < NW / 8; ++j) {
     const int col = wg * NW + j * 8 + 2 * (lane & 3);
@@ -296,11 +373,28 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NW / 2], const float
       const int i = 4 * j + 2 * h;
       float v0 = acc[i] + bv[2 * j], v1 = acc[i + 1] + bv[2 * j + 1];
       if (relu) {
+        if constexpr (SAVE) {
+          bits[i >> 5] |= (v0 > 0.0f ? 1u : 0u) << (i & 31);
+          bits[i >> 5] |= (v1 > 0.0f ? 1u : 0u) << ((i + 1) & 31);
+        }
         v0 = fmaxf(v0, 0.0f);
         v1 = fmaxf(v1, 0.0f);
       }
       *reinterpret_cast<__nv_bfloat162*>(D + kmaj(r0 + 8 * h, col)) = __floats2bfloat162_rn(v0, v1);
     }
+  }
+  if constexpr (SAVE) {
+    if (relu) {
+      uint32_t* mask = reinterpret_cast<uint32_t*>(sv.base + SV_COLS * sv.p_pad) +
+                       (long long)sv.t * MASK_WORDS + layer * (NTHREADS * 2) + threadIdx.x * 2;
+      if constexpr (NW == 128)
+        __stcs(reinterpret_cast<uint2*>(mask), make_uint2(bits[0], bits[1]));
+      else
+        __stcs(mask, bits[0]);
+    }
+    hmma::fence_proxy_async();  // D, to the bulk store's proxy
+    wg_sync();
+    store_atoms<NW>(D, sv, col);
   }
 }
 
@@ -384,14 +478,19 @@ __device__ __forceinline__ void encode(unsigned char* sm, uint32_t feat_full,
   }
 }
 
+// The forward of the points in8 [n, 8] into out [n, 128].  SAVE: the
+// training launch, which also writes the saved forward (saved[], the
+// layout of fused_mlp_common.cuh) for the backward; otherwise `saved` is
+// unused and the launch writes `out` alone.
+template <bool SAVE>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe_mat,
                      const float* __restrict__ sin_mask, const bf16* __restrict__ img,
-                     const float* __restrict__ b, bf16* __restrict__ out, long long n) {
+                     const float* __restrict__ b, bf16* __restrict__ out,
+                     bf16* __restrict__ saved, long long n) {
   extern __shared__ __align__(128) unsigned char fwd_smem[];
   unsigned char* sm = fwd_smem + ((1024u - (hmma::smem_u32(fwd_smem) & 1023u)) & 1023u);
   const uint32_t sa = hmma::smem_u32(sm);
-  const int tiles = (int)((n + TILE_M - 1) / TILE_M);
   Ring ring{sa + SM_RING, sa + SM_BARS, sa + SM_BARS + STAGES * 8, 0};
   const uint32_t feat_full = sa + SM_BARS + 2 * STAGES * 8, feat_empty = feat_full + 16;
   if (threadIdx.x == 0) {
@@ -406,14 +505,18 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
   }
   hmma::fence_mbar_init();
   __syncthreads();
+  // each role counts the tiles after setmaxnreg, so that no value is held
+  // across it (a saving build spilled the count there)
   if (threadIdx.x >= NTHREADS) {  // the third warpgroup: the producer, the PE warps
     hmma::setmaxnreg_dec<PE_REGS>();
+    const int tiles = (int)((n + TILE_M - 1) / TILE_M);
     if (threadIdx.x == NTHREADS)
-      produce(ring.base, ring.full, ring.empty, img, tiles);
+      produce<SAVE>(ring.base, ring.full, ring.empty, img, tiles);
     else if (threadIdx.x >= NTHREADS + 32)
       encode(sm, feat_full, feat_empty, in8, pe_mat, sin_mask, n, tiles);
   } else {  // the consumers
     hmma::setmaxnreg_inc<CONSUMER_REGS>();
+    const int tiles = (int)((n + TILE_M - 1) / TILE_M);
     float acc2[64], bv2[32];  // a 256-wide product: 128 columns per warpgroup
     float acc1[32], bv1[16];  // a 128-wide product: 64 columns per warpgroup
     float oacc[32], bvo[16];  // the packed output, 64 columns per warpgroup
@@ -421,7 +524,9 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
     for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
       const int buf = j & 1;
       const uint32_t feat = sa + OV_FEAT + buf * FEAT_BYTES;
+      const SavedTile sv{saved, (long long)tiles * TILE_M, t};
       hmma::mbar_wait(feat_full + buf * 8, (j >> 1) & 1);  // the tile's features
+      if constexpr (SAVE) store_atoms<64>(sm + OV_FEAT + buf * FEAT_BYTES, sv, SV_FEAT);
 
       // ---- the trunk: 0 feat->A, 1 A->B, 2 B->A, 3 A->B, 4 B->A, 5 (A, feat)->B,
       // 6 B->A, 7 A->B; H ends in bufB ----
@@ -431,9 +536,9 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
         const int dst = l % 2 == 0 ? OV_BUFA : OV_BUFB;
         zero_acc(acc2);
         load_bias<128>(bv2, b + B_TRUNK + l * W);
-        mma_slabs<128>(acc2, ring, src, kslabs);
-        if (l == 5) mma_slabs<128>(acc2, ring, feat, IN_W / 64);
-        epilogue<128>(acc2, bv2, true, sm + dst);
+        mma_slabs<SAVE, 128>(acc2, ring, src, kslabs);
+        if (l == 5) mma_slabs<SAVE, 128>(acc2, ring, feat, IN_W / 64);
+        epilogue<SAVE, 128>(acc2, bv2, true, sm + dst, sv, SV_ACT + l * W, l);
         src = sa + dst;
         kslabs = W / 64;
       }
@@ -441,33 +546,31 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
 
       // ---- the heads, the packed output accumulated beside them ----
       zero_acc(oacc);
-      mma_slabs<64>(oacc, ring, Hs, 4);  // H@w_sig
-      zero_acc(acc2);  // f = H@w_f + b_f -> bufA (no ReLU)
-      load_bias<128>(bv2, b + B_F);
-      mma_slabs<128>(acc2, ring, Hs, 4);
-      epilogue<128>(acc2, bv2, false, sm + OV_BUFA);
+      mma_slabs<SAVE, 64>(oacc, ring, Hs, 4);  // H@w_sig
+      // f = H@w_f + b_f -> bufA (no ReLU)
+      head_product<SAVE, 128>(acc2, bv2, b + B_F, ring, Hs, 4);
+      epilogue<SAVE, 128>(acc2, bv2, false, sm + OV_BUFA, sv, SV_F);
       zero_acc(acc1);  // v = relu(f@wv_f + feat@wv_d + b_v) -> head
-      load_bias<64>(bv1, b + B_V);
-      mma_slabs<64>(acc1, ring, sa + OV_BUFA, 4);
-      mma_slabs<64>(acc1, ring, feat, 2);
-      epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
-      mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // v@w_r
-      zero_acc(acc1);  // a1 = relu(H@w_a1 + b_a1) -> bufA's first two atoms
-      load_bias<64>(bv1, b + B_A1);
-      mma_slabs<64>(acc1, ring, Hs, 4);
-      epilogue<64>(acc1, bv1, true, sm + OV_BUFA);
-      mma_slabs<64>(oacc, ring, sa + OV_BUFA, 2);  // a1@w_a2
-      zero_acc(acc1);  // s1 -> bufA's last two atoms
-      load_bias<64>(bv1, b + B_S1);
-      mma_slabs<64>(acc1, ring, Hs, 4);
-      epilogue<64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM);
-      mma_slabs<64>(oacc, ring, sa + OV_BUFA + 2 * ATOM, 2);  // s1@w_s2
-      zero_acc(acc1);  // m1 -> head (v is read)
-      load_bias<64>(bv1, b + B_M1);
-      mma_slabs<64>(acc1, ring, Hs, 4);
-      epilogue<64>(acc1, bv1, true, sm + OV_HEAD);
-      load_bias<64>(bvo, b + B_OUT);
-      mma_slabs<64>(oacc, ring, sa + OV_HEAD, 2);  // m1@w_m2
+      if constexpr (!SAVE) load_bias<64>(bv1, b + B_V);
+      mma_slabs<SAVE, 64>(acc1, ring, sa + OV_BUFA, 4);
+      mma_slabs<SAVE, 64>(acc1, ring, feat, 2);
+      if constexpr (SAVE) load_bias<64>(bv1, b + B_V);
+      epilogue<SAVE, 64>(acc1, bv1, true, sm + OV_HEAD, sv, SV_V, MK_V);
+      mma_slabs<SAVE, 64>(oacc, ring, sa + OV_HEAD, 2);  // v@w_r
+      // a1 = relu(H@w_a1 + b_a1) -> bufA's first two atoms
+      head_product<SAVE, 64>(acc1, bv1, b + B_A1, ring, Hs, 4);
+      epilogue<SAVE, 64>(acc1, bv1, true, sm + OV_BUFA, sv, SV_A1, MK_A1);
+      mma_slabs<SAVE, 64>(oacc, ring, sa + OV_BUFA, 2);  // a1@w_a2
+      // s1 -> bufA's last two atoms
+      head_product<SAVE, 64>(acc1, bv1, b + B_S1, ring, Hs, 4);
+      epilogue<SAVE, 64>(acc1, bv1, true, sm + OV_BUFA + 2 * ATOM, sv, SV_S1, MK_S1);
+      mma_slabs<SAVE, 64>(oacc, ring, sa + OV_BUFA + 2 * ATOM, 2);  // s1@w_s2
+      // m1 -> head (v is read)
+      head_product<SAVE, 64>(acc1, bv1, b + B_M1, ring, Hs, 4);
+      epilogue<SAVE, 64>(acc1, bv1, true, sm + OV_HEAD, sv, SV_M1, MK_M1);
+      if constexpr (!SAVE) load_bias<64>(bvo, b + B_OUT);
+      mma_slabs<SAVE, 64>(oacc, ring, sa + OV_HEAD, 2);  // m1@w_m2
+      if constexpr (SAVE) load_bias<64>(bvo, b + B_OUT);
 
       // ---- out = bf16(sum of the five products + the summed output bias),
       // staged in the tile's feat buffer, which is then released ----
@@ -475,7 +578,31 @@ fused_mlp_fwd_kernel(const float* __restrict__ in8, const float* __restrict__ pe
       __syncwarp();
       if ((threadIdx.x & 31) == 0) hmma::mbar_arrive(feat_empty + buf * 8);
     }
+    // every saved-buffer store has read its source and written before the
+    // block exits
+    if constexpr (SAVE)
+      if ((threadIdx.x & 127) == 0) hmma::bulk_wait<0, 0>();
   }
+}
+
+template <bool SAVE>
+int launch_fwd(const void* in8, const void* pe_mat, const void* sin_mask, const void* img,
+               const void* b, void* out, void* saved, long long n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_fwd_kernel<SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + TILE_M - 1) / TILE_M;
+  if (n <= 0 || tiles > INT_MAX / 2) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(in8) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (SAVE && reinterpret_cast<uintptr_t>(saved) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  const long long grid = tiles < sms ? tiles : sms;
+  fused_mlp_fwd_kernel<SAVE><<<(unsigned)grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(in8), static_cast<const float*>(pe_mat),
+      static_cast<const float*>(sin_mask), static_cast<const bf16*>(img),
+      static_cast<const float*>(b), static_cast<bf16*>(out), static_cast<bf16*>(saved), n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -496,18 +623,15 @@ extern "C" int fused_mlp_fwd_image(const void* w, void* img, void* stream) {
 extern "C" int fused_mlp_fwd(const void* in8, const void* pe_mat, const void* sin_mask,
                              const void* img, const void* b, void* out, long long n,
                              void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + TILE_M - 1) / TILE_M;
-  if (n <= 0 || tiles > INT_MAX / 2) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(in8) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  int sms = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  const long long grid = tiles < sms ? tiles : sms;
-  fused_mlp_fwd_kernel<<<(unsigned)grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      static_cast<const float*>(in8), static_cast<const float*>(pe_mat),
-      static_cast<const float*>(sin_mask), static_cast<const bf16*>(img),
-      static_cast<const float*>(b), static_cast<bf16*>(out), n);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(in8, pe_mat, sin_mask, img, b, out, nullptr, n, stream);
+}
+
+// fused_mlp_fwd, and the saved forward into `saved` (16-byte aligned):
+// SV_COLS x p_pad bf16 of activations, then p_pad / 64 x MASK_WORDS 32-bit
+// mask words (fused_mlp_common.cuh; ops/fused_mlp.py:backward_scratch gives
+// the sizes).
+extern "C" int fused_mlp_fwd_save(const void* in8, const void* pe_mat, const void* sin_mask,
+                                  const void* img, const void* b, void* out, void* saved,
+                                  long long n, void* stream) {
+  return launch_fwd<true>(in8, pe_mat, sin_mask, img, b, out, saved, n, stream);
 }

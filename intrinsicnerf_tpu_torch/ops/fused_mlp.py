@@ -33,10 +33,13 @@ in its shared-memory ring; ``fwd_weight_image`` builds it on the card
 (with a small kernel of the same source) once per set of weights, and
 ``fwd_weight_image_plain`` builds the same bytes in PyTorch.
 
-Backward.  Kernel 2 (``csrc/fused_mlp_bwd.cu``) takes the points and the
-bf16 cotangent of the packed output, recomputes the forward and returns
-fp32 gradients for all 38 packed blocks; ``fused_mlp_backward`` is its
-wrapper.  The cotangent is bf16 because the output is, as in JAX
+Backward.  In training, kernel 1's saving instance
+(``fused_mlp_forward_saving``) also writes the activations and ReLU masks
+the backward needs, the saved forward (:class:`SavedForward`).  Kernel 2
+(``csrc/fused_mlp_bwd.cu``) takes it and the bf16 cotangent of the packed
+output, runs the backward chain without recomputing the forward and
+returns fp32 gradients for all 38 packed blocks; ``fused_mlp_backward`` is
+its wrapper.  The cotangent is bf16 because the output is, as in JAX
 (``fused_mlp.py:57-65``).  The points and the PE constants get no
 gradient, which is exact: NeRF samples are not parameters.
 
@@ -66,7 +69,6 @@ run counts them from its replays (``train/step.py:make_multi_step``).  The kerne
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Dict, Mapping, NamedTuple, Optional, Tuple
@@ -112,6 +114,15 @@ FWD_IMAGE_ORDER = (
 )
 FWD_IMAGE_SLABS = 66
 FWD_TILE = 64  # points per tile of kernels 1 and 2
+# the saved forward (csrc/fused_mlp_common.cuh, SV_COLS and MASK_WORDS): bf16
+# activations a point, then 32-bit ReLU mask words a 64-point tile; kernel 2's
+# gradient arena (bf16 a point) and the weight image of its input products
+# (bf16; csrc/fused_mlp_bwd.cu, GR_COLS and IMG_ELEMS).  The sources
+# static_assert the same numbers; backward_scratch sizes every buffer from them
+SAVED_COLS = 2_944
+MASK_WORDS = 12 * 256 * 2
+GRAD_COLS = 2_944
+BWD_IMAGE_ELEMS = 753_664
 # point chunks of kernel 2's weight-gradient GEMM: about SPLIT_ROWS points
 # each, at most MAX_SPLITS, so that its 51 output tiles x 5 chunks = 255
 # blocks run as one wave at two blocks per SM on the H100's 132 SMs
@@ -588,6 +599,28 @@ def _check_cuda_operands(ops: FusedOperands, in8: torch.Tensor):
             raise ValueError("fused MLP operands must all lie on in8's device")
 
 
+class SavedForward(NamedTuple):
+    """What kernel 2 reads of a training forward over the points ``in8``:
+    on the card ``buf``, kernel 1's saved activations then its ReLU mask
+    words (:func:`backward_scratch`'s first two sizes, as bf16); on the
+    host ``buf`` is None and the plain version recomputes from ``in8``."""
+
+    in8: torch.Tensor
+    buf: Optional[torch.Tensor] = None
+
+
+def backward_scratch(n: int, splits: int) -> Tuple[int, int, int, int, int]:
+    """Element counts for ``n`` points and ``splits`` point chunks: the
+    saved forward's activations (bf16) and mask words (32-bit), kernel 2's
+    arena with its weight image (bf16), its bias partials and its
+    workspace (fp32).  The one place the buffers of kernels 1 and 2 are
+    sized."""
+    tiles = -(-n // FWD_TILE)
+    p_pad = tiles * FWD_TILE
+    return (SAVED_COLS * p_pad, tiles * MASK_WORDS, GRAD_COLS * p_pad + BWD_IMAGE_ELEMS,
+            tiles * B_TOTAL, splits * W_TOTAL)
+
+
 def fwd_schedule(n: int, sms: int) -> Tuple[int, int, int]:
     """Kernel 1's schedule of ``n`` points on a card of ``sms`` SMs:
     (blocks, tiles, tiles ahead).  Each of the min(tiles, sms) persistent
@@ -622,6 +655,35 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
     replays count too)."""
     if in8.device.type == "cpu":
         return fused_mlp_forward_plain(ops.packed, ops.pe, in8)
+    return _launch_forward(ops, in8, None)
+
+
+fused_mlp_forward.launches = fused_mlp_forward.captured = 0
+
+
+def fused_mlp_forward_saving(ops: FusedOperands,
+                             in8: torch.Tensor) -> Tuple[torch.Tensor, SavedForward]:
+    """:func:`fused_mlp_forward` for training: the packed output, bitwise
+    the serving launch's, and the :class:`SavedForward` that
+    :func:`fused_mlp_backward_flat` takes.
+
+    CPU tensors take the plain version and save the points alone; CUDA
+    tensors launch kernel 1's saving instance, which also writes the
+    activations and ReLU masks (6,272 bytes a point; counted as a launch
+    of ``fused_mlp_forward`` and, besides ``fwd.tiles`` and
+    ``fwd.tiles_ahead``, in the counter ``fwd.saved_tiles``)."""
+    if in8.device.type == "cpu":
+        return fused_mlp_forward_plain(ops.packed, ops.pe, in8), SavedForward(in8)
+    n = in8.shape[0]
+    acts, masks, *_ = backward_scratch(n, 1)
+    buf = torch.empty(acts + 2 * masks, dtype=torch.bfloat16, device=in8.device)
+    return _launch_forward(ops, in8, buf), SavedForward(in8, buf)
+
+
+def _launch_forward(ops: FusedOperands, in8: torch.Tensor,
+                    saved: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of kernel 1: the serving instance, or with ``saved`` the
+    saving one writing into it."""
     if in8.device.type != "cuda":
         raise ValueError(f"fused MLP: unsupported device {in8.device}")
     _check_cuda_operands(ops, in8)
@@ -636,22 +698,23 @@ def fused_mlp_forward(ops: FusedOperands, in8: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, OUT_W), dtype=torch.bfloat16, device=in8.device)
     if n == 0:
         return out
+    args = (in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(), ops.wimg.data_ptr(),
+            ops.bbuf.data_ptr(), out.data_ptr())
     with torch.cuda.device(in8.device):
-        err = lib.fused_mlp_fwd(
-            in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(),
-            ops.wimg.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(), n,
-            torch.cuda.current_stream(in8.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(in8.device).cuda_stream
+        if saved is None:
+            err = lib.fused_mlp_fwd(*args, n, stream)
+        else:
+            err = lib.fused_mlp_fwd_save(*args, saved.data_ptr(), n, stream)
         _, tiles, ahead = fwd_schedule(n, _sm_count(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
     _count_launch(fused_mlp_forward)
     trace.count("fwd.tiles", tiles)
     trace.count("fwd.tiles_ahead", ahead)
+    if saved is not None:
+        trace.count("fwd.saved_tiles", tiles)
     return out
-
-
-fused_mlp_forward.launches = fused_mlp_forward.captured = 0
 
 
 def backward_splits(n: int) -> int:
@@ -691,18 +754,20 @@ def _flatten_grads(grads: Packed):
             torch.cat([grads[k].reshape(-1) for k in _B_ORDER] + [grads[_B_OUT[0]].reshape(-1)]))
 
 
-def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor):
+def fused_mlp_backward_flat(ops: FusedOperands, saved: SavedForward, g: torch.Tensor):
     """fp32 gradients ``(dw, db)`` of the kernels' flat weight and bias
     buffers (the layouts of :func:`kernel_buffers`, and so of
     :class:`FlatBlocks`) for the bf16 cotangent ``g`` ``[P, 128]`` of the
-    packed output at the points ``in8``.
+    packed output of the training forward that ``saved`` holds
+    (:func:`fused_mlp_forward_saving`).
 
-    CPU tensors take the plain version; CUDA tensors launch kernel 2 (one
-    launch, counted in ``fused_mlp_backward.launches``; its activation
-    pass's tiles and the tiles staged ahead, ``bwd_schedule``, in the
-    counters ``bwd.tiles`` and ``bwd.tiles_ahead``, which a graphed
-    block's replays count too).  Two launches on the same inputs give
-    bitwise-equal gradients."""
+    CPU tensors take the plain version; CUDA tensors launch kernel 2 on
+    the saved forward (one launch, counted in
+    ``fused_mlp_backward.launches``; its activation pass's tiles and the
+    tiles staged ahead, ``bwd_schedule``, in the counters ``bwd.tiles``
+    and ``bwd.tiles_ahead``, which a graphed block's replays count too).
+    Two launches on the same inputs give bitwise-equal gradients."""
+    in8 = saved.in8
     if in8.device.type == "cpu":
         return _flatten_grads(fused_mlp_backward_plain(ops.packed, ops.pe, in8, g))
     if in8.device.type != "cuda":
@@ -721,19 +786,21 @@ def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tens
     db = new(ops.bbuf.numel(), dtype=torch.float32, device=dev)  # the bias layout
     if n == 0:
         return dw, db
-    in8, g = in8.contiguous(), g.contiguous()
-    pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
     splits = backward_splits(n)
-    sizes = [ctypes.c_longlong() for _ in range(3)]
-    lib.fused_mlp_bwd_scratch(n, splits, *(ctypes.byref(x) for x in sizes))
-    arena = torch.empty(sizes[0].value, dtype=torch.bfloat16, device=dev)
-    bpart = torch.empty(sizes[1].value, dtype=torch.float32, device=dev)
-    ws = torch.empty(sizes[2].value, dtype=torch.float32, device=dev)
+    acts, masks, arena_n, bpart_n, ws_n = backward_scratch(n, splits)
+    buf = saved.buf
+    if (buf is None or buf.dtype != torch.bfloat16 or buf.numel() != acts + 2 * masks
+            or buf.device != dev):
+        raise ValueError(f"kernel 2 needs the saved forward of {n} points on {dev} "
+                         "(fused_mlp_forward_saving)")
+    g = g.contiguous()
+    arena = torch.empty(arena_n, dtype=torch.bfloat16, device=dev)
+    bpart = torch.empty(bpart_n, dtype=torch.float32, device=dev)
+    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.fused_mlp_bwd(
-            in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(), ops.wbuf.data_ptr(),
-            ops.bbuf.data_ptr(), g.data_ptr(), arena.data_ptr(), bpart.data_ptr(),
-            ws.data_ptr(), dw.data_ptr(), db.data_ptr(), n, splits,
+            ops.wbuf.data_ptr(), buf.data_ptr(), g.data_ptr(), arena.data_ptr(),
+            bpart.data_ptr(), ws.data_ptr(), dw.data_ptr(), db.data_ptr(), n, splits,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _, tiles, ahead = bwd_schedule(n, _sm_count(torch.cuda.current_device()))
@@ -745,10 +812,10 @@ def fused_mlp_backward_flat(ops: FusedOperands, in8: torch.Tensor, g: torch.Tens
     return dw, db
 
 
-def fused_mlp_backward(ops: FusedOperands, in8: torch.Tensor, g: torch.Tensor) -> Packed:
+def fused_mlp_backward(ops: FusedOperands, saved: SavedForward, g: torch.Tensor) -> Packed:
     """:func:`fused_mlp_backward_flat` as one fp32 gradient per packed
     block, for the checks of kernel 2 against its plain version."""
-    return _unflatten_grads(*fused_mlp_backward_flat(ops, in8, g), ops.packed)
+    return _unflatten_grads(*fused_mlp_backward_flat(ops, saved, g), ops.packed)
 
 
 fused_mlp_backward.launches = fused_mlp_backward.captured = 0
@@ -903,9 +970,10 @@ class FusedMLP(torch.autograd.Function):
     """The fused MLP with its gradient: ``(in8, pe_mat, sin_mask, weight,
     bias, cfg)`` -> ``[P, 128]`` bf16, with ``weight`` and ``bias`` the
     buffers of :class:`FlatBlocks`.  On the card the forward casts
-    ``weight`` to bf16 once and builds kernel 1's image from it, and
-    kernel 2's ``dw``/``db`` are the buffers' gradients as they stand; on
-    CPU tensors the plain versions run on views of the buffers.  The
+    ``weight`` to bf16 once, builds kernel 1's image from it and launches
+    kernel 1's saving instance, whose saved forward it keeps for kernel 2,
+    and kernel 2's ``dw``/``db`` are the buffers' gradients as they stand;
+    on CPU tensors the plain versions run on views of the buffers.  The
     points and the PE constants get no gradient."""
 
     @staticmethod
@@ -921,15 +989,16 @@ class FusedMLP(torch.autograd.Function):
     def forward(ctx, in8, pe_mat, sin_mask, weight, bias, cfg):
         ops = FusedMLP._operands(in8, pe_mat, sin_mask, weight, bias, cfg)
         ops = ops._replace(wimg=_image_for(ops.wbuf))  # kernel 1's alone
-        ctx.save_for_backward(in8, pe_mat, sin_mask, weight, bias)
+        out, saved = fused_mlp_forward_saving(ops, in8)
+        ctx.save_for_backward(in8, saved.buf, pe_mat, sin_mask, weight, bias)
         ctx.cfg, ctx.wbuf = cfg, ops.wbuf
-        return fused_mlp_forward(ops, in8)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        in8, pe_mat, sin_mask, weight, bias = ctx.saved_tensors
+        in8, buf, pe_mat, sin_mask, weight, bias = ctx.saved_tensors
         ops = FusedMLP._operands(in8, pe_mat, sin_mask, weight, bias, ctx.cfg, ctx.wbuf)
-        dw, db = fused_mlp_backward_flat(ops, in8, g.to(torch.bfloat16))
+        dw, db = fused_mlp_backward_flat(ops, SavedForward(in8, buf), g.to(torch.bfloat16))
         return None, None, None, dw, db, None
 
 

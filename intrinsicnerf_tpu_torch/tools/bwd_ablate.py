@@ -3,23 +3,22 @@
 Builds variants of ``ops/csrc/fused_mlp_bwd.cu``, each with one part of
 the activation pass (``bwd_act_wgmma_kernel``) cut out by a text patch of
 a copy of the source, and times that pass in each at the training step's
-fine shape (196,608 points; ``tools/bwd_passes.py``'s inputs):
+fine shape (196,608 points; ``tools/bwd_passes.py``'s inputs, their saved
+forward from kernel 1's saving instance):
 
 - ``base``: the kernel as it is;
 - ``no_arena_stores``: every store into the arena: the consumers' bulk
   stores of each buffer's atoms and the staging warps' 16-byte stores of
-  the next tile's inputs (with nothing stored, the compiler drops the
-  staging warps' arithmetic too);
-- ``no_epilogues``: every epilogue (bias, ReLU, masks, bf16 stores,
-  column sums, arena stores);
+  the next tile's cotangent;
+- ``no_epilogues``: every gradient epilogue (masks, bf16 stores, column
+  sums, arena stores);
 - ``no_mma``: the wgmma products (the ring still streams every slab);
 - ``no_weight_loads``: the producer's bulk copies into the ring (the
   products read whatever the stages hold);
 - ``loads_only``: no products and no epilogues, only the weight stream;
 - ``stages2``: a ring of two stages instead of three;
-- ``no_pe``: the staging warps' PE arithmetic (they still write each
-  tile's feature atoms, zeros, and the copies still bring them in, so
-  nothing waits forever);
+- ``no_mask_loads``: the loads of the saved ReLU mask words (every mask
+  bit reads set);
 - ``staging_serial``: the staging warps stage a tile only once the
   consumers have finished the tile before it (their release of its
   cotangent moved to the tile's end), so the staging no longer overlaps
@@ -33,8 +32,8 @@ power limit:
     python -m intrinsicnerf_tpu_torch.tools.bwd_ablate [--iters 10]
 
 ``--sources a.cu,b.cu`` builds each listed copy of ``fused_mlp_bwd.cu``
-(an experiment beside the committed kernel, or the parent's with
-``--variants base``) in every variant, in turns; each later source's
+(an experiment beside the committed kernel, or a parent's of the same C
+interface with ``--variants base``) in every variant, in turns; each later source's
 ``base`` row also says whether its gradients ``dw`` and ``db`` equal the
 first source's, bitwise, at the fine step and at each count of
 ``SAME_AS_FIRST_N`` (``same_as_first``).
@@ -57,21 +56,20 @@ from intrinsicnerf_tpu_torch.ops import build
 from intrinsicnerf_tpu_torch.tools import bwd_passes
 
 _MMA = """      if constexpr (NW == 128)
-        hmma::wgmma_m64n128k16<0, WT ? 0 : 1>(acc, da, db, 1);
+        hmma::wgmma_m64n128k16<0, 0>(acc, da, db, 1);
       else
-        hmma::wgmma_m64n64k16<0, WT ? 0 : 1>(acc, da, db, 1);"""
+        hmma::wgmma_m64n64k16<0, 0>(acc, da, db, 1);"""
 _LOADS = """        hmma::mbar_expect_tx(full + st * 8, bytes);
         hmma::bulk_load_evict_last(ring + st * ACT_STAGE_BYTES, img + off, bytes, full + st * 8);"""
-_FWD_EPI = "  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, lane = lt & 31;\n"
 _GRAD_EPI = ("  const int wg = threadIdx.x >> 7, lt = threadIdx.x & 127, warp = lt >> 5, "
              "lane = lt & 31;\n")
 _STORE = "  const uint32_t off = (threadIdx.x >> 7) * NW * 128;\n"
 _STAGE_PUT = "  *reinterpret_cast<uint4*>(dst) = v;\n"
-_PE = "    if (row0 + i < n) {\n"
-_GO_RELEASE = ("    release(in_empty + IN_GO * 8);  // the cotangent read: the next tile's "
-               "features may land\n")
+_MASK_LOAD = ("__device__ __forceinline__ void load_mask(uint32_t (&bits)[NW / 64], "
+              "const uint32_t* mask) {\n")
+_GO_RELEASE = "    release(go_empty);  // the cotangent read: the next tile's may land\n"
 _TILE_END = "      other = read;\n    }\n"
-_STAGE_NEXT = ("    if (next < tiles) stage_tile(pe, in8, g, arena, bpart, next, n, p_pad);\n"
+_STAGE_NEXT = ("    if (next < tiles) stage_tile(g, arena, bpart, next, n, p_pad);\n"
                "    stage_sync();  // the next tile staged by every staging thread\n")
 _LOAD_NEXT = "    if (pt == 0 && next < tiles)\n"
 
@@ -79,15 +77,17 @@ PATCHES = {
     "base": [],
     "no_arena_stores": [(_STORE, "  return;\n" + _STORE),
                         (_STAGE_PUT, "  return;\n" + _STAGE_PUT)],
-    "no_epilogues": [(_FWD_EPI, "  return;\n" + _FWD_EPI), (_GRAD_EPI, "  return;\n" + _GRAD_EPI)],
+    "no_epilogues": [(_GRAD_EPI, "  return;\n" + _GRAD_EPI)],
     "no_mma": [(_MMA, "      (void)da;\n      (void)db;")],
     "no_weight_loads": [(_LOADS, "      hmma::mbar_arrive(full + st * 8);")],
     "stages2": [("constexpr int ACT_STAGES = 3;", "constexpr int ACT_STAGES = 2;")],
-    "no_pe": [(_PE, "    if (false) {\n")],
+    "no_mask_loads": [(_MASK_LOAD, _MASK_LOAD + "#pragma unroll\n"
+                                   "  for (int q = 0; q < NW / 64; ++q) bits[q] = 0xFFFFFFFFu;\n"
+                                   "  return;\n")],
     # the consumers release the cotangent at the tile's end, and the staging
     # warps stage the next tile only after that release
     "staging_serial": [(_GO_RELEASE, ""),
-                       (_TILE_END, _TILE_END + "    release(in_empty + IN_GO * 8);\n"),
+                       (_TILE_END, _TILE_END + "    release(go_empty);\n"),
                        (_STAGE_NEXT, ""), (_LOAD_NEXT, _STAGE_NEXT + _LOAD_NEXT)],
 }
 PATCHES["loads_only"] = PATCHES["no_mma"] + PATCHES["no_epilogues"]
@@ -130,29 +130,32 @@ def build_variant(variant: str, source: str = SOURCE, tag: str = "", patches=Non
 
 
 def load_variant(path: str, name: str = "fused_mlp_bwd") -> ctypes.CDLL:
+    """The library at ``path`` with the signatures of ``name``'s entries
+    that it has (a parent's build may lack a newer entry)."""
     lib = ctypes.CDLL(path)
     for entry, argtypes, restype in build.SIGNATURES[name]:
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = argtypes, restype
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
-def backward_call(lib, ops, in8, g, splits: int):
-    """A closure that runs one kernel-2 call of ``lib`` as the wrapper does."""
-    n, dev = in8.shape[0], in8.device
-    sizes = [ctypes.c_longlong() for _ in range(3)]
-    lib.fused_mlp_bwd_scratch(n, splits, *(ctypes.byref(x) for x in sizes))
-    arena = torch.empty(sizes[0].value, dtype=torch.bfloat16, device=dev)
-    bpart = torch.empty(sizes[1].value, dtype=torch.float32, device=dev)
-    ws = torch.empty(sizes[2].value, dtype=torch.float32, device=dev)
+def backward_call(lib, ops, saved, g, splits: int):
+    """A closure that runs one kernel-2 call of ``lib`` on the saved
+    forward ``saved`` (``fused_mlp_forward_saving``) as the wrapper does."""
+    n, dev = saved.in8.shape[0], saved.in8.device
+    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
+    _, _, arena_n, bpart_n, ws_n = fm.backward_scratch(n, splits)
+    arena = torch.empty(arena_n, dtype=torch.bfloat16, device=dev)
+    bpart = torch.empty(bpart_n, dtype=torch.float32, device=dev)
+    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
     dw = torch.empty(ops.wbuf.numel(), dtype=torch.float32, device=dev)
     db = torch.empty(ops.bbuf.numel(), dtype=torch.float32, device=dev)
-    pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def call():
-        err = lib.fused_mlp_bwd(in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(),
-                                ops.wbuf.data_ptr(), ops.bbuf.data_ptr(), g.data_ptr(),
+        err = lib.fused_mlp_bwd(ops.wbuf.data_ptr(), saved.buf.data_ptr(), g.data_ptr(),
                                 arena.data_ptr(), bpart.data_ptr(), ws.data_ptr(), dw.data_ptr(),
                                 db.data_ptr(), n, splits, stream)
         if err != 0:
@@ -162,9 +165,10 @@ def backward_call(lib, ops, in8, g, splits: int):
 
 
 def grad_inputs(ops, fine) -> dict:
-    """{label: (in8, g)}: the fine step's points ``fine`` and, for each
-    count of ``SAME_AS_FIRST_N``, those points repeated to it; g is the
-    cotangent (out - 0.5) / n of kernel 1's output at them."""
+    """{label: (saved, g)}: the saved forward (kernel 1's saving instance)
+    of the fine step's points ``fine`` and, for each count of
+    ``SAME_AS_FIRST_N``, of those points repeated to it; g is the cotangent
+    (out - 0.5) / n of kernel 1's output at them."""
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     cases = {"fine_step": fine}
@@ -172,8 +176,8 @@ def grad_inputs(ops, fine) -> dict:
         cases[str(n)] = fine.repeat(-(-n // fine.shape[0]), 1)[:n].contiguous()
     inputs = {}
     for label, in8 in cases.items():
-        out = fm.fused_mlp_forward(ops, in8)
-        inputs[label] = (in8, ((out.float() - 0.5) / out.shape[0]).to(torch.bfloat16))
+        out, saved = fm.fused_mlp_forward_saving(ops, in8)
+        inputs[label] = (saved, ((out.float() - 0.5) / out.shape[0]).to(torch.bfloat16))
     return inputs
 
 
@@ -183,8 +187,8 @@ def base_grads(lib, ops, inputs) -> dict:
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     grads = {}
-    for label, (in8, g) in inputs.items():
-        call = backward_call(lib, ops, in8, g, fm.backward_splits(in8.shape[0]))
+    for label, (saved, g) in inputs.items():
+        call = backward_call(lib, ops, saved, g, fm.backward_splits(saved.in8.shape[0]))
         call()
         grads[label] = torch.cat(call.grads).view(torch.int32)
     torch.cuda.synchronize()
@@ -217,13 +221,14 @@ def main(argv=None) -> int:
     ops = model.fused_operands(mcfg)
     inputs = grad_inputs(ops, bwd_passes.step_inputs(
         model, fc.render, 2 * fc.train.n_rays, fc.render.n_coarse + fc.render.n_importance, dev))
-    in8, g = inputs["fine_step"]
-    splits = fm.backward_splits(in8.shape[0])
+    saved, g = inputs["fine_step"]
+    n = saved.in8.shape[0]
     first = None
     for (v, src, _), path in zip(jobs, libs):
         lib = load_variant(path)
-        t = bwd_passes.pass_times(backward_call(lib, ops, in8, g, splits), args.iters)
-        row = {"variant": v, "source": os.path.relpath(src), "points": in8.shape[0],
+        t = bwd_passes.pass_times(backward_call(lib, ops, saved, g, fm.backward_splits(n)),
+                                  args.iters)
+        row = {"variant": v, "source": os.path.relpath(src), "points": n,
                "pass_ms": {p: t[p] for p in bwd_passes.PASSES}, "card": card}
         if v == "base":
             grads = base_grads(lib, ops, inputs)

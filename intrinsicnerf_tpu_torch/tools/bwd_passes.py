@@ -1,11 +1,12 @@
 """Kernel 2's passes timed one by one on the card.
 
 Kernel 2 (``ops/csrc/fused_mlp_bwd.cu``) is one call of three passes: the
-activation pass (its weight image, then the forward recompute and the
-backward chain into the bf16 arena), the weight-gradient pass (dW = A^T G
-over the arena's points) and the fixed-order reductions.  This tool
-profiles ``fused_mlp_backward`` at the Replica training step's two shapes
-and reports each pass's device time beside its bound:
+activation pass (its weight image, then the backward chain over kernel
+1's saved forward into the bf16 arena), the weight-gradient pass (dW =
+A^T G over the saved forward's and the arena's points) and the
+fixed-order reductions.  This tool profiles ``fused_mlp_backward`` at the
+Replica training step's two shapes, on the saved forward of kernel 1's
+saving instance, and reports each pass's device time beside its bound:
 
     python -m intrinsicnerf_tpu_torch.tools.bwd_passes [--iters 10]
 
@@ -26,9 +27,14 @@ import subprocess
 
 import torch
 
+from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
+
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-ARENA_BYTES = 5888 * 2  # bf16 arena columns per point (fused_mlp_bwd.cu)
+ARENA_BYTES = 2 * fm.GRAD_COLS  # kernel 2's bf16 gradient arena per point: 5,888
+# the saved forward per point, its bf16 activations and its share of a
+# tile's 32-bit mask words: 6,272
+SAVED_BYTES = 2 * fm.SAVED_COLS + 4 * fm.MASK_WORDS // fm.FWD_TILE
 # each pass, by a substring of its kernels' names (the activation pass's
 # weight image, bwd_act_wimg_kernel, counts with it)
 PASSES = {"act": "bwd_act", "wgrad": "bwd_wgrad", "reduce": "reduce_rows"}
@@ -39,38 +45,34 @@ N_CLASSES = 27
 
 def backward_macs(model) -> dict:
     """Multiply-adds per point of the backward on the network's own layers
-    (its reference state_dict's weights, in either layout):
-    the forward without the five output products, the weight product of
-    every layer, the input product of every layer whose input depends on
-    parameters (all but the PE-fed w0, w5x and wv_d).  A model without
-    the semantic head (the object configurations) counts none of it."""
+    (its reference state_dict's weights, in either layout): the weight
+    product of every layer and the input product of every layer whose
+    input depends on parameters (all but the PE-fed w0, w5x and wv_d).  It
+    recomputes nothing: the forward's training launch saves what the
+    backward reads.  A model without the semantic head (the object
+    configurations) counts none of it."""
     cfg = model.cfg
     lin = {k[: -len(".weight")]: v for k, v in model.state_dict().items() if k.endswith(".weight")}
     macs = sum(w.numel() for w in lin.values())
-    out_macs = sum(lin[n].numel() for n in ("alpha_linear", "albedo_linear2",
-                                            "shading_linear2", "residual_linear",
-                                            "semantic_linear.1") if n in lin)
     pe_macs = 2 * cfg.input_ch * cfg.width + cfg.input_ch_views * (cfg.width // 2)
-    return {"fwd_recompute": macs - out_macs, "weight_products": macs,
-            "input_products": macs - pe_macs}
+    return {"weight_products": macs, "input_products": macs - pe_macs}
 
 
 def pass_bounds(n: int, work: dict, splits: int) -> dict:
     """{pass: (bound ms, "operations" or "bytes")} for ``n`` points.
 
-    Activation pass: the recompute and the input products; it reads the
-    points (32 B) and the cotangent (256 B) and writes the arena.
-    Weight-gradient pass: the weight products; it reads the arena and
-    writes ``splits`` fp32 partials of the 835,584 weights.  Reductions:
+    Activation pass: the input products; it reads the cotangent (256 B)
+    and the saved ReLU masks (384 B) and writes the arena.  Weight-gradient
+    pass: the weight products; it reads the saved activations and the
+    arena and writes ``splits`` fp32 partials of the 835,584 weights.  Reductions:
     they read the partials and the per-tile bias partials and write dW
     and db."""
     w_total, b_total = 835_584, 2_944
     tiles = -(-n // 64)
     jobs = {
-        "act": (2.0 * n * (work["fwd_recompute"] + work["input_products"]),
-                n * (32 + 256 + ARENA_BYTES)),
+        "act": (2.0 * n * work["input_products"], n * (256 + 384 + ARENA_BYTES)),
         "wgrad": (2.0 * n * work["weight_products"],
-                  n * ARENA_BYTES + splits * w_total * 4),
+                  n * (SAVED_BYTES - 384 + ARENA_BYTES) + splits * w_total * 4),
         "reduce": (float(splits * w_total + tiles * b_total),
                    4 * (splits * w_total + tiles * b_total + w_total + b_total)),
     }
@@ -112,7 +114,6 @@ def step_inputs(model, rcfg, n_rays: int, n_samples: int, device):
     320x240 view at ``n_samples`` stratified samples, packed as in8."""
     from intrinsicnerf_tpu_torch.core.rays import create_rays
     from intrinsicnerf_tpu_torch.core.sampling import stratified_z_vals
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     h, w = 240, 320
     c2w = torch.eye(4, device=device)
@@ -130,7 +131,6 @@ def main(argv=None) -> int:
         raise SystemExit("bwd_passes: needs a CUDA device")
     from intrinsicnerf_tpu_torch.config import from_yaml
     from intrinsicnerf_tpu_torch.models.mlp import PackedMLP
-    from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -145,16 +145,16 @@ def main(argv=None) -> int:
     for label, samples in (("coarse_step", fc.render.n_coarse),
                            ("fine_step", fc.render.n_coarse + fc.render.n_importance)):
         in8 = step_inputs(model, fc.render, n_rays, samples, dev)
-        out = fm.fused_mlp_forward(ops, in8)
+        out, saved = fm.fused_mlp_forward_saving(ops, in8)
         g = ((out.float() - torch.rand(out.shape, generator=gen, device=dev)) / out.shape[0])
         g[:, 8 + N_CLASSES:] = 0.0
         g = g.to(torch.bfloat16)
         n = in8.shape[0]
-        t = pass_times(lambda: fm.fused_mlp_backward(ops, in8, g), args.iters)
+        t = pass_times(lambda: fm.fused_mlp_backward(ops, saved, g), args.iters)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.iters):
-            fm.fused_mlp_backward(ops, in8, g)
+            fm.fused_mlp_backward(ops, saved, g)
         end.record()
         torch.cuda.synchronize()
         bounds = pass_bounds(n, work, fm.backward_splits(n))

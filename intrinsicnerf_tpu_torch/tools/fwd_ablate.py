@@ -22,9 +22,12 @@ the kernel in each with CUDA events at the training step's fine shape
   released the tile before it, so the encoding no longer overlaps the
   chain: the staged feed alone, the overlap's worth measured apart.
 
-A cut computes garbage; only its time means anything.  The ``base``
-build of each source is also held against the plain version at the fine
-step (max |d| / max(|plain|, 1) over the output, and a bitwise repeat).
+Each variant's training (saving) instance is timed beside it at the fine
+step (``save_ms``), where a build has one.  A cut computes garbage; only
+its time means anything.  The ``base`` build of each source is also held
+against the plain version at the fine step (max |d| / max(|plain|, 1)
+over the output, and a bitwise repeat), and its saving instance's output
+against its serving one's, bitwise (``save_same_out``).
 The patched sources and libraries go to ``_build/ablate/``
 (``tools/bwd_ablate.py`` builds them).  One JSON line per variant and
 source with the kernel's ms at each shape and the card's name and power
@@ -58,7 +61,10 @@ _MMA = """      if constexpr (NW == 128)
       else
         hmma::wgmma_m64n64k16<0, 1>(acc, da, db, 1);"""
 _LOADS = """        hmma::mbar_expect_tx(full + st * 8, bytes);
-        hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);"""
+        if constexpr (SAVE)
+          hmma::bulk_load_evict_last(ring + st * STAGE_BYTES, src, bytes, full + st * 8);
+        else
+          hmma::bulk_load(ring + st * STAGE_BYTES, src, bytes, full + st * 8);"""
 _EPI = "  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;\n"
 _STORE = "  unsigned char* A = S + wg * ATOM;\n"
 _SYNC = ("  hmma::fence_proxy_async();  // the epilogues' shared writes, to wgmma's proxy\n"
@@ -103,9 +109,11 @@ def shape_inputs(model, fc, device) -> dict:
     return {"fine_step": fine, "fine_chunk": chunk.repeat(-(-n // chunk.shape[0]), 1)[:n]}
 
 
-def forward_call(lib, ops, in8):
+def forward_call(lib, ops, in8, save: bool = False):
     """A closure that runs one kernel-1 launch of ``lib`` as the wrapper
-    does, on the weight image built by the same library."""
+    does, on the weight image built by the same library: the serving
+    instance, or with ``save`` the saving one into a saved buffer of its
+    own."""
     from intrinsicnerf_tpu_torch.ops import fused_mlp as fm
 
     dev = in8.device
@@ -114,12 +122,18 @@ def forward_call(lib, ops, in8):
     if lib.fused_mlp_fwd_image(ops.wbuf.data_ptr(), img.data_ptr(), stream) != 0:
         raise RuntimeError("fused_mlp_fwd_image launch failed")
     pe_mat, sin_mask = (t.float().contiguous() for t in ops.pe)
-    out = torch.empty((in8.shape[0], fm.OUT_W), dtype=torch.bfloat16, device=dev)
+    n = in8.shape[0]
+    out = torch.empty((n, fm.OUT_W), dtype=torch.bfloat16, device=dev)
+    acts, masks, *_ = fm.backward_scratch(n, 1)
+    saved = torch.empty(acts + 2 * masks if save else 0, dtype=torch.bfloat16, device=dev)
+    args = (in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(), img.data_ptr(),
+            ops.bbuf.data_ptr(), out.data_ptr())
 
     def call():
-        err = lib.fused_mlp_fwd(in8.data_ptr(), pe_mat.data_ptr(), sin_mask.data_ptr(),
-                                img.data_ptr(), ops.bbuf.data_ptr(), out.data_ptr(),
-                                in8.shape[0], stream)
+        if save:
+            err = lib.fused_mlp_fwd_save(*args, saved.data_ptr(), n, stream)
+        else:
+            err = lib.fused_mlp_fwd(*args, n, stream)
         if err != 0:
             raise RuntimeError(f"fused_mlp_fwd launch failed: cudaError {err}")
     call.out = out
@@ -167,8 +181,15 @@ def time_variants(built, ops, inputs, iters: int) -> list:
         calls = {label: forward_call(lib, ops, in8) for label, in8 in inputs.items()}
         ms = {label: event_ms(call, iters) for label, call in calls.items()}
         row = {"variant": v, "source": os.path.relpath(src), "ms": ms}
+        saving = None
+        if hasattr(lib, "fused_mlp_fwd_save"):
+            saving = forward_call(lib, ops, inputs["fine_step"], save=True)
+            row["save_ms"] = {"fine_step": event_ms(saving, iters)}
         if v == "base":
             row.update(check_base(lib, ops, inputs["fine_step"]))
+            if saving is not None:
+                row["save_same_out"] = torch.equal(saving.out.view(torch.int16),
+                                                   calls["fine_step"].out.view(torch.int16))
             outs = {label: call.out.view(torch.int16) for label, call in calls.items()}
             if first is None:
                 first = outs
@@ -176,7 +197,7 @@ def time_variants(built, ops, inputs, iters: int) -> list:
                 row["same_as_first"] = {label: torch.equal(out, first[label])
                                         for label, out in outs.items()}
         rows.append(row)
-        del calls  # its outputs, before the next variant allocates its own
+        del calls, saving  # its outputs, before the next variant allocates its own
     return rows
 
 

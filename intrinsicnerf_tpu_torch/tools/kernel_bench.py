@@ -7,7 +7,7 @@ and fine (196,608) point counts of one training step, the time of
   weight image built once);
 - the forward and backward of the packed training state
   (``fused_mlp_apply`` on ``PackedMLP``'s buffers, then ``backward``):
-  kernel 1's weight image, kernel 1, and kernel 2;
+  kernel 1's weight image, kernel 1's saving instance, and kernel 2;
 
 and the graphed training step of ``tools/bench.py`` (8 steps a replay).
 Each time stands beside the least time the card could take for the same

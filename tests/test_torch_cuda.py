@@ -18,14 +18,20 @@ Tolerances, those of ``tests/test_fused_mlp.py``:
   fine call and a view's coarse chunk) the same, with the counters
   ``fwd.tiles`` and ``fwd.tiles_ahead`` moved by ``fwd_schedule``'s
   amounts; a 64-aligned slice's launch, and two replays of a captured
-  launch, give bitwise the full or eager launch's rows;
-- kernel 2: over the real parameter slots, overall and per block, cosine
-  > 0.999 and max |d| <= 1e-2 * max |plain|, for the cotangent of a
-  seeded squared-error loss on the output (coherent across points, as a
-  training loss's is); two launches give bitwise-equal gradients; each
-  launch moves the counters ``bwd.tiles`` and ``bwd.tiles_ahead`` by
-  ``bwd_schedule``'s amounts, and a captured training block's backward
-  calls move them by the same at each replay.
+  launch, give bitwise the full or eager launch's rows; its saving
+  instance (training) gives bitwise the serving instance's output and
+  moves ``fwd.saved_tiles`` by its tiles;
+- kernel 2, on the saved forward of kernel 1's saving instance: over the
+  real parameter slots, overall and per block, cosine > 0.999 and max |d|
+  <= 1e-2 * max |plain|, for the cotangent of a seeded squared-error loss
+  on the output (coherent across points, as a training loss's is), at C =
+  27 and with the semantic head off; two launches give bitwise-equal
+  gradients; a captured saving forward and backward replay bitwise the
+  eager ones; each launch moves the counters ``bwd.tiles`` and
+  ``bwd.tiles_ahead`` by ``bwd_schedule``'s amounts, and a captured
+  training block's backward calls move them by the same at each replay,
+  where ``fwd.saved_tiles`` moves as ``bwd.tiles`` does (and not at all
+  in a render).
 - kernel 3 (the forward probe): max |d| / max(|plain|, 1) < 2e-2, the
   bound ``chip_smoke.py`` holds it to; both sides round the same operands
   to bf16, and a fp32 sum-order flip of an intermediate bf16 rounding
@@ -156,6 +162,33 @@ def test_kernel_matches_plain(model, k, d):
         assert (x - y).abs().max().item() / max(y.abs().max().item(), 1.0) < 2e-2, (a, b)
 
 
+@pytest.mark.parametrize("k,d", [(0, 1), (0, 4_097), (0, 196_608), (1, 1), (2, 37)],
+                         ids=["1", "4097", "196608", "1S64+1", "2S64+37"])
+def test_saving_instance_gives_the_serving_output(model, k, d):
+    """Kernel 1's training (saving) instance gives bitwise the serving
+    instance's output, writes a saved forward of ``backward_scratch``'s
+    size, and counts its tiles in ``fwd.saved_tiles`` beside ``fwd.tiles``;
+    the serving launch moves ``fwd.saved_tiles`` not at all."""
+    cfg, m = model
+    n = k * _sms() * 64 + d
+    in8, _ = _in8(n, n + 5)
+    ops = m.fused_operands(cfg)
+    before = fm.fused_mlp_forward.launches
+    saved0 = trace.snapshot()["counters"].get("fwd.saved_tiles", 0)
+    serve = fm.fused_mlp_forward(ops, in8)
+    saved1 = trace.snapshot()["counters"].get("fwd.saved_tiles", 0)
+    out, saved = fm.fused_mlp_forward_saving(ops, in8)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_forward.launches == before + 2
+    _, tiles, _ = fm.fwd_schedule(n, _sms())
+    assert (saved1 - saved0, trace.snapshot()["counters"]["fwd.saved_tiles"] - saved1) == (
+        0, tiles)
+    assert torch.equal(out.view(torch.int16), serve.view(torch.int16))
+    acts, masks, *_ = fm.backward_scratch(n, 1)
+    assert saved.buf.dtype == torch.bfloat16 and saved.buf.numel() == acts + 2 * masks
+    assert saved.in8 is in8
+
+
 def test_kernel_rows_do_not_depend_on_the_launch(model):
     """A launch over a 64-aligned slice of the points gives bitwise the
     rows of the full launch, though its tiles land on other blocks, other
@@ -238,15 +271,15 @@ def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
     cfg, m = model
     ops = m.fused_operands(cfg)
     in8, gen = _in8(n, n)
-    out = fm.fused_mlp_forward(ops, in8)
+    out, saved = fm.fused_mlp_forward_saving(ops, in8)
     target = torch.rand(out.shape, device="cuda", generator=gen)
     g = (out.float() - target) / n
     g[:, 8 + C:] = 0.0
     g = g.to(torch.bfloat16)
     before = fm.fused_mlp_backward.launches
     tiles0, ahead0 = _tile_counters("bwd")
-    got = fm.fused_mlp_backward(ops, in8, g)
-    again = fm.fused_mlp_backward(ops, in8, g)
+    got = fm.fused_mlp_backward(ops, saved, g)
+    again = fm.fused_mlp_backward(ops, saved, g)
     torch.cuda.synchronize()
     assert fm.fused_mlp_backward.launches == before + 2
     _, tiles, ahead = fm.bwd_schedule(n, _sms())
@@ -262,6 +295,34 @@ def test_backward_kernel_matches_plain_and_is_deterministic(model, n):
     for k in keys:
         cos, rel = _cos_rel(got[k] * masks[k], ref[k] * masks[k])
         assert cos > 0.999 and rel <= 1e-2, (k, cos, rel)
+
+
+def test_saving_forward_and_backward_in_a_cuda_graph_equal_eager(model):
+    """Kernel 1's saving instance and kernel 2 captured in one CUDA graph
+    and replayed twice give bitwise the eager output and gradients."""
+    cfg, m = model
+    n = 196_608 + 11
+    in8, gen = _in8(n, 13)
+    ops = m.fused_operands(cfg)
+    target = torch.rand((n, fm.OUT_W), device="cuda", generator=gen)
+
+    def fwd_bwd():
+        out, saved = fm.fused_mlp_forward_saving(ops, in8)
+        return (out, *fm.fused_mlp_backward_flat(ops, saved, ((out.float() - target) / n).to(
+            torch.bfloat16)))
+
+    eager = [t.clone() for t in fwd_bwd()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fwd_bwd()
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(got, eager):
+            assert torch.equal(_bits(x), _bits(y))
 
 
 def test_training_step_on_card(model):
@@ -421,9 +482,9 @@ def test_captured_step_counts_backward_tiles(graph_setup, monkeypatch):
     seen = []
     inner = fm.fused_mlp_backward_flat
 
-    def spy(ops, in8, g):
-        seen.append(in8.shape[0])
-        return inner(ops, in8, g)
+    def spy(ops, saved, g):
+        seen.append(saved.in8.shape[0])
+        return inner(ops, saved, g)
 
     monkeypatch.setattr(fm, "fused_mlp_backward_flat", spy)
     multi = make_multi_step(step, GRAPH_K)
@@ -439,6 +500,36 @@ def test_captured_step_counts_backward_tiles(graph_setup, monkeypatch):
     want = [fm.bwd_schedule(n, _sms()) for n in captured]
     assert (tiles1 - tiles0, ahead1 - ahead0) == (sum(w[1] for w in want), sum(w[2] for w in want))
     assert sum(w[2] for w in want) > 0
+
+
+def test_saved_tiles_count_the_backward_tiles(graph_setup, model):
+    """A replay of a captured training block moves ``fwd.saved_tiles`` by
+    as much as ``bwd.tiles``: each backward call reads one saving forward's
+    tiles; a render (the serving instance) moves it not at all."""
+    step, state, pools, table, w_c, gen, snap = graph_setup
+    multi = make_multi_step(step, GRAPH_K)
+    restore_state(state, snap, gen)
+    multi(state, pools, table, w_c, gen)  # the warm-up step, the capture, a replay
+    torch.cuda.synchronize()
+
+    def counts():
+        c = trace.snapshot()["counters"]
+        return c.get("fwd.saved_tiles", 0), c.get("bwd.tiles", 0)
+
+    saved0, bwd0 = counts()
+    multi(state, pools, table, w_c, gen)
+    torch.cuda.synchronize()
+    saved1, bwd1 = counts()
+    assert saved1 - saved0 == bwd1 - bwd0 > 0
+    cfg, m = model
+    c2w = torch.eye(4, device="cuda")
+    c2w[2, 3] = -1.0
+    rays = create_rays(c2w, 12, 16, 8.0, 8.0, 7.5, 5.5, 0.1, 10.0)[0]
+    tiles0 = _tile_counters()[0]
+    with torch.no_grad():
+        render_rays_chunked(m, m, cfg, rays, RenderConfig(), chunk=64)
+    torch.cuda.synchronize()
+    assert counts()[0] == saved1 and _tile_counters()[0] > tiles0
 
 
 def test_generator_advances_across_replays(graph_setup):
@@ -666,12 +757,12 @@ def test_object_backward_at_the_fine_step(object_model):
     n = 393_216
     ops = m.fused_operands(cfg)
     in8, gen = _in8(n, 4)
-    out = fm.fused_mlp_forward(ops, in8)
+    out, saved = fm.fused_mlp_forward_saving(ops, in8)
     g = (out.float() - torch.rand(out.shape, device="cuda", generator=gen)) / n
     g[:, 8:] = 0.0  # the object model reads sigma, albedo, shading and residual
     g = g.to(torch.bfloat16)
-    got = fm.fused_mlp_backward(ops, in8, g)
-    again = fm.fused_mlp_backward(ops, in8, g)
+    got = fm.fused_mlp_backward(ops, saved, g)
+    again = fm.fused_mlp_backward(ops, saved, g)
     torch.cuda.synchronize()
     assert all(torch.equal(got[k], again[k]) for k in got)
     masks = fm.packed_grad_masks(m.state_dict(), cfg)
@@ -682,6 +773,34 @@ def test_object_backward_at_the_fine_step(object_model):
     ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
     keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
     assert not any(k.endswith(("m1", "m2")) for k in keys)
+    cos, rel = _cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
+                        torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
+    assert cos > 0.999 and rel <= 1e-2, (cos, rel)
+    for k in keys:
+        cos, rel = _cos_rel(got[k] * masks[k], ref[k] * masks[k])
+        assert cos > 0.999 and rel <= 1e-2, (k, cos, rel)
+
+
+@pytest.mark.parametrize("n", [1, 4_097, 8_448, 262_144])
+def test_object_backward_kernel_matches_plain(object_model, n):
+    """Kernel 2 with the semantic head off (C = 0, as fern trains) on a
+    saving forward, at one point, a ragged count, one tile a block on 132
+    SMs and fern's fine call, against its plain version at kernel 2's
+    bounds, bitwise across launches."""
+    cfg, m = object_model
+    ops = m.fused_operands(cfg)
+    in8, gen = _in8(n, n + 1)
+    out, saved = fm.fused_mlp_forward_saving(ops, in8)
+    g = (out.float() - torch.rand(out.shape, device="cuda", generator=gen)) / n
+    g[:, 8:] = 0.0
+    g = g.to(torch.bfloat16)
+    got = fm.fused_mlp_backward(ops, saved, g)
+    again = fm.fused_mlp_backward(ops, saved, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    ref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)
+    masks = fm.packed_grad_masks(m.state_dict(), cfg)
+    keys = [k for k in ref if float((ref[k] * masks[k]).abs().max()) > 0]
     cos, rel = _cos_rel(torch.cat([(got[k] * masks[k]).flatten() for k in keys]),
                         torch.cat([(ref[k] * masks[k]).flatten() for k in keys]))
     assert cos > 0.999 and rel <= 1e-2, (cos, rel)
@@ -886,8 +1005,10 @@ def test_kernels_at_nyu_widths(card, c, n):
     g = (got.float() - torch.rand(got.shape, device="cuda", generator=gen)) / n
     g[:, 8 + c:] = 0.0
     g = g.to(torch.bfloat16)
-    bwd = fm.fused_mlp_backward(ops, in8, g)
-    bwd2 = fm.fused_mlp_backward(ops, in8, g)
+    saving, saved = fm.fused_mlp_forward_saving(ops, in8)
+    assert torch.equal(saving.view(torch.int16), got.view(torch.int16))
+    bwd = fm.fused_mlp_backward(ops, saved, g)
+    bwd2 = fm.fused_mlp_backward(ops, saved, g)
     torch.cuda.synchronize()
     assert all(torch.equal(bwd[k], bwd2[k]) for k in bwd)
     bref = fm.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g)

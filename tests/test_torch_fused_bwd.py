@@ -219,4 +219,27 @@ def test_backward_refuses_other_devices(setup):
     in8 = torch.zeros(4, tf.IN8_W, device="meta")
     g = torch.zeros(4, tf.OUT_W, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        tf.fused_mlp_backward(ops, in8, g)
+        tf.fused_mlp_backward(ops, tf.SavedForward(in8), g)
+
+
+def test_saving_forward_on_the_host_is_the_plain_version(setup):
+    """On CPU tensors the training forward is the plain version, saves the
+    points alone, and the backward recomputes from them: the values and
+    gradients of ``fused_mlp_forward`` and ``fused_mlp_backward_plain``, and
+    ``FusedMLP`` gives the same through autograd."""
+    _, tcfg, _, model = setup
+    pts, d = _points(40, 7)
+    in8 = tf.build_in8(torch.from_numpy(pts), torch.from_numpy(d))
+    ops = model.fused_operands(tcfg)
+    out, saved = tf.fused_mlp_forward_saving(ops, in8)
+    assert saved.in8 is in8 and saved.buf is None
+    assert torch.equal(out, tf.fused_mlp_forward(ops, in8))
+    g = ((out.float() - 0.5) / 40).to(torch.bfloat16)
+    dw, db = tf.fused_mlp_backward_flat(ops, saved, g)
+    want = tf._flatten_grads(tf.fused_mlp_backward_plain(ops.packed, ops.pe, in8, g))
+    assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+    model.zero_grad(set_to_none=True)
+    got = tf.fused_mlp_apply(model.flat(), tcfg, in8)
+    assert torch.equal(got, out)
+    got.backward(g)
+    assert torch.equal(model.weight.grad, dw) and torch.equal(model.bias.grad, db)
